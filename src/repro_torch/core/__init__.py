@@ -1,0 +1,9 @@
+"""PS-DSF core of the port: problem containers, gamma, instances, the
+dense solve (``psdsf_torch``), the engine entry (``engine.solve``) and the
+Eq. 16 telemetry (``dynamic.min_vds_guarded``)."""
+from .types import Allocation, AllocationProblem
+from .gamma import gamma_matrix, gamma_matrix_torch
+from .solveinfo import SolveInfo, stranded_fraction
+
+__all__ = ["Allocation", "AllocationProblem", "SolveInfo", "gamma_matrix",
+           "gamma_matrix_torch", "stranded_fraction"]
