@@ -12,18 +12,28 @@ Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
    ``engine.solve(..., fill="bisect", round="jacobi")`` on the card and
    checks the paper's values;
 3. holds each kernel against its plain PyTorch version on the card, at the
-   main path's shapes (one fill event of the 20,000 x 256 datacenter pin in
-   float64 and float32, the VDS reduction over that pin's gamma), and times
-   both with CUDA events (warm, back to back);
-4. drives the main path with every launch count set to 0: the 20,000 x 256
-   pin in float64 (``engine.solve``, Jacobi rounds, bisect fill, dense
-   layout, 32 rounds at tol=0), its ``min_vds_guarded`` telemetry, the
-   20,000 x 1,024 instance in float32 (``psdsf_solve_torch``), and its
-   telemetry; then checks the outputs (finite, non-negative, feasible), the
-   float64 solve against the same solve with the plain fill to 1e-9, and the
-   telemetry against its plain version;
-5. profiles two Jacobi rounds for the device-time breakdown;
-6. prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and as its
+   main paths' shapes (one dense fill event of the 20,000 x 256 datacenter
+   pin in float64 and of 20,000 x 1,024 in float32, one bucketed fill event
+   on the same two instances' buckets, the VDS reduction over the pin's
+   gamma), and times both with CUDA events (warm, back to back);
+4. drives the dense main path with every launch count set to 0: the
+   20,000 x 256 pin in float64 (``engine.solve``, Jacobi rounds, bisect
+   fill, ``layout="dense"``, 32 rounds at tol=0), its ``min_vds_guarded``
+   telemetry, the 20,000 x 1,024 instance in float32
+   (``psdsf_solve_torch``, dense), and its telemetry; then checks the
+   outputs (finite, non-negative, feasible), the float64 solve against the
+   same solve with the plain fill to 1e-9, and the telemetry against its
+   plain version;
+5. drives the sparse main path the same way, counts set to 0 again: the pin
+   through ``engine.solve`` at its default ``layout="auto"`` (which must
+   resolve to the bucketed layout with Bmax 692 and launch the bucketed
+   kernel 5 x 32 times), the 20,000 x 1,024 instance through
+   ``psdsf_solve_torch(layout="bucketed")``, and the telemetry of each;
+   checks the outputs, the bucketed float64 solve against the dense one
+   to 1e-9 and against the plain-driven bucketed solve, and prints the
+   layout build's host time and the dense-vs-bucketed walls;
+6. profiles 32 Jacobi rounds of each layout for the device-time breakdown;
+7. prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and as its
    last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the last line. Without a CUDA device,
@@ -63,6 +73,7 @@ class Smoke:
         self.device = torch.device("cpu" if rehearse else "cuda")
         self.failed = []
         self.rows = {}
+        self.paths = {}
 
     # -- helpers -----------------------------------------------------------
     def phase(self, name, fn):
@@ -136,6 +147,60 @@ class Smoke:
                                    device=self.device))
         return out
 
+    def bucket_event_inputs(self, prob, g, lay, dtype, seed=7):
+        """One bucketed saturation event's inputs, as
+        ``ops.fill_cluster_bucketed`` builds them mid-loop on the buckets of
+        ``lay``: some slots frozen, padded slots inert, some resources
+        saturated, nonzero frozen usage and levels."""
+        import numpy as np
+        torch = self.torch
+        rng = np.random.default_rng(seed)
+        n, k = g.shape
+        idx, mask = lay.indices, lay.mask
+        x_ext = rng.uniform(0.0, 2.0, (n, k))
+        gam_b = np.where(mask, np.take_along_axis(g.T, idx, axis=1), 0.0)
+        xeb = np.take_along_axis(x_ext.T, idx, axis=1)
+        live = mask & (gam_b > 0) & (rng.random(mask.shape) > 0.2)
+        rate = np.where(live, prob.weights[idx] * gam_b, 0.0)
+        floors = np.where(live, xeb / np.maximum(rate, 1e-300), 0.0)
+        caps = prob.capacities
+        arrays = [floors, rate, prob.demands[idx], caps,
+                  rng.uniform(0.0, 0.3, caps.shape) * caps]
+        out = [torch.as_tensor(a, dtype=dtype, device=self.device)
+               .contiguous() for a in arrays]
+        out.append(torch.as_tensor(rng.random(caps.shape) < 0.15,
+                                   device=self.device))
+        out.append(torch.as_tensor(rng.uniform(0.0, 0.5, k), dtype=dtype,
+                                   device=self.device))
+        return out
+
+    @staticmethod
+    def bound(nbytes, flops, label):
+        """(bound ms, what bounds it): the larger of the bytes over the
+        memory rate and the operations over the peak rate of ``label``."""
+        t_bytes = nbytes / PEAK_BYTES_PER_S
+        t_ops = flops / PEAK_FLOPS[label]
+        return (max(t_bytes, t_ops) * 1e3,
+                "bytes" if t_bytes > t_ops else "operations")
+
+    def compare_event(self, got, want, label, what):
+        """Max |kernel - plain| over an event's four outputs, each held to
+        1e-9 (float64) or 5e-6 (float32) times max(1, |plain|)."""
+        torch = self.torch
+        err, ok = 0.0, True
+        for name, a, b in zip(("level", "usage", "local_slope", "slope"),
+                              got, want):
+            e = float((a - b).abs().max())
+            scale = max(1.0, float(b.abs().max()))
+            bound = F64_ATOL * scale if a.dtype == torch.float64 \
+                else F32_REL * scale
+            ok &= e <= bound
+            err = max(err, e)
+            print(f"  {label} {name}: max|kernel-plain|={e:.3e} "
+                  f"(bound {bound:.1e})")
+        self.check(ok, f"{what} {label} disagrees with plain")
+        return err
+
     # -- phases ------------------------------------------------------------
     def card(self):
         torch = self.torch
@@ -158,7 +223,8 @@ class Smoke:
             print("rehearsal: nothing built")
             return
         t0 = time.perf_counter()
-        logs = _build.build(["psdsf_fill", "psdsf_vds"])
+        logs = _build.build(["psdsf_fill", "psdsf_fill_bucketed",
+                             "psdsf_vds"])
         print(f"built {sorted(logs) or 'nothing (cached)'} in "
               f"{time.perf_counter() - t0:.1f} s")
         for name, log in logs.items():
@@ -206,26 +272,14 @@ class Smoke:
             got = kernel.fill_event_levels(*args, steps=steps)
             want = ref.fill_event_levels(*args, steps=steps)
             self.sync()
-            err, ok = 0.0, True
-            for name, a, b in zip(("level", "usage", "local_slope", "slope"),
-                                  got, want):
-                e = float((a - b).abs().max())
-                scale = max(1.0, float(b.abs().max()))
-                bound = F64_ATOL * scale if dtype == torch.float64 \
-                    else F32_REL * scale
-                ok &= e <= bound
-                err = max(err, e)
-                print(f"  {label} {name}: max|kernel-plain|={e:.3e} "
-                      f"(bound {bound:.1e})")
-            self.check(ok, f"psdsf_fill {label} disagrees with plain")
+            err = self.compare_event(got, want, label, "psdsf_fill")
             n, k = g.shape
             r = p.num_resources
             b = 8 if dtype == torch.float64 else 4
             nbytes = (2 * n * k + n * r + 2 * k * r + k) * b + k * r \
                 + (k + 3 * k * r) * b
             flops = (steps + 3) * n * k * (2 * r + 3)
-            bound_ms = max(nbytes / PEAK_BYTES_PER_S,
-                           flops / PEAK_FLOPS[label]) * 1e3
+            bound_ms, bound_by = self.bound(nbytes, flops, label)
             ms = self.time_ms(lambda: kernel.fill_event_levels(
                 *args, steps=steps), 10)
             plain_ms = self.time_ms(lambda: ref.fill_event_levels(
@@ -233,13 +287,55 @@ class Smoke:
             print(f"  {label} {n}x{k} R={r} steps={steps}: kernel {ms:.3f} ms,"
                   f" plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
                   f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP: "
-                  f"bound by "
-                  f"{'bytes' if nbytes / PEAK_BYTES_PER_S > flops / PEAK_FLOPS[label] else 'operations'})")
+                  f"bound by {bound_by})")
             self.rows[("psdsf_fill", label)] = dict(
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by="bytes" if nbytes / PEAK_BYTES_PER_S
-                > flops / PEAK_FLOPS[label] else "operations",
-                max_abs_err=err, shape=f"{n}x{k}x{r}")
+                bound_by=bound_by, max_abs_err=err, shape=f"{n}x{k}x{r}")
+
+    def bucketed_vs_plain(self):
+        torch = self.torch
+        from repro_torch.core.layout import BucketedLayout
+        from repro_torch.kernels.psdsf_fill_bucketed import kernel, ref
+        layouts = {}
+        for name, g in (("pin", self.pin_gamma), ("big", self.big_gamma)):
+            t0 = time.perf_counter()
+            layouts[name] = BucketedLayout.from_support(g > 0)
+            lay = layouts[name]
+            print(f"  BucketedLayout.from_support {g.shape[0]}x{g.shape[1]}:"
+                  f" {(time.perf_counter() - t0) * 1e3:.1f} ms host, Bmax "
+                  f"{lay.bucket_max}, nnz {lay.nnz}, density "
+                  f"{lay.density:.4f}")
+        self.pin_layout, self.big_layout = layouts["pin"], layouts["big"]
+        cases = (("float64", self.pin, self.pin_gamma, self.pin_layout,
+                  torch.float64, 48),
+                 ("float32", self.big, self.big_gamma, self.big_layout,
+                  torch.float32, 26))
+        for label, p, g, lay, dtype, steps in cases:
+            args = self.bucket_event_inputs(p, g, lay, dtype)
+            got = kernel.fill_event_levels_bucketed(*args, steps=steps)
+            want = ref.fill_event_levels_bucketed(*args, steps=steps)
+            self.sync()
+            err = self.compare_event(got, want, label, "psdsf_fill_bucketed")
+            k, bmax = lay.indices.shape
+            r = p.num_resources
+            b = 8 if dtype == torch.float64 else 4
+            # the padded (K, Bmax) buckets read once, outputs written once
+            nbytes = (k * bmax * (r + 2) + 2 * k * r + k) * b + k * r \
+                + (k + 3 * k * r) * b
+            flops = (steps + 3) * k * bmax * (2 * r + 3)
+            bound_ms, bound_by = self.bound(nbytes, flops, label)
+            ms = self.time_ms(lambda: kernel.fill_event_levels_bucketed(
+                *args, steps=steps), 50)
+            plain_ms = self.time_ms(lambda: ref.fill_event_levels_bucketed(
+                *args, steps=steps), 5)
+            print(f"  {label} buckets {k}x{bmax} R={r} steps={steps}: kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+                  f"{bound_ms:.4f} ms ({nbytes / 1e6:.2f} MB, "
+                  f"{flops / 1e6:.1f} MFLOP: bound by {bound_by})")
+            self.rows[("psdsf_fill_bucketed", label)] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=err,
+                shape=f"{k}x{bmax}x{r}")
 
     def vds_vs_plain(self):
         import numpy as np
@@ -280,14 +376,28 @@ class Smoke:
         self.check(rel <= VDS_RTOL, f"VDS minimum differs ({what})")
         return err
 
-    def main_path(self):
+    def drive(self, layout):
+        """Drive one main path with every launch count set to 0 just
+        before it and read just after: ``"dense"`` pins the layout, and
+        ``"bucketed"`` calls ``engine.solve`` at its default layout, which
+        must resolve to the buckets. Then checks what came out."""
         import numpy as np
         torch = self.torch
         from repro_torch.core import engine
         from repro_torch.core.dynamic import min_vds_guarded
+        from repro_torch.core.layout import BucketedLayout
         from repro_torch.core.psdsf_torch import psdsf_solve_torch
         from repro_torch.kernels.psdsf_fill import kernel as fill_kernel
+        from repro_torch.kernels.psdsf_fill_bucketed import \
+            kernel as bucketed_kernel
         from repro_torch.kernels.psdsf_vds import kernel as vds_kernel
+        counters = {"psdsf_fill": fill_kernel.fill_event_levels,
+                    "psdsf_fill_bucketed":
+                        bucketed_kernel.fill_event_levels_bucketed,
+                    "psdsf_vds": vds_kernel.vds_argmin}
+        sparse = layout == "bucketed"
+        expect = ("psdsf_fill_bucketed" if sparse else "psdsf_fill",
+                  "psdsf_vds")
         pin, big = self.pin, self.big
         active_pin = np.ones(pin.num_users, dtype=bool)
         active_big = np.ones(big.num_users, dtype=bool)
@@ -296,45 +406,76 @@ class Smoke:
 
         if self.device.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
-        fill_kernel.fill_event_levels.launches = 0
-        vds_kernel.vds_argmin.launches = 0
+        for fn in counters.values():
+            fn.launches = 0
         self.sync()
         t0 = time.perf_counter()
         alloc, info = engine.solve(pin, "psdsf-rdm", device=self.device,
                                    fill="bisect", round="jacobi",
-                                   layout="dense", max_rounds=32, tol=0.0)
+                                   max_rounds=32, tol=0.0,
+                                   **({} if sparse else {"layout": "dense"}))
         t_f64 = time.perf_counter() - t0
+        f64_launches = {name: fn.launches for name, fn in counters.items()}
         vds_pin = min_vds_guarded(alloc.x, pin.weights, self.pin_gamma,
                                   active_pin, device=self.device)
+        t_layout = 0.0
+        big_kw = {"layout": "dense"}
+        if sparse:
+            t0 = time.perf_counter()
+            lay = BucketedLayout.from_support(self.big_gamma > 0)
+            t_layout = time.perf_counter() - t0
+            big_kw = {"layout": "bucketed",
+                      "buckets": (lay.indices, lay.mask)}
         self.sync()
         t0 = time.perf_counter()
         x32, rounds32, resid32 = psdsf_solve_torch(
             *big32, mode="rdm", max_rounds=32, tol=1e-6, fill="bisect",
-            round="jacobi", device=self.device)
+            round="jacobi", device=self.device, **big_kw)
         self.sync()
         t_f32 = time.perf_counter() - t0
         vds_big = min_vds_guarded(x32, big.weights, self.big_gamma,
                                   active_big, device=self.device)
         self.sync()
-        self.launches = {"psdsf_fill": fill_kernel.fill_event_levels.launches,
-                         "psdsf_vds": vds_kernel.vds_argmin.launches}
+        launches = {name: fn.launches for name, fn in counters.items()}
 
         n, k = pin.num_users, pin.num_servers
-        print(f"  f64 {n}x{k}: {t_f64:.3f} s wall, rounds={info.rounds}, "
-              f"residual={info.residual:.3e}, stranded="
-              f"{info.stranded_frac:.4f}, fill_iters={info.fill_iters}")
-        print(f"  f32 {big.num_users}x{big.num_servers}: {t_f32:.3f} s wall, "
-              f"rounds={rounds32}, residual={float(resid32):.3e}")
-        print(f"  launches on the main path: {self.launches}")
+        print(f"  f64 {n}x{k} engine.solve: {t_f64:.3f} s wall, layout="
+              f"{info.layout}, bucket_max={info.bucket_max}, rounds="
+              f"{info.rounds}, residual={info.residual:.3e}, stranded="
+              f"{info.stranded_frac:.4f}, launches {f64_launches}")
+        print(f"  f32 {big.num_users}x{big.num_servers} psdsf_solve_torch "
+              f"({big_kw['layout']}): {t_f32:.3f} s wall"
+              + (f" (+ {t_layout:.3f} s host layout build)" if sparse else "")
+              + f", rounds={rounds32}, residual={float(resid32):.3e}")
+        print(f"  launches on the {layout} main path: {launches}")
+        peak = None
         if self.device.type == "cuda":
-            print(f"  peak device memory: "
-                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        self.main = dict(f64_s=t_f64, f64_rounds=info.rounds,
-                         f64_resid=info.residual, f32_s=t_f32,
-                         f32_rounds=rounds32, f32_resid=float(resid32))
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            print(f"  peak device memory: {peak:.2f} GiB")
+        self.paths[layout] = dict(
+            launches=launches, f64_s=t_f64, f64_rounds=info.rounds,
+            f64_resid=info.residual, f32_s=t_f32, f32_rounds=rounds32,
+            f32_resid=float(resid32), f32_layout_build_s=t_layout,
+            peak_gib=peak)
+
+        self.check(info.layout == layout, f"engine.solve ran {info.layout}")
+        if sparse:
+            want_bmax = self.pin_layout.bucket_max
+            self.check(info.bucket_max == want_bmax and (
+                self.rehearse or want_bmax == 692),
+                f"bucket_max {info.bucket_max}, expected 692")
         if not self.rehearse:
-            for name, count in self.launches.items():
-                self.check(count > 0, f"{name} never launched on the path")
+            for name, count in launches.items():
+                if name in expect:
+                    self.check(count > 0, f"{name} never launched on the "
+                                          f"{layout} path")
+                else:
+                    self.check(count == 0, f"{name} launched on the "
+                                           f"{layout} path")
+            fill_name = expect[0]
+            self.check(f64_launches[fill_name] == 5 * 32,
+                       f"{fill_name} launched {f64_launches[fill_name]} "
+                       f"times in the f64 solve, expected 5 x 32")
 
         # outputs: finite, non-negative, feasible
         for label, p, x in (("f64", pin, alloc.x),
@@ -349,23 +490,42 @@ class Smoke:
                        f"{label} allocation infeasible")
 
         # the same float64 solve with the plain fill, on the same device
-        from repro_torch.core.psdsf_torch import _solve_core_torch
+        from repro_torch.core.psdsf_torch import (_solve_core_bucketed_torch,
+                                                  _solve_core_torch)
         from repro_torch.kernels.psdsf_fill.ref import fill_cluster_plain
+        from repro_torch.kernels.psdsf_fill_bucketed.ref import \
+            fill_cluster_bucketed_plain
 
         def t(a):
             return torch.as_tensor(a, dtype=torch.float64,
                                    device=self.device).contiguous()
-        x_plain, r_plain, _ = _solve_core_torch(
-            t(pin.demands), t(pin.capacities), t(pin.weights),
-            t(self.pin_gamma), torch.zeros((n, k), dtype=torch.float64,
-                                           device=self.device),
-            "rdm", 32, 0.0, fill="bisect", round_mode="jacobi",
-            cluster_fill=fill_cluster_plain)
+        arrays = (t(pin.demands), t(pin.capacities), t(pin.weights),
+                  t(self.pin_gamma), torch.zeros((n, k), dtype=torch.float64,
+                                                 device=self.device))
+        kw = dict(fill="bisect", round_mode="jacobi")
+        if sparse:
+            x_plain, r_plain, _ = _solve_core_bucketed_torch(
+                *arrays, torch.as_tensor(self.pin_layout.indices,
+                                         device=self.device),
+                torch.as_tensor(self.pin_layout.mask, device=self.device),
+                "rdm", 32, 0.0, cluster_fill=fill_cluster_bucketed_plain,
+                **kw)
+        else:
+            x_plain, r_plain, _ = _solve_core_torch(
+                *arrays, "rdm", 32, 0.0, cluster_fill=fill_cluster_plain,
+                **kw)
         diff = float(np.abs(x_plain.cpu().numpy() - alloc.x).max())
-        print(f"  f64 kernel-driven vs plain-driven solve: max|dx|="
-              f"{diff:.3e} over {r_plain} rounds")
+        print(f"  f64 kernel-driven vs plain-driven {layout} solve: "
+              f"max|dx|={diff:.3e} over {r_plain} rounds")
         self.check(r_plain == info.rounds and diff <= F64_ATOL,
                    "kernel-driven and plain-driven solves disagree")
+        if sparse:
+            diff = float(np.abs(alloc.x - self.x_dense).max())
+            print(f"  f64 bucketed vs dense kernel-driven solve: max|dx|="
+                  f"{diff:.3e}")
+            self.check(diff <= F64_ATOL, "bucketed and dense solves differ")
+        else:
+            self.x_dense = alloc.x
 
         from repro_torch.kernels.psdsf_vds.ref import vds_argmin
         for what, got, x, p, g in (
@@ -375,18 +535,37 @@ class Smoke:
             self.compare_vds(got, vds_argmin(xo, torch.as_tensor(
                 g, dtype=torch.float32, device=self.device)), what)
 
+    def main_path(self):
+        self.drive("dense")
+
+    def sparse_path(self):
+        self.drive("bucketed")
+        d, b = self.paths["dense"], self.paths["bucketed"]
+        print(f"  bucketed vs dense wall: f64 pin engine.solve "
+              f"{b['f64_s']:.3f} s vs {d['f64_s']:.3f} s "
+              f"({d['f64_s'] / b['f64_s']:.2f}x); f32 1024 solve "
+              f"{b['f32_s']:.3f} s vs {d['f32_s']:.3f} s "
+              f"({d['f32_s'] / b['f32_s']:.2f}x)")
+
     def profile(self):
+        for layout in ("dense", "bucketed"):
+            self.profile_layout(layout)
+
+    def profile_layout(self, layout):
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         from repro_torch.core import engine
         pin = self.pin
+        kernel_name = {"dense": ("psdsf_fill", "fill_event_kernel"),
+                       "bucketed": ("psdsf_fill_bucketed",
+                                    "fill_bucketed_kernel")}[layout]
         acts = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             acts.append(ProfilerActivity.CUDA)
 
         def run(rounds):
             engine.solve(pin, "psdsf-rdm", device=self.device, fill="bisect",
-                         round="jacobi", layout="dense", max_rounds=rounds,
+                         round="jacobi", layout=layout, max_rounds=rounds,
                          tol=0.0)
             self.sync()
         with profile(activities=acts):        # the first start is slow
@@ -402,49 +581,56 @@ class Smoke:
                        if e.device_type == DeviceType.CUDA), reverse=True)
         busy_ms = sum(r[0] for r in rows) / 1e3
         if busy_ms <= 0:
-            print("  profiler saw no device time: not measured")
+            print(f"  {layout}: profiler saw no device time: not measured")
             return
-        fill_ms = sum(r[0] for r in rows if "fill_event_kernel" in r[1]) / 1e3
-        print(f"  engine.solve f64 {pin.num_users}x{pin.num_servers}, 32 "
-              f"Jacobi rounds, profiled: wall {wall_ms:.1f} ms, device busy "
-              f"{busy_ms:.1f} ms (psdsf_fill {fill_ms:.1f} ms, other kernels "
-              f"and copies {busy_ms - fill_ms:.1f} ms), idle share "
+        fill_ms = sum(r[0] for r in rows if kernel_name[1] in r[1]) / 1e3
+        print(f"  engine.solve f64 {pin.num_users}x{pin.num_servers} "
+              f"{layout}, 32 Jacobi rounds, profiled: wall {wall_ms:.1f} ms,"
+              f" device busy {busy_ms:.1f} ms ({kernel_name[0]} "
+              f"{fill_ms:.1f} ms, other kernels and copies "
+              f"{busy_ms - fill_ms:.1f} ms), idle share "
               f"{max(0.0, 1 - busy_ms / wall_ms):.3f}")
         for us, key, count in rows[:8]:
             print(f"    {us / 1e3:9.3f} ms {count:6d}x  {key[:90]}")
         host = sorted(((float(e.self_cpu_time_total), e.key, e.count)
                        for e in prof.key_averages()
                        if e.device_type == DeviceType.CPU), reverse=True)
-        print("  host self time, top 5:")
+        print(f"  {layout} host self time, top 5:")
         for us, key, count in host[:5]:
             print(f"    {us / 1e3:9.3f} ms {count:6d}x  {key[:90]}")
 
     def report(self):
         kernels = []
-        for name, source, replaces in (
+        for name, source, replaces, dtype in (
                 ("psdsf_fill", "src/repro_torch/kernels/csrc/psdsf_fill.cu",
-                 "src/repro/kernels/psdsf_fill/kernel.py:124"),
+                 "src/repro/kernels/psdsf_fill/kernel.py:124", "float64"),
+                ("psdsf_fill_bucketed",
+                 "src/repro_torch/kernels/csrc/psdsf_fill_bucketed.cu",
+                 "src/repro/kernels/psdsf_fill_bucketed/kernel.py:131",
+                 "float64"),
                 ("psdsf_vds", "src/repro_torch/kernels/csrc/psdsf_vds.cu",
-                 "src/repro/kernels/psdsf_vds/kernel.py:55")):
-            main = self.rows[(name, "float64" if name == "psdsf_fill"
-                              else "float32")]
+                 "src/repro/kernels/psdsf_vds/kernel.py:55", "float32")):
+            main = self.rows[(name, dtype)]
+            by_path = {layout: path["launches"][name]
+                       for layout, path in self.paths.items()}
             row = {"name": name, "route": "cuda", "source": source,
                    "replaces": replaces,
-                   "launches": self.launches[name],
+                   "launches": sum(by_path.values()),
+                   "launches_by_path": by_path,
                    "max_abs_err": main["max_abs_err"], "ms": main["ms"],
                    "plain_ms": main["plain_ms"],
                    "bound_ms": main["bound_ms"],
                    "bound_by": main["bound_by"],
                    "library_ms": main.get("library_ms"),
-                   "shape": main["shape"],
-                   "dtype": "float64" if name == "psdsf_fill" else "float32"}
-            if name == "psdsf_fill":
-                f32 = self.rows[(name, "float32")]
+                   "shape": main["shape"], "dtype": dtype}
+            f32 = self.rows.get((name, "float32")) if dtype == "float64" \
+                else None
+            if f32:
                 row.update({f"f32_{key}": f32[key] for key in (
                     "ms", "plain_ms", "bound_ms", "bound_by",
                     "max_abs_err", "shape")})
             kernels.append(row)
-        print(json.dumps({"kernels": kernels, "main_path": self.main}))
+        print(json.dumps({"kernels": kernels, "main_paths": self.paths}))
 
 
 def main(argv=None) -> int:
@@ -475,8 +661,11 @@ def main(argv=None) -> int:
     smoke.phase("paper examples", smoke.paper)
     smoke.phase("psdsf_fill vs plain", smoke.fill_vs_plain)
     if "psdsf_fill vs plain" not in smoke.failed:
+        smoke.phase("psdsf_fill_bucketed vs plain", smoke.bucketed_vs_plain)
         smoke.phase("psdsf_vds vs plain", smoke.vds_vs_plain)
         smoke.phase("main path", smoke.main_path)
+        if not smoke.failed:
+            smoke.phase("main path, sparse", smoke.sparse_path)
         smoke.phase("profile", smoke.profile)
     if smoke.failed:
         print(f"chip_smoke: FAILED phases: {smoke.failed}", file=sys.stderr)

@@ -1,5 +1,5 @@
 """PS-DSF solve on tensors (RDM and TDM): the port of
-``repro/core/psdsf_jax.py`` for the dense layout.
+``repro/core/psdsf_jax.py``'s single-problem solve, dense and bucketed.
 
 Same math as the reference: every round rebuilds each server's fill by
 water-filling its users up to the first saturated resource, damped, until
@@ -11,13 +11,21 @@ the residual passes ``tol * scale`` or ``max_rounds`` is spent.
   sort-free bisection with an exact segment root). These stay plain torch,
   as the reference leaves them to jnp outside any Pallas kernel.
 * ``round="jacobi"`` refills every server at once against the previous
-  round's usage. With ``fill="bisect"`` that whole-cluster fill is
-  ``kernels/psdsf_fill/ops.fill_cluster``: the Hopper kernel for CUDA
-  tensors, its plain version for CPU tensors. With ``fill="event"`` it is
-  the event fill batched over the server axis.
+  round's usage. With ``fill="bisect"`` that whole-cluster fill is a Hopper
+  kernel for CUDA tensors (its plain version for CPU tensors):
+  ``kernels/psdsf_fill/ops.fill_cluster`` on the dense layout,
+  ``kernels/psdsf_fill_bucketed/ops.fill_cluster_bucketed`` on the bucketed
+  one. With ``fill="event"`` it is the event fill batched over the server
+  axis.
+* ``layout="bucketed"`` (``_solve_core_bucketed_torch``) works on the
+  per-server eligibility buckets of a ``layout.BucketedLayout``: gathered
+  (K, Bmax[, R]) state, row sums re-derived by scatter-add every round.
+* ``accel="anderson"`` wraps either core's damped sweep in safeguarded
+  Anderson mixing (``_anderson_rounds_torch``).
 
 The per-server fills are written for a batch of S servers at once (columns
-of (N, S) tensors): Gauss-Seidel calls them with S = 1. The reference's
+of (N, S) tensors): Gauss-Seidel calls them with S = 1, and the bucketed
+core passes each server its own (Bmax, S, R) demand rows. The reference's
 data-dependent ``while_loop`` exits become fixed-bound loops whose state
 stops changing once a server's exit condition holds, and which end early
 once it holds for every server; the results are the reference's.
@@ -31,7 +39,9 @@ import torch
 
 from ..device import DeviceLike, resolve_device, to_device
 from ..kernels.psdsf_fill.ops import fill_cluster
+from ..kernels.psdsf_fill_bucketed.ops import fill_cluster_bucketed
 from .gamma import gamma_matrix
+from .layout import LAYOUTS
 from .solveinfo import BISECT_STEPS, BISECT_STEPS_F32, FILL_ENGINES
 from .types import Allocation, AllocationProblem
 
@@ -42,13 +52,11 @@ _TOL = 1e-9
 #: the ROADMAP.md item that will
 _NOT_PORTED = {
     ("placement", "headroom"): "ROADMAP.md queue 1 item 6 (placement cores)",
-    ("layout", "bucketed"): "ROADMAP.md queue 1 item 4 (sparse path)",
-    ("layout", "auto"): "ROADMAP.md queue 1 item 4 (sparse path; 'auto' "
-                        "resolves to it on sparse instances)",
-    ("accel", "anderson"): "ROADMAP.md queue 1 item 5 (convergence layer)",
 }
+#: history depth of the Anderson mixer (``placement.ANDERSON_MEMORY`` in
+#: the reference)
+ANDERSON_MEMORY = 5
 PLACEMENTS = ("level", "headroom", "bestfit", "lexmm")
-LAYOUTS = ("dense", "bucketed", "auto")
 ACCEL_ENGINES = ("none", "anderson")
 ROUNDS = ("gauss", "jacobi")
 MODES = ("rdm", "tdm")
@@ -72,12 +80,26 @@ def check_axes(*, mode: str = "rdm", placement: str = "level",
     if placement == "bestfit":
         raise ValueError("placement 'bestfit' has no device mirror (the "
                          "reference runs it on its numpy engine only)")
-    for axis, value in (("placement", placement), ("layout", layout),
-                        ("accel", accel)):
-        where = _NOT_PORTED.get((axis, value))
-        if where:
-            raise NotImplementedError(
-                f"{axis}={value!r} is not ported to repro_torch yet: {where}")
+    where = _NOT_PORTED.get(("placement", placement))
+    if where:
+        raise NotImplementedError(
+            f"placement={placement!r} is not ported to repro_torch yet: "
+            f"{where}")
+
+
+def _check_buckets(layout: str, buckets) -> None:
+    """The reference's gate for the bucketed layout's arguments:
+    ``psdsf_solve_torch`` takes a concrete ``"dense"``/``"bucketed"``
+    (``"auto"`` is resolved host-side by ``engine.solve`` through
+    ``layout.resolve_layout``), and ``"bucketed"`` needs the ``(idx,
+    mask)`` arrays of a ``layout.BucketedLayout``."""
+    if layout not in ("dense", "bucketed"):
+        raise ValueError(
+            f"psdsf_solve_torch takes layout='dense'|'bucketed' (resolve "
+            f"'auto' host-side, e.g. via layout.resolve_layout): {layout!r}")
+    if layout == "bucketed" and buckets is None:
+        raise ValueError("layout='bucketed' needs buckets=(idx, mask) from "
+                         "a BucketedLayout (host-built)")
 
 
 def _bisect_steps(dtype) -> int:
@@ -92,9 +114,29 @@ def _big(t):
     return torch.full((), _BIG, dtype=t.dtype, device=t.device)
 
 
+def _cols(phi):
+    """Per-user weights as (N, S) columns: an (N,) vector broadcasts over
+    the servers, an (N, S) matrix (bucketed: each server its own users) is
+    taken as it is."""
+    return phi[:, None] if phi.dim() == 1 else phi
+
+
 def _contract(w, demands):
-    """(N, S) weights x (N, R) demands -> (S, R) per-server usage sums."""
-    return w.T @ demands
+    """(N, S) weights x demands -> (S, R) per-server usage sums. The
+    demands are one (N, R) matrix for every server column, or (N, S, R):
+    each server its own rows (the bucketed layout)."""
+    if demands.dim() == 2:
+        return w.T @ demands
+    return torch.einsum("ns,nsr->sr", w, demands)
+
+
+def _demands_any(demands, bind):
+    """(N, S): sum_r d[n, (s,) r] * bind[s, r], i.e. > 0 where user n of
+    column s demands a resource bound on s."""
+    bind = bind.to(demands.dtype)
+    if demands.dim() == 2:
+        return demands @ bind.T
+    return torch.einsum("nsr,sr->ns", demands, bind)
 
 
 # ---------------------------------------------------------------------------
@@ -104,17 +146,19 @@ def _contract(w, demands):
 def _fill_one_server_rdm(cap, demands, phi, gamma, x_ext):
     """Event fill (port of ``psdsf_jax._fill_one_server_rdm``): users are
     sorted by floor once, and each of the R+1 saturation events scans the
-    breakpoints for the first crossing level. cap (S, R); demands (N, R);
-    phi (N,); gamma, x_ext (N, S). Returns the (N, S) fill."""
-    n, r_cnt = demands.shape
+    breakpoints for the first crossing level. cap (S, R); demands (N, R)
+    or (N, S, R); phi (N,) or (N, S); gamma, x_ext (N, S). Returns the
+    (N, S) fill."""
+    r_cnt = demands.shape[-1]
     eligible = gamma > 0
     zero, big = _zero(gamma), _big(gamma)
-    rate = torch.where(eligible, phi[:, None] * gamma, zero)
+    rate = torch.where(eligible, _cols(phi) * gamma, zero)
     floor = torch.where(eligible, x_ext / rate.clamp(min=1e-300), big)
     order = torch.argsort(floor, dim=0, stable=True)               # (N, S)
     f_s = torch.gather(floor, 0, order)
     rt_s = torch.gather(rate, 0, order)
-    dm_s = demands[order]                                          # (N, S, R)
+    dm_s = (demands[order] if demands.dim() == 2 else torch.gather(
+        demands, 0, order[..., None].expand(-1, -1, r_cnt)))       # (N, S, R)
     nxt = torch.cat([f_s[1:], torch.full_like(f_s[:1], _BIG)])[..., None]
     f3 = f_s[..., None]
 
@@ -157,9 +201,10 @@ def _fill_one_server_tdm(demands, phi, gamma, x_ext):
     del demands
     eligible = gamma > 0
     zero, big = _zero(gamma), _big(gamma)
-    rate = torch.where(eligible, phi[:, None], zero)           # d(x/gamma)/dL
+    phi = _cols(phi)
+    rate = torch.where(eligible, phi, zero)                    # d(x/gamma)/dL
     floor = torch.where(eligible,
-                        x_ext / (phi[:, None] * gamma).clamp(min=1e-300), big)
+                        x_ext / (phi * gamma).clamp(min=1e-300), big)
     order = torch.argsort(floor, dim=0, stable=True)
     f_s = torch.gather(floor, 0, order)
     rt_s = torch.gather(rate, 0, order)
@@ -172,22 +217,22 @@ def _fill_one_server_tdm(demands, phi, gamma, x_ext):
     level = torch.where(valid, torch.maximum(cand, f_s), big).amin(dim=0)
     has = eligible.any(dim=0)
     return torch.where(eligible & has[None],
-                       phi[:, None] * gamma
-                       * (level[None] - floor).clamp(min=0.0), zero)
+                       phi * gamma * (level[None] - floor).clamp(min=0.0),
+                       zero)
 
 
 def _fill_one_server_rdm_bisect(cap, demands, phi, gamma, x_ext):
     """Sort-free fill (port of ``psdsf_jax._fill_one_server_rdm_bisect``):
     per saturation event, bisect the bracket [level, max active floor +
     tightest headroom step] until no active floor lies inside, then take
-    the exact linear-segment root. cap (S, R); demands (N, R); phi (N,);
-    gamma, x_ext (N, S). Returns the (N, S) fill."""
-    n, r_cnt = demands.shape
+    the exact linear-segment root. cap (S, R); demands (N, R) or (N, S, R);
+    phi (N,) or (N, S); gamma, x_ext (N, S). Returns the (N, S) fill."""
+    r_cnt = demands.shape[-1]
     dt = demands.dtype
     steps = _bisect_steps(dt)
     eligible = gamma > 0
     zero, big = _zero(gamma), _big(gamma)
-    rate = torch.where(eligible, phi[:, None] * gamma, zero)
+    rate = torch.where(eligible, _cols(phi) * gamma, zero)
     floor = torch.where(eligible, x_ext / rate.clamp(min=1e-300), big)
     cap_scale = cap.amax(dim=1).clamp(min=1.0)                     # (S,)
     eps = torch.finfo(dt).eps
@@ -241,7 +286,7 @@ def _fill_one_server_rdm_bisect(cap, demands, phi, gamma, x_ext):
                            + 32 * eps * cap_scale[:, None])
         new_x = torch.where(active,
                             rate_a * (best[None] - floor).clamp(min=0.0), x)
-        newly = active & ((demands.to(dt) @ bind.T.to(dt)) > 0)
+        newly = active & (_demands_any(demands, bind) > 0)
         new_frozen = frozen + _contract(torch.where(newly, new_x, zero),
                                         demands)
         x = torch.where(go[None], new_x, x)
@@ -261,9 +306,10 @@ def _fill_one_server_tdm_bisect(demands, phi, gamma, x_ext):
     steps = _bisect_steps(dt)
     eligible = gamma > 0
     zero, big = _zero(gamma), _big(gamma)
-    rate = torch.where(eligible, phi[:, None], zero)
+    phi = _cols(phi)
+    rate = torch.where(eligible, phi, zero)
     floor = torch.where(eligible,
-                        x_ext / (phi[:, None] * gamma).clamp(min=1e-300), big)
+                        x_ext / (phi * gamma).clamp(min=1e-300), big)
     has = eligible.any(dim=0)
     fmax = torch.where(eligible, floor, zero).amax(dim=0)
     hi = fmax + 1.0 / rate.sum(dim=0).clamp(min=1e-300)
@@ -281,58 +327,180 @@ def _fill_one_server_tdm_bisect(demands, phi, gamma, x_ext):
     root = lo + (1.0 - u_lo).clamp(min=0.0) / seg_slope.clamp(min=1e-300)
     level = torch.where(seg_slope > _TOL, torch.minimum(root, hi), hi)
     return torch.where(eligible & has[None],
-                       phi[:, None] * gamma
-                       * (level[None] - floor).clamp(min=0.0), zero)
+                       phi * gamma * (level[None] - floor).clamp(min=0.0),
+                       zero)
 
 
 # ---------------------------------------------------------------------------
-# the solve
+# the outer iteration: plain damped rounds, or Anderson-mixed
 # ---------------------------------------------------------------------------
 
-def _solve_core_torch(demands, capacities, weights, gamma, x0, mode,
-                      max_rounds, tol, servers=None, alpha0=1.0,
-                      fill="event", round_mode="gauss",
-                      cluster_fill=fill_cluster):
-    """The damped sweep to a fixed point (port of ``psdsf_jax._solve_core``
-    without its Anderson branch). All tensors share one dtype and device.
+def _plain_rounds(one_round, x0, max_rounds, limit, alpha0):
+    """The damped sweep loop with the alpha-normalized stall schedule:
+    ``one_round(x, alpha) -> (x_new, resid)``; alpha shrinks by 0.7 (down
+    to 0.01) whenever resid/alpha stops falling by 10% after round 3 (on a
+    limit cycle resid ~ alpha * amplitude, so resid/alpha stays flat).
+    Reads one scalar back per round to decide whether to go on. Returns
+    (x, rounds, resid)."""
+    dt, dev = x0.dtype, x0.device
+    x = x0
+    rounds = 0
+    prev_norm = torch.full((), float("inf"), dtype=dt, device=dev)
+    alpha = torch.full((), alpha0, dtype=dt, device=dev)
+    resid = torch.full((), float("inf"), dtype=dt, device=dev)
+    while rounds < max_rounds and bool(resid > limit):
+        x_new, resid = one_round(x, alpha)
+        norm = resid / alpha
+        if rounds >= 3:
+            stall = (norm > 0.9 * prev_norm) & (alpha > 0.01)
+            alpha = torch.where(stall, alpha * 0.7, alpha)
+        prev_norm = norm
+        x = x_new
+        rounds += 1
+    return x, rounds, resid
 
-    ``servers`` (int tensor or sequence) restricts each round to those
-    servers. ``round_mode="jacobi"`` starts pre-damped (alpha <= 0.5). The
-    alpha-normalized stall schedule shrinks alpha by 0.7 (down to 0.01)
-    whenever resid/alpha stops falling by 10% after round 3.
-    ``cluster_fill`` is the Jacobi bisect round's whole-cluster fill; the
-    solve always uses ``ops.fill_cluster``, and only comparisons pass its
-    plain twin. Returns (x (N, K), rounds, residual), the residual a 0-dim
-    tensor; the loop reads one scalar back per round to decide whether to
-    go on.
-    """
+
+def _anderson_rounds_torch(one_round, x0, max_rounds, limit, alpha0):
+    """Safeguarded limited-memory Anderson mixing over the damped sweep
+    (port of ``psdsf_jax._anderson_rounds``): ``one_round(x, alpha) ->
+    (x_new, resid)`` applies one full damped sweep and reports its
+    residual. After each plain sweep a mixed candidate is extrapolated from
+    the rolling (m+1, size) history (m = min(``ANDERSON_MEMORY``, size-1);
+    masked difference columns, reduced QR with a diagonal guard on dead
+    columns, a triangular solve, clamped at 0) and accepted only when one
+    plain sweep from it lowers the residual; a rejected candidate restarts
+    the history from the latest plain pair. Both sweeps count as rounds,
+    a candidate is tried only while the budget affords its evaluation,
+    and alpha follows the plain loop's stall schedule on the counted
+    rounds. The reference evaluates a masked candidate every round; here
+    it is computed only when it can be used, with the same results.
+    Returns (x, rounds, resid, accel_hits, accel_rejects)."""
+    dt, dev = x0.dtype, x0.device
+    shape, size = x0.shape, x0.numel()
+    m = min(ANDERSON_MEMORY, max(size - 1, 1))
+    cols = torch.arange(m, device=dev)
+    hf = torch.zeros((m + 1, size), dtype=dt, device=dev)
+    hg = torch.zeros_like(hf)
+    hlen = hits = rejects = rounds = 0
+    x = x0
+    prev_norm = torch.full((), float("inf"), dtype=dt, device=dev)
+    alpha = torch.full((), alpha0, dtype=dt, device=dev)
+    resid = torch.full((), float("inf"), dtype=dt, device=dev)
+    zero = torch.zeros((), dtype=dt, device=dev)
+
+    def push(h, row):
+        return torch.cat([h[1:], row.reshape(1, -1)])
+
+    while rounds < max_rounds and bool(resid > limit):
+        g_x, resid = one_round(x, alpha)
+        hf, hg = push(hf, g_x - x), push(hg, g_x)
+        hlen = min(hlen + 1, m + 1)
+        rounds += 1
+        x = g_x
+        if hlen >= 2 and rounds < max_rounds and bool(resid > limit):
+            # difference columns over the valid window; older slots are
+            # dead columns of exact zeros
+            col_ok = (cols >= m + 1 - hlen).to(dt)
+            df = (hf[1:] - hf[:-1]).T * col_ok
+            dg = (hg[1:] - hg[:-1]).T * col_ok
+            q, r = torch.linalg.qr(df)
+            diag = r.diagonal().abs()
+            ref = diag.max().clamp(min=1e-30)
+            r = r + torch.diag(torch.where(diag < 1e-12 * ref, ref, zero))
+            theta = torch.linalg.solve_triangular(
+                r, (q.T @ hf[-1])[:, None], upper=True)[:, 0]
+            cand = (hg[-1] - dg @ theta).clamp(min=0.0).reshape(shape)
+            g_c, resid_c = one_round(cand, alpha)
+            rounds += 1
+            if bool(torch.isfinite(resid_c) & (resid_c < resid)):
+                hf, hg = push(hf, g_c - cand), push(hg, g_c)
+                hlen = min(hlen + 1, m + 1)
+                hits += 1
+                x, resid = g_c, resid_c
+            else:
+                hlen = 1
+                rejects += 1
+        norm = resid / alpha
+        if rounds >= 3:
+            stall = (norm > 0.9 * prev_norm) & (alpha > 0.01)
+            alpha = torch.where(stall, alpha * 0.7, alpha)
+        prev_norm = norm
+    return x, rounds, resid, hits, rejects
+
+
+def _outer(one_round, x0, max_rounds, limit, alpha0, accel):
+    if accel == "anderson":
+        return _anderson_rounds_torch(one_round, x0, max_rounds, limit,
+                                      alpha0)
+    return _plain_rounds(one_round, x0, max_rounds, limit, alpha0)
+
+
+def _check_core_axes(mode, fill, round_mode, accel):
     if mode not in MODES:
         raise ValueError(f"mode must be 'rdm' or 'tdm': {mode!r}")
     if fill not in FILL_ENGINES:
         raise ValueError(f"fill must be 'event' or 'bisect': {fill!r}")
     if round_mode not in ROUNDS:
         raise ValueError(f"round must be 'gauss' or 'jacobi': {round_mode!r}")
-    dt, dev = x0.dtype, x0.device
+    if accel not in ACCEL_ENGINES:
+        raise ValueError(f"accel must be 'none' or 'anderson': {accel!r}")
+
+
+def _server_fill(mode, fill):
+    """The per-server fill of (mode, fill), called as
+    ``f(cap, demands, phi, gamma, x_ext)``."""
+    if mode == "rdm":
+        return (_fill_one_server_rdm_bisect if fill == "bisect"
+                else _fill_one_server_rdm)
+    f = (_fill_one_server_tdm_bisect if fill == "bisect"
+         else _fill_one_server_tdm)
+    return lambda cap, demands, phi, gamma, x_ext: f(demands, phi, gamma,
+                                                     x_ext)
+
+
+def _residual_limit(gamma, tol):
+    scale = gamma.max() if gamma.numel() else torch.zeros(
+        (), dtype=gamma.dtype, device=gamma.device)
+    return tol * scale.clamp(min=1.0)
+
+
+def _sweep(servers, k, dev):
+    return (torch.arange(k, device=dev) if servers is None
+            else torch.as_tensor(servers, device=dev).long())
+
+
+# ---------------------------------------------------------------------------
+# the solve, dense and bucketed
+# ---------------------------------------------------------------------------
+
+def _solve_core_torch(demands, capacities, weights, gamma, x0, mode,
+                      max_rounds, tol, servers=None, alpha0=1.0,
+                      fill="event", round_mode="gauss", accel="none",
+                      cluster_fill=fill_cluster):
+    """The damped sweep to a fixed point on the dense layout (port of
+    ``psdsf_jax._solve_core``). All tensors share one dtype and device.
+
+    ``servers`` (int tensor or sequence) restricts each round to those
+    servers. ``round_mode="jacobi"`` starts pre-damped (alpha <= 0.5).
+    ``cluster_fill`` is the Jacobi bisect round's whole-cluster fill; the
+    solve always uses ``ops.fill_cluster``, and only comparisons pass its
+    plain twin. Returns (x (N, K), rounds, residual), the residual a 0-dim
+    tensor, plus (accel_hits, accel_rejects) under ``accel="anderson"``.
+    """
+    _check_core_axes(mode, fill, round_mode, accel)
     k = gamma.shape[1]
-    scale = gamma.max() if gamma.numel() else torch.zeros((), dtype=dt,
-                                                         device=dev)
-    limit = tol * scale.clamp(min=1.0)
-    sweep = (torch.arange(k, device=dev) if servers is None
-             else torch.as_tensor(servers, device=dev).long())
+    limit = _residual_limit(gamma, tol)
+    sweep = _sweep(servers, k, x0.device)
+    fill_fn = _server_fill(mode, fill)
 
     def fill_servers(cols, x_ext):
-        if mode == "rdm":
-            f = (_fill_one_server_rdm_bisect if fill == "bisect"
-                 else _fill_one_server_rdm)
-            return f(capacities[cols], demands, weights, gamma[:, cols], x_ext)
-        f = (_fill_one_server_tdm_bisect if fill == "bisect"
-             else _fill_one_server_tdm)
-        return f(demands, weights, gamma[:, cols], x_ext)
+        return fill_fn(capacities[cols], demands, weights, gamma[:, cols],
+                       x_ext)
 
     if round_mode == "jacobi":
         alpha0 = min(alpha0, 0.5)
 
-        def one_round(x, alpha):
+        def sweep_round(x, alpha):
             x_ext = (x.sum(dim=1, keepdim=True) - x)[:, sweep]
             if fill == "bisect":
                 xi = cluster_fill(capacities[sweep], demands, weights,
@@ -345,7 +513,7 @@ def _solve_core_torch(demands, capacities, weights, gamma, x0, mode,
     else:
         order = sweep.tolist()
 
-        def one_round(x, alpha):
+        def sweep_round(x, alpha):
             x = x.clone()
             for i in order:
                 x_ext = x.sum(dim=1) - x[:, i]
@@ -353,24 +521,102 @@ def _solve_core_torch(demands, capacities, weights, gamma, x0, mode,
                 x[:, i] = (1.0 - alpha) * x[:, i] + alpha * xi
             return x
 
-    x = x0
-    rounds = 0
-    prev_norm = torch.full((), float("inf"), dtype=dt, device=dev)
-    alpha = torch.full((), alpha0, dtype=dt, device=dev)
-    resid = torch.full((), float("inf"), dtype=dt, device=dev)
-    while rounds < max_rounds and bool(resid > limit):
-        x_new = one_round(x, alpha)
-        resid = (x_new - x).abs().amax() if x.numel() else resid.new_zeros(())
-        # stall detection on the alpha-normalized residual: on a limit
-        # cycle resid ~ alpha * amplitude, so resid/alpha stays flat
-        norm = resid / alpha
-        if rounds >= 3:
-            stall = (norm > 0.9 * prev_norm) & (alpha > 0.01)
-            alpha = torch.where(stall, alpha * 0.7, alpha)
-        prev_norm = norm
-        x = x_new
-        rounds += 1
-    return x, rounds, resid
+    def one_round(x, alpha):
+        x_new = sweep_round(x, alpha)
+        resid = (x_new - x).abs().amax() if x.numel() else limit.new_zeros(())
+        return x_new, resid
+
+    return _outer(one_round, x0, max_rounds, limit, alpha0, accel)
+
+
+def _solve_core_bucketed_torch(demands, capacities, weights, gamma, x0, idx,
+                               mask, mode, max_rounds, tol, servers=None,
+                               alpha0=1.0, fill="event", round_mode="gauss",
+                               accel="none",
+                               cluster_fill=fill_cluster_bucketed):
+    """The damped sweep on sparse eligibility (port of
+    ``psdsf_jax._solve_core_bucketed``).
+
+    ``idx``/``mask`` are a ``layout.BucketedLayout``'s padded (K, Bmax)
+    per-server user buckets. The solve works on gathered (K, Bmax[, R])
+    state: each server's fill sees only its bucket's rows, and the per-user
+    row sums feeding the external usage are re-derived by scatter-add at
+    every round start (Gauss-Seidel then adds each server's delta). Padded
+    slots carry gamma 0, so they fill to 0 and their deltas are exact
+    zeros. The residual is the reference's: the max over the swept slots
+    (Jacobi) or the max |delta| (Gauss-Seidel). ``cluster_fill`` is the
+    Jacobi bisect round's whole-cluster fill (``fill_cluster_bucketed``;
+    only comparisons pass its plain twin). Anderson mixes the packed
+    (K, Bmax) state. Returns (x dense (N, K), rounds, residual), plus
+    (accel_hits, accel_rejects) under ``accel="anderson"``; x is built by
+    scatter-ADD, so a padded slot adds an exact 0.0 wherever it points.
+    """
+    _check_core_axes(mode, fill, round_mode, accel)
+    n, k = gamma.shape
+    dt, dev = x0.dtype, x0.device
+    limit = _residual_limit(gamma, tol)
+    sweep = _sweep(servers, k, dev)
+    fill_fn = _server_fill(mode, fill)
+    idx = torch.as_tensor(idx, device=dev).long()
+    mask = torch.as_tensor(mask, device=dev).bool()
+    zero = torch.zeros((), dtype=dt, device=dev)
+    gam_b = torch.where(mask, torch.gather(gamma.T, 1, idx), zero)
+    dem_b = demands[idx]                                    # (K, Bmax, R)
+    phi_b = weights[idx]                                    # (K, Bmax)
+    xb0 = torch.where(mask, torch.gather(x0.T, 1, idx), zero)
+    flat_idx = idx.reshape(-1)
+
+    def fill_servers(cols, x_ext):
+        """Fills of servers ``cols`` from their (S, Bmax) external usage,
+        as (S, Bmax): each server's bucket is one column of the fill."""
+        return fill_fn(capacities[cols], dem_b[cols].transpose(0, 1),
+                       phi_b[cols].T, gam_b[cols].T, x_ext.T).T
+
+    def row_sums(xb):
+        return torch.zeros(n, dtype=dt, device=dev).index_add_(
+            0, flat_idx, torch.where(mask, xb, zero).reshape(-1))
+
+    if round_mode == "jacobi":
+        alpha0 = min(alpha0, 0.5)
+        idx_s, mask_s = idx[sweep], mask[sweep]
+        swept = (capacities[sweep].contiguous(), dem_b[sweep].contiguous(),
+                 phi_b[sweep], gam_b[sweep])
+
+        def one_round(xb, alpha):
+            x_ext = row_sums(xb)[idx_s] - xb[sweep]
+            if fill == "bisect":
+                xi = cluster_fill(*swept, x_ext, mask_s, mode=mode)
+            else:
+                xi = fill_servers(sweep, x_ext)
+            new = (1.0 - alpha) * xb[sweep] + alpha * torch.where(
+                mask_s, xi, zero)
+            resid = (new - xb[sweep]).abs().amax() if new.numel() else zero
+            xb = xb.clone()
+            xb[sweep] = new
+            return xb, resid
+    else:
+        order = sweep.tolist()
+
+        def one_round(xb, alpha):
+            xsum = row_sums(xb)
+            xb = xb.clone()
+            resid = zero
+            for i in order:
+                u, m_i = idx[i], mask[i]
+                x_ext = xsum[u] - xb[i]
+                xi = torch.where(m_i, fill_servers([i], x_ext[None])[0], zero)
+                xi = (1.0 - alpha) * xb[i] + alpha * xi
+                delta = torch.where(m_i, xi - xb[i], zero)
+                xb[i] = torch.where(m_i, xi, zero)
+                xsum.index_add_(0, u, delta)
+                resid = torch.maximum(resid, delta.abs().amax())
+            return xb, resid
+
+    xb, *out = _outer(one_round, xb0, max_rounds, limit, alpha0, accel)
+    cols = torch.arange(k, device=dev)[:, None].expand_as(idx)
+    x = torch.zeros((n, k), dtype=dt, device=dev).index_put_(
+        (idx, cols), torch.where(mask, xb, zero), accumulate=True)
+    return (x, *out)
 
 
 def _solve_dtype(demands) -> torch.dtype:
@@ -385,20 +631,25 @@ def psdsf_solve_torch(demands, capacities, weights, gamma, *, x0=None,
                       mode: str = "rdm", max_rounds: int = 256,
                       tol: float = 1e-6, placement: str = "level",
                       fill: str = "event", round: str = "gauss",
-                      layout: str = "dense", accel: str = "none",
-                      device: DeviceLike = None):
+                      layout: str = "dense", buckets=None,
+                      accel: str = "none", device: DeviceLike = None):
     """Solve PS-DSF on ``device`` (default ``cuda``). Returns (x (N, K),
-    rounds, residual) with x and the residual as tensors on that device.
+    rounds, residual) with x and the residual as tensors on that device,
+    plus (accel_hits, accel_rejects) under ``accel="anderson"``.
 
     Inputs are tensors or numpy arrays: demands (N, R), capacities (K, R),
     weights (N,), gamma (N, K) (from :func:`gamma.gamma_matrix`), optional
     warm start ``x0`` (N, K) — a fixed point from the JAX reference
     included. Float64 demands solve in float64, anything else in float32.
+    ``layout="bucketed"`` with ``buckets=(idx, mask)``, the padded arrays
+    of a host-built ``layout.BucketedLayout``, runs the bucketed core;
+    ``"auto"`` is resolved by ``engine.solve``, not here.
     ``placement="lexmm"`` is the identity on the level solve, as in the
     reference; the other axes are validated by :func:`check_axes`.
     """
     check_axes(mode=mode, placement=placement, fill=fill, round=round,
                layout=layout, accel=accel)
+    _check_buckets(layout, buckets)
     dev = resolve_device(device)
     dt = _solve_dtype(demands)
 
@@ -407,16 +658,22 @@ def psdsf_solve_torch(demands, capacities, weights, gamma, *, x0=None,
     n, k = gamma.shape
     x0 = torch.zeros((n, k), dtype=dt, device=dev) if x0 is None \
         else to_device(x0, dev, dt)
+    kw = dict(fill=fill, round_mode=round, accel=accel)
+    if layout == "bucketed":
+        idx, mask = buckets
+        return _solve_core_bucketed_torch(
+            demands, capacities, weights, gamma, x0, to_device(idx, dev),
+            to_device(mask, dev), mode, max_rounds, tol, **kw)
     return _solve_core_torch(demands, capacities, weights, gamma, x0, mode,
-                             max_rounds, tol, fill=fill, round_mode=round)
+                             max_rounds, tol, **kw)
 
 
 def solve_psdsf_rdm_torch(problem: AllocationProblem, x0=None,
                           max_rounds: int = 64, fill: str = "event",
                           round: str = "gauss", accel: str = "none",
                           device: DeviceLike = None) -> Allocation:
-    """PS-DSF under resource-division multiplexing on ``device``; returns
-    the ``Allocation`` container (float64 host x)."""
+    """PS-DSF under resource-division multiplexing on ``device`` (dense
+    layout); returns the ``Allocation`` container (float64 host x)."""
     return _solve_problem(problem, "rdm", x0, max_rounds, fill, round, accel,
                           device)
 
@@ -425,15 +682,16 @@ def solve_psdsf_tdm_torch(problem: AllocationProblem, x0=None,
                           max_rounds: int = 64, fill: str = "event",
                           round: str = "gauss", accel: str = "none",
                           device: DeviceLike = None) -> Allocation:
-    """PS-DSF under time-division multiplexing on ``device``."""
+    """PS-DSF under time-division multiplexing on ``device`` (dense
+    layout)."""
     return _solve_problem(problem, "tdm", x0, max_rounds, fill, round, accel,
                           device)
 
 
 def _solve_problem(problem, mode, x0, max_rounds, fill, round, accel,
                    device: Optional[DeviceLike]) -> Allocation:
-    x, _, _ = psdsf_solve_torch(
+    x = psdsf_solve_torch(
         problem.demands, problem.capacities, problem.weights,
         gamma_matrix(problem), x0=x0, mode=mode, max_rounds=max_rounds,
-        fill=fill, round=round, accel=accel, device=device)
+        fill=fill, round=round, accel=accel, device=device)[0]
     return Allocation(problem, x.double().cpu().numpy())

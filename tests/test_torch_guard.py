@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.psdsf_fill import kernel as fill_kernel
+from repro_torch.kernels.psdsf_fill_bucketed import kernel as bucketed_kernel
 from repro_torch.kernels.psdsf_vds import kernel as vds_kernel
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -120,7 +121,7 @@ def test_wrappers_refuse_other_devices(no_build):
 
 
 def test_library_name_follows_source(tmp_path, monkeypatch):
-    for name in ("psdsf_fill", "psdsf_vds"):
+    for name in ("psdsf_fill", "psdsf_fill_bucketed", "psdsf_vds"):
         src = (_build.CSRC / f"{name}.cu").read_text()
         assert "extern \"C\"" in src and "Replaces the TPU kernel" in src
         (tmp_path / f"{name}.cu").write_text(src)
@@ -130,3 +131,57 @@ def test_library_name_follows_source(tmp_path, monkeypatch):
         == "build"
     (tmp_path / "psdsf_fill.cu").write_text(src + "\n// edited\n")
     assert _build.library_path("psdsf_fill") != before
+
+
+def test_bucketed_wrapper_takes_plain_version_for_cpu_tensors(no_build):
+    k, b, r = 3, 4, 2
+    g = torch.Generator().manual_seed(1)
+    floors = torch.rand(k, b, generator=g, dtype=torch.float64)
+    rate = torch.rand(k, b, generator=g, dtype=torch.float64)
+    dem = torch.rand(k, b, r, generator=g, dtype=torch.float64)
+    caps = 5 + torch.rand(k, r, generator=g, dtype=torch.float64)
+    before = bucketed_kernel.fill_event_levels_bucketed.launches
+    lvl, u, lsl, slope = bucketed_kernel.fill_event_levels_bucketed(
+        floors, rate, dem, caps, torch.zeros_like(caps),
+        torch.zeros(k, r, dtype=torch.bool),
+        torch.zeros(k, dtype=torch.float64), steps=48)
+    assert lvl.shape == (k,) and u.shape == lsl.shape == slope.shape == (k, r)
+    assert bucketed_kernel.fill_event_levels_bucketed.launches == before
+    meta = torch.empty((4, 2), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        bucketed_kernel.fill_event_levels_bucketed(
+            meta, meta, meta[..., None], meta, meta, meta, meta[:, 0],
+            steps=1)
+
+
+def test_sparse_entry_points_default_to_cuda(no_cuda):
+    # the bucketed path resolves the device before building its layout
+    from repro_torch.core import engine
+    from repro_torch.core.gamma import gamma_matrix
+    from repro_torch.core.instances import sparse_cell_instance
+    from repro_torch.core.layout import BucketedLayout
+    from repro_torch.core.psdsf_torch import psdsf_solve_torch
+    prob, _ = sparse_cell_instance(num_users=160, num_servers=16, cells=4)
+    g = gamma_matrix(prob)
+    lay = BucketedLayout.from_support(g > 0)
+    for call in (lambda: engine.solve(prob),
+                 lambda: engine.solve(prob, layout="bucketed",
+                                      accel="anderson"),
+                 lambda: psdsf_solve_torch(
+                     prob.demands, prob.capacities, prob.weights, g,
+                     layout="bucketed", buckets=(lay.indices, lay.mask))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+def test_convenience_wrappers_take_anderson():
+    # accel="anderson" extends psdsf_solve_torch's return tuple; the
+    # Allocation wrappers keep returning the allocation alone
+    from repro_torch.core.instances import fig1_instance
+    from repro_torch.core.psdsf_torch import (solve_psdsf_rdm_torch,
+                                              solve_psdsf_tdm_torch)
+    for fn in (solve_psdsf_rdm_torch, solve_psdsf_tdm_torch):
+        alloc = fn(fig1_instance(), max_rounds=128, accel="anderson",
+                   device="cpu")
+        np.testing.assert_allclose(alloc.tasks_per_user, [3.0, 3.0, 6.0],
+                                   atol=1e-6)

@@ -192,9 +192,7 @@ def test_rejected_values_raise_value_error(kw):
 @pytest.mark.parametrize("kw", [dict(mechanism="tsf"), dict(mechanism="drf"),
                                 dict(mechanism="uniform"),
                                 dict(backend="numpy"),
-                                dict(placement="headroom"),
-                                dict(layout="bucketed"), dict(layout="auto"),
-                                dict(accel="anderson")])
+                                dict(placement="headroom")])
 def test_unported_values_raise_not_implemented(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         engine.solve(instances.fig1_instance(), device="cpu", **kw)
