@@ -33,23 +33,43 @@ Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
    to 1e-9 and against the plain-driven bucketed solve, and prints the
    layout build's host time and the dense-vs-bucketed walls;
 6. profiles 32 Jacobi rounds of each layout for the device-time breakdown;
-7. prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and as its
+7. holds the attention kernels against their plain versions at
+   qwen3_1_7b's widths (16 query and 8 kv heads, head_dim 128, bfloat16):
+   ``flash_attention`` at S 1,024 and a ragged S 1,000, ``decode_attention``
+   over 8 slots of a 2,048-row cache with one length per slot (1, the whole
+   cache, past the cache, ragged); times both and
+   ``F.scaled_dot_product_attention`` as a yardstick the port never calls;
+8. drives the serving path with every launch count set to 0: a
+   ``ServingEngine`` on the full qwen3_1_7b config in bfloat16 (params from
+   the port's seeded init on the card), 8 slots of 2,048 rows, 16 requests
+   from two tenants (gold weight 2, free weight 1) with prompts of 128-1,024
+   tokens and 32 new tokens each; checks completion, token ids, finite
+   logits and that every prefill launched ``flash_attention`` and every
+   decode step ``decode_attention`` once per layer; then profiles a short
+   serving window for the device's idle share;
+9. runs a 2-layer full-width model on the card with the kernels and again
+   with the plain versions, on the same params and tokens, and holds the
+   prefill and decode logits of the two runs together;
+10. prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and as its
    last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the last line. Without a CUDA device,
 or without the repository's ``src/`` beside it, it fails at once. With
 ``--rehearse`` it runs every phase on the CPU at tiny sizes through the plain
-versions, skips what needs the card, and never prints a result line.
+versions (the serving phases on the qwen3_1_7b smoke config), skips what
+needs the card, and never prints a result line.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
 import time
 import traceback
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 
@@ -57,10 +77,42 @@ ROOT = Path(__file__).resolve().parent
 #: the tensor cores (dense), all at the 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+#: dense bfloat16 tensor-core rate of the same data sheet, the attention
+#: kernels' operations bound (the work they do, whatever units do it)
+PEAK_BF16_FLOPS = 989e12
 
 F64_ATOL = 1e-9            # float64 parity bound (tests/test_torch_*.py)
 F32_REL = 5e-6             # float32 bound, times max(1, |plain|)
 VDS_RTOL = 1e-6            # VDS minimum; argmins must be equal
+#: attention kernel (bfloat16 out) vs plain version in float32: the kernel
+#: rounds its float32 result to bfloat16 once (2^-9 relative) after summing
+#: in another order (flash on the tensor cores also rounds the softmax
+#: weights to bfloat16, 2^-9 relative each, which averages out over a
+#: row); bound 2^-8 x max(1, max|plain|)
+ATTN_REL = 2.0 ** -8
+#: logits of the 2-layer model, kernels vs plain versions, bfloat16: the
+#: runs differ only where the two attentions round to different bfloat16
+#: neighbours (1 ulp, 2^-8 relative); two layers and the bfloat16 logit
+#: product carry that to a few ulps of the largest logit: bound 4 ulps,
+#: 2^-5 x max|logit|
+LOGIT_REL = 2.0 ** -5
+
+KERNELS = ("psdsf_fill", "psdsf_fill_bucketed", "psdsf_vds",
+           "flash_attention", "decode_attention")
+
+
+def wrappers():
+    """Each kernel's wrapper, which counts its launches in ``.launches``."""
+    from repro_torch.kernels.decode_attention import kernel as decode
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.psdsf_fill import kernel as fill
+    from repro_torch.kernels.psdsf_fill_bucketed import kernel as bucketed
+    from repro_torch.kernels.psdsf_vds import kernel as vds
+    return {"psdsf_fill": fill.fill_event_levels,
+            "psdsf_fill_bucketed": bucketed.fill_event_levels_bucketed,
+            "psdsf_vds": vds.vds_argmin,
+            "flash_attention": flash.flash_attention,
+            "decode_attention": decode.decode_attention}
 
 
 class Smoke:
@@ -71,6 +123,9 @@ class Smoke:
         self.torch = torch
         self.rehearse = rehearse
         self.device = torch.device("cpu" if rehearse else "cuda")
+        # float32 comparisons in full float32, stated, not left to defaults
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
         self.failed = []
         self.rows = {}
         self.paths = {}
@@ -223,8 +278,7 @@ class Smoke:
             print("rehearsal: nothing built")
             return
         t0 = time.perf_counter()
-        logs = _build.build(["psdsf_fill", "psdsf_fill_bucketed",
-                             "psdsf_vds"])
+        logs = _build.build(list(KERNELS))
         print(f"built {sorted(logs) or 'nothing (cached)'} in "
               f"{time.perf_counter() - t0:.1f} s")
         for name, log in logs.items():
@@ -387,14 +441,7 @@ class Smoke:
         from repro_torch.core.dynamic import min_vds_guarded
         from repro_torch.core.layout import BucketedLayout
         from repro_torch.core.psdsf_torch import psdsf_solve_torch
-        from repro_torch.kernels.psdsf_fill import kernel as fill_kernel
-        from repro_torch.kernels.psdsf_fill_bucketed import \
-            kernel as bucketed_kernel
-        from repro_torch.kernels.psdsf_vds import kernel as vds_kernel
-        counters = {"psdsf_fill": fill_kernel.fill_event_levels,
-                    "psdsf_fill_bucketed":
-                        bucketed_kernel.fill_event_levels_bucketed,
-                    "psdsf_vds": vds_kernel.vds_argmin}
+        counters = wrappers()
         sparse = layout == "bucketed"
         expect = ("psdsf_fill_bucketed" if sparse else "psdsf_fill",
                   "psdsf_vds")
@@ -599,6 +646,331 @@ class Smoke:
         for us, key, count in host[:5]:
             print(f"    {us / 1e3:9.3f} ms {count:6d}x  {key[:90]}")
 
+    # -- attention kernels and the serving path -----------------------------
+    def llm_config(self, layers=None):
+        """qwen3_1_7b at full width in bfloat16 (its smoke config in a
+        rehearsal), optionally cut to ``layers``."""
+        from repro_torch.configs import get_config, get_smoke_config
+        cfg = (get_smoke_config("qwen3_1_7b") if self.rehearse
+               else get_config("qwen3_1_7b"))
+        return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
+
+    def attn_inputs(self, shapes, dtype, seed):
+        torch = self.torch
+        g = torch.Generator(device=self.device).manual_seed(seed)
+        return [torch.randn(s, generator=g, device=self.device).to(dtype)
+                for s in shapes]
+
+    def compare_attn(self, got, plain32, what):
+        """max |kernel - plain| against 2^-8 x max(1, max|plain|)."""
+        err = float((got.float() - plain32).abs().max())
+        bound = ATTN_REL * max(1.0, float(plain32.abs().max()))
+        print(f"  {what}: max|kernel-plain f32|={err:.3e} (bound "
+              f"{bound:.3e})")
+        self.check(err <= bound, f"{what} disagrees with plain")
+        return err
+
+    def flash_vs_plain(self):
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels.flash_attention import kernel, ref
+        cfg = self.llm_config()
+        hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        dtype = torch.bfloat16
+        for s in ((128, 100) if self.rehearse else (1024, 1000)):
+            q, k, v = self.attn_inputs([(1, s, hq, d), (1, s, hkv, d),
+                                        (1, s, hkv, d)], dtype, seed=s)
+            got = kernel.flash_attention(q, k, v)
+            plain32 = ref.flash_attention(q.float(), k.float(), v.float())
+            self.sync()
+            err = self.compare_attn(got, plain32, f"flash S={s}")
+            ms = self.time_ms(lambda: kernel.flash_attention(q, k, v), 20)
+            plain_ms = self.time_ms(lambda: ref.flash_attention(q, k, v), 5)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            library_ms = self.time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+            nbytes = (2 * hq + 2 * hkv) * s * d * 2
+            flops = 4 * hq * d * s * (s + 1) // 2
+            t_bytes = nbytes / PEAK_BYTES_PER_S
+            t_ops = flops / PEAK_BF16_FLOPS
+            bound_ms = max(t_bytes, t_ops) * 1e3
+            bound_by = "bytes" if t_bytes > t_ops else "operations"
+            print(f"  flash (1, {s}, {hq}/{hkv}, {d}) bf16 causal: kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+                  f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms "
+                  f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP: bound "
+                  f"by {bound_by})")
+            key = "bfloat16" if s % 64 == 0 else "bfloat16_ragged"
+            self.rows[("flash_attention", key)] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=err, library_ms=library_ms,
+                shape=f"1x{s}x{hq}/{hkv}x{d}")
+
+    def decode_vs_plain(self):
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels.decode_attention import kernel, ref
+        cfg = self.llm_config()
+        hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        b, s_max = 8, (64 if self.rehearse else 2048)
+        dtype = torch.bfloat16
+        q, kc, vc = self.attn_inputs([(b, hq, d), (b, s_max, hkv, d),
+                                      (b, s_max, hkv, d)], dtype, seed=3)
+        # 1, the whole cache, past the cache (clamped to it), ragged
+        lens = [1, s_max, s_max + 37, s_max // 2 + 3, s_max // 4 + 1, 64,
+                3 * s_max // 4 - 5, s_max - 1]
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=self.device)
+        got = kernel.decode_attention(q, kc, vc, kv_len)
+        plain32 = ref.decode_attention(q.float(), kc.float(), vc.float(),
+                                       kv_len)
+        self.sync()
+        err = self.compare_attn(got, plain32, f"decode {b}x{s_max}")
+        ms = self.time_ms(lambda: kernel.decode_attention(q, kc, vc, kv_len),
+                          50)
+        plain_ms = self.time_ms(lambda: ref.decode_attention(q, kc, vc,
+                                                             kv_len), 10)
+        valid = [min(n, s_max) for n in lens]
+        top = max(valid)
+        qt = q[:, :, None, :]
+        kt, vt = (t[:, :top].transpose(1, 2) for t in (kc, vc))
+        mask = (torch.arange(top, device=self.device)[None, :]
+                < kv_len.clamp(max=s_max)[:, None])[:, None, None, :]
+        library_ms = self.time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True), 50)
+        nbytes = 2 * sum(valid) * hkv * d * 2 + 2 * b * hq * d * 2 + b * 4
+        flops = 4 * sum(valid) * hq * d
+        bound_ms = max(nbytes / PEAK_BYTES_PER_S,
+                       flops / PEAK_BF16_FLOPS) * 1e3
+        print(f"  decode ({b} slots, {s_max} rows, {hq}/{hkv}, {d}) bf16, "
+              f"lengths {valid}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
+              f" SDPA on the valid prefix {library_ms:.4f} ms, bound "
+              f"{bound_ms:.5f} ms ({nbytes / 1e6:.2f} MB: bound by bytes)")
+        self.rows[("decode_attention", "bfloat16")] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+            max_abs_err=err, library_ms=library_ms,
+            shape=f"{b}x{s_max}x{hq}/{hkv}x{d}")
+
+    def serving(self):
+        """The serving path, counts set to 0 just before ``run`` and read
+        just after."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch.models import model as tmodel
+        from repro_torch.serve import ServingEngine
+        from repro_torch.serve import engine as engine_mod
+        cfg = self.llm_config()
+        max_len, (lo, hi), max_new = ((64, (8, 40), 4) if self.rehearse
+                                      else (2048, (128, 1024), 32))
+        t0 = time.perf_counter()
+        params = tmodel.init_params(cfg, 0, device=self.device)
+        self.sync()
+        n_params = sum(p.numel() for p in params.parameters())
+        print(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model},"
+              f" {cfg.num_heads}/{cfg.num_kv_heads} heads x {cfg.head_dim}, "
+              f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (padded "
+              f"{cfg.vocab_padded}), {cfg.dtype}: {n_params / 1e9:.4f} B "
+              f"params, {n_params * 2 / 1e9:.3f} GB; seeded init "
+              f"{time.perf_counter() - t0:.2f} s")
+        # warm-up outside the engine (cuBLAS handles, the kernels' loads)
+        tmodel.forward_prefill(cfg, params, [[1] * 70], device=self.device)
+        tmodel.forward_decode(cfg, params, tmodel.init_caches(
+            cfg, 2, 80, device=self.device), [1, 2], 70, device=self.device)
+        self.params_full = params
+
+        eng = ServingEngine(cfg, params=params, max_slots=8, max_len=max_len,
+                            tenant_weights={"gold": 2.0, "free": 1.0},
+                            device=self.device)
+        rng = np.random.default_rng(0)
+        for i in range(16):
+            tenant = "gold" if i % 3 else "free"
+            n = int(rng.integers(lo, hi + 1))
+            eng.submit(tenant, [int(t) for t in rng.integers(
+                0, cfg.vocab_size, n)], max_new_tokens=max_new)
+        finite = []
+
+        def watch(fn):
+            def call(*a, **k):
+                logits, caches = fn(*a, **k)
+                finite.append(torch.isfinite(logits).all())
+                return logits, caches
+            return call
+        counters = wrappers()
+        with mock.patch.object(engine_mod, "forward_prefill",
+                               watch(engine_mod.forward_prefill)), \
+                mock.patch.object(engine_mod, "forward_decode",
+                                  watch(engine_mod.forward_decode)):
+            if self.device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            for fn in counters.values():
+                fn.launches = 0
+            self.sync()
+            t0 = time.perf_counter()
+            done = eng.run(max_steps=16 * max_new + 64)
+            self.sync()
+            wall = time.perf_counter() - t0
+            launches = {name: fn.launches for name, fn in counters.items()}
+        st = eng.stats
+        per_tenant = {}
+        for r in done:
+            per_tenant[r.tenant] = per_tenant.get(r.tenant, 0) \
+                + len(r.out_tokens)
+        peak = (torch.cuda.max_memory_allocated() / 2**30
+                if self.device.type == "cuda" else None)
+        print(f"  served {len(done)} requests in {wall:.3f} s: "
+              f"{st['prefills']} prefills of {st['prefill_tokens']} tokens "
+              f"({st['prefill_s'] * 1e3 / st['prefills']:.2f} ms per request,"
+              f" {st['prefill_tokens'] / st['prefill_s']:.0f} tokens/s), "
+              f"{st['decode_steps']} decode steps "
+              f"({st['decode_s'] * 1e3 / st['decode_steps']:.3f} ms per step, "
+              f"{st['decode_tokens'] / st['decode_s']:.1f} tokens/s, "
+              f"{st['decode_tokens'] / st['decode_steps']:.2f} active slots "
+              f"per step)")
+        print(f"  tokens per tenant: {per_tenant}; launches: {launches}"
+              + (f"; peak device memory {peak:.2f} GiB" if peak else ""))
+        self.paths["serving"] = dict(
+            launches=launches, wall_s=wall, requests=len(done),
+            prefills=st["prefills"], prefill_tokens=st["prefill_tokens"],
+            prefill_ms_per_request=st["prefill_s"] * 1e3 / st["prefills"],
+            prefill_tokens_per_s=st["prefill_tokens"] / st["prefill_s"],
+            decode_steps=st["decode_steps"],
+            decode_step_ms=st["decode_s"] * 1e3 / st["decode_steps"],
+            decode_tokens_per_s=st["decode_tokens"] / st["decode_s"],
+            tokens_per_tenant=per_tenant, peak_gib=peak)
+
+        self.check(len(done) == 16 and all(
+            r.done and len(r.out_tokens) == max_new for r in done),
+            "not every request completed")
+        self.check(all(0 <= t < cfg.vocab_size for r in done
+                       for t in r.out_tokens), "a token id outside the vocab")
+        self.check(bool(torch.stack(finite).all()), "non-finite logits")
+        if not self.rehearse:
+            want = {"flash_attention": cfg.num_layers * st["prefills"],
+                    "decode_attention": cfg.num_layers * eng._steps}
+            for name, count in launches.items():
+                self.check(count == want.get(name, 0),
+                           f"{name} launched {count} times on the serving "
+                           f"path, expected {want.get(name, 0)}")
+
+    def serving_profile(self):
+        """Device busy and idle share over a short serving window: 8
+        requests of 512 prompt tokens, 8 new tokens each."""
+        import numpy as np
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        from repro_torch.serve import ServingEngine
+        cfg = self.llm_config()
+        prompt = 24 if self.rehearse else 512
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        rng = np.random.default_rng(1)
+        eng = ServingEngine(cfg, params=self.params_full, max_slots=8,
+                            max_len=prompt + 16,
+                            tenant_weights={"gold": 2.0, "free": 1.0},
+                            device=self.device)
+        for i in range(8):
+            eng.submit("gold" if i % 3 else "free", [int(t) for t in rng.integers(
+                0, cfg.vocab_size, prompt)], max_new_tokens=8)
+        self.sync()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()       # the run, not the trace's export
+            eng.run(max_steps=64)
+            self.sync()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = sorted(((float(e.self_device_time_total), e.key, e.count)
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA), reverse=True)
+        busy_ms = sum(r[0] for r in rows) / 1e3
+        st = eng.stats
+        print(f"  profiled window: {st['prefills']} prefills x {prompt} "
+              f"tokens, {st['decode_steps']} decode steps: wall "
+              f"{wall_ms:.1f} ms (prefill {st['prefill_s'] * 1e3:.1f}, decode"
+              f" {st['decode_s'] * 1e3:.1f})")
+        if busy_ms <= 0:
+            print("  profiler saw no device time: not measured")
+            return
+        attn = {name: sum(r[0] for r in rows if key in r[1]) / 1e3
+                for name, key in (("flash_attention", "flash_"),
+                                  ("decode_attention", "decode_kernel"))}
+        print(f"  device busy {busy_ms:.1f} ms, idle share "
+              f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; flash_attention "
+              f"{attn['flash_attention']:.2f} ms, decode_attention "
+              f"{attn['decode_attention']:.2f} ms")
+        for us, key, count in rows[:10]:
+            print(f"    {us / 1e3:9.3f} ms {count:6d}x  {key[:90]}")
+        self.paths["serving"]["profile"] = dict(
+            wall_ms=wall_ms, busy_ms=busy_ms,
+            idle_share=max(0.0, 1 - busy_ms / wall_ms), **attn)
+
+    def serving_vs_plain(self):
+        """A 2-layer full-width model, the kernels' run then the plain
+        versions' run, on the same params and tokens."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch.kernels.decode_attention import ref as decode_ref
+        from repro_torch.kernels.flash_attention import ref as flash_ref
+        from repro_torch.models import attention as attention_mod
+        from repro_torch.models import model as tmodel
+        cfg = self.llm_config(layers=2)
+        params = tmodel.init_params(cfg, 1, device=self.device)
+        s, max_len, steps = (20, 32, 4) if self.rehearse else (300, 512, 4)
+        rng = np.random.default_rng(2)
+        prompt = rng.integers(0, cfg.vocab_size, (2, s))
+        feed = rng.integers(0, cfg.vocab_size, (steps, 2))
+
+        def run():
+            logits, caches = tmodel.forward_prefill(cfg, params, prompt,
+                                                    device=self.device)
+            pool = tmodel.init_caches(cfg, 2, max_len, device=self.device)
+            for one, kv in zip(pool, caches):
+                for key in ("k", "v"):
+                    one[key][:, :s] = kv[key]
+            out = [logits]
+            pos = torch.tensor([s, s + 7], dtype=torch.int32,
+                               device=self.device)
+            for tok in feed:
+                logits, pool = tmodel.forward_decode(
+                    cfg, params, pool, tok, pos, device=self.device)
+                out.append(logits)
+                pos += 1
+            self.sync()
+            return out
+
+        counters = wrappers()
+        for fn in counters.values():
+            fn.launches = 0
+        kern = run()
+        kern_launches = {n: fn.launches for n, fn in counters.items()}
+        with mock.patch.object(attention_mod, "flash_attention",
+                               flash_ref.flash_attention), \
+                mock.patch.object(attention_mod, "decode_attention",
+                                  lambda q, kc, vc, n: decode_ref.
+                                  decode_attention(q[:, 0], kc, vc, n)[:, None]):
+            plain = run()
+        plain_launches = {n: fn.launches for n, fn in counters.items()}
+        print(f"  2-layer {cfg.name} {cfg.dtype}, prompt 2 x {s}, {steps} "
+              f"decode steps: launches with kernels {kern_launches}")
+        errs = []
+        for i, (a, b) in enumerate(zip(kern, plain)):
+            # the padded vocab slots read -1e9 in both runs
+            a, b = a[:, :cfg.vocab_size], b[:, :cfg.vocab_size]
+            err = float((a - b).abs().max())
+            bound = LOGIT_REL * float(b.abs().max())
+            errs.append(err)
+            print(f"  {'prefill' if i == 0 else f'decode {i}'} logits: "
+                  f"max|kernels-plain|={err:.4e} (bound {bound:.4e}, "
+                  f"max|logit| {float(b.abs().max()):.3f}), argmax equal: "
+                  f"{bool((a.argmax(-1) == b.argmax(-1)).all())}")
+            self.check(bool(torch.isfinite(a).all()) and err <= bound,
+                       "kernel-driven and plain-driven logits disagree")
+        self.paths["serving_vs_plain"] = dict(max_abs_err=max(errs))
+        if not self.rehearse:
+            self.check(kern_launches["flash_attention"] == 2
+                       and kern_launches["decode_attention"] == 2 * steps,
+                       f"kernel launches {kern_launches}")
+            self.check(plain_launches == kern_launches,
+                       "the plain run launched a kernel")
+
     def report(self):
         kernels = []
         for name, source, replaces, dtype in (
@@ -609,10 +981,19 @@ class Smoke:
                  "src/repro/kernels/psdsf_fill_bucketed/kernel.py:131",
                  "float64"),
                 ("psdsf_vds", "src/repro_torch/kernels/csrc/psdsf_vds.cu",
-                 "src/repro/kernels/psdsf_vds/kernel.py:55", "float32")):
+                 "src/repro/kernels/psdsf_vds/kernel.py:55", "float32"),
+                ("flash_attention",
+                 "src/repro_torch/kernels/csrc/flash_attention.cu",
+                 "src/repro/kernels/flash_attention/kernel.py:74",
+                 "bfloat16"),
+                ("decode_attention",
+                 "src/repro_torch/kernels/csrc/decode_attention.cu",
+                 "src/repro/kernels/decode_attention/kernel.py:63",
+                 "bfloat16")):
             main = self.rows[(name, dtype)]
             by_path = {layout: path["launches"][name]
-                       for layout, path in self.paths.items()}
+                       for layout, path in self.paths.items()
+                       if "launches" in path}
             row = {"name": name, "route": "cuda", "source": source,
                    "replaces": replaces,
                    "launches": sum(by_path.values()),
@@ -629,6 +1010,11 @@ class Smoke:
                 row.update({f"f32_{key}": f32[key] for key in (
                     "ms", "plain_ms", "bound_ms", "bound_by",
                     "max_abs_err", "shape")})
+            ragged = self.rows.get((name, "bfloat16_ragged"))
+            if ragged:
+                row.update({f"ragged_{key}": ragged[key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                    "library_ms", "shape")})
             kernels.append(row)
         print(json.dumps({"kernels": kernels, "main_paths": self.paths}))
 
@@ -667,6 +1053,12 @@ def main(argv=None) -> int:
         if not smoke.failed:
             smoke.phase("main path, sparse", smoke.sparse_path)
         smoke.phase("profile", smoke.profile)
+    smoke.phase("flash_attention vs plain", smoke.flash_vs_plain)
+    smoke.phase("decode_attention vs plain", smoke.decode_vs_plain)
+    smoke.phase("serving path", smoke.serving)
+    if "serving path" not in smoke.failed:
+        smoke.phase("serving profile", smoke.serving_profile)
+    smoke.phase("serving path, kernel vs plain", smoke.serving_vs_plain)
     if smoke.failed:
         print(f"chip_smoke: FAILED phases: {smoke.failed}", file=sys.stderr)
         return 1

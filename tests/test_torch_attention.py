@@ -1,0 +1,165 @@
+"""The port's attention kernels' plain versions
+(``repro_torch/kernels/{flash,decode}_attention/ref.py``, which the
+wrappers take for CPU tensors) against the JAX reference: the Pallas
+kernels in interpret mode, their jnp oracles, and the model's ``_attend``.
+
+Inputs come from a numpy seed. Bounds: float32 2e-5 and bfloat16 2e-2
+(rtol and atol), the JAX kernel tests' own (tests/test_kernel_flash_
+attention.py); against the model's ``_attend`` 3e-5, that file's bound for
+the same comparison."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config
+from repro.kernels.decode_attention.ops import \
+    decode_attention as jax_decode_attention
+from repro.kernels.decode_attention.ref import decode_attention_ref
+from repro.kernels.flash_attention.ops import \
+    flash_attention as jax_flash_attention
+from repro.kernels.flash_attention.ref import attention_ref
+from repro.models.attention import _attend as jax_attend
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.models.attention import _attend as torch_attend
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _arrays(shapes, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32) for s in shapes]
+
+
+def _both(arrays, dtype):
+    """The same values as jax and torch arrays of ``dtype`` (rounded once,
+    by jax, so both packages see identical bf16 inputs)."""
+    js = [jnp.asarray(a, JDT[dtype]) for a in arrays]
+    ts = [torch.from_numpy(np.array(j.astype(jnp.float32))).to(TDT[dtype])
+          for j in js]
+    return js, ts
+
+
+def _f32(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor)
+                      else x.astype(jnp.float32), np.float32)
+
+
+FLASH_CASES = [
+    # b, s, hq, hkv, d, block
+    (1, 128, 4, 2, 16, 64),      # GQA 2:1, the smoke config's head dim
+    (2, 128, 4, 4, 64, 64),      # MHA
+    (1, 128, 4, 1, 128, 64),     # MQA, head dim 128
+    (1, 64, 16, 8, 128, 64),     # qwen3_1_7b's heads and head dim
+]
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,block", FLASH_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_matches_pallas_interpret(b, s, hq, hkv, d, block,
+                                              dtype):
+    (q, k, v), (tq, tk, tv) = _both(
+        _arrays([(b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d)], seed=d + s),
+        dtype)
+    got = flash_ops.flash_attention(tq, tk, tv, causal=True)
+    assert got.dtype == TDT[dtype] and got.shape == (b, s, hq, d)
+    want = jax_flash_attention(q, k, v, causal=True, block_q=block,
+                               block_k=block, interpret=True)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("s,hq,hkv,d,dtype,causal", [
+    (s, hq, hkv, d, dtype, True)
+    for s, hq, hkv, d in ((1, 4, 2, 16), (37, 8, 1, 64), (100, 16, 8, 128))
+    for dtype in ("float32", "bfloat16")] + [(37, 4, 2, 16, "float32", False)])
+def test_flash_plain_matches_oracle_ragged(s, hq, hkv, d, dtype, causal):
+    # ragged lengths the TPU kernel's blocks cannot take (S % block != 0)
+    (q, k, v), (tq, tk, tv) = _both(
+        _arrays([(2, s, hq, d), (2, s, hkv, d), (2, s, hkv, d)], seed=s),
+        dtype)
+    got = flash_ops.flash_attention(tq, tk, tv, causal=causal)
+    want = attention_ref(*(jnp.swapaxes(a, 1, 2) for a in (q, k, v)),
+                         causal=causal)
+    np.testing.assert_allclose(_f32(got), _f32(jnp.swapaxes(want, 1, 2)),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("s", [16, 45])
+def test_flash_plain_matches_model_attend(s):
+    cfg = get_smoke_config("qwen3_1_7b")
+    (q, k, v), (tq, tk, tv) = _both(
+        _arrays([(2, s, 4, 16), (2, s, 2, 16), (2, s, 2, 16)], seed=7),
+        "float32")
+    got = flash_ops.flash_attention(tq, tk, tv)
+    want = jax_attend(cfg, q, k, v, q_offset=0)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=3e-5, atol=3e-5)
+    # the port's own copy of _attend, the third implementation
+    np.testing.assert_allclose(_f32(torch_attend(cfg, tq, tk, tv, 0)),
+                               _f32(want), rtol=3e-5, atol=3e-5)
+
+
+DECODE_CASES = [
+    # b, s_max, hq, hkv, d, kv_len
+    (2, 64, 4, 2, 16, 37),
+    (3, 128, 8, 1, 64, 128),
+    (2, 128, 16, 8, 128, 65),
+    (1, 64, 4, 4, 32, 1),
+]
+
+
+@pytest.mark.parametrize("b,s_max,hq,hkv,d,kv_len", DECODE_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_plain_matches_pallas_interpret(b, s_max, hq, hkv, d, kv_len,
+                                               dtype):
+    (q, kc, vc), (tq, tkc, tvc) = _both(
+        _arrays([(b, 1, hq, d), (b, s_max, hkv, d), (b, s_max, hkv, d)],
+                seed=kv_len), dtype)
+    got = decode_ops.decode_attention(tq, tkc, tvc, torch.tensor(kv_len))
+    assert got.shape == (b, 1, hq, d) and got.dtype == TDT[dtype]
+    want = jax_decode_attention(q, kc, vc, jnp.int32(kv_len),
+                                num_kv_heads=hkv, block_k=32, interpret=True)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    rep = hq // hkv
+    oracle = decode_attention_ref(q[:, 0].reshape(b, hkv, rep, d),
+                                  jnp.swapaxes(kc, 1, 2),
+                                  jnp.swapaxes(vc, 1, 2), kv_len)
+    np.testing.assert_allclose(_f32(got), _f32(oracle.reshape(b, 1, hq, d)),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("hq,hkv,d", [(4, 2, 16), (16, 8, 128)])
+def test_decode_plain_matches_model_attend_per_row(hq, hkv, d):
+    # one length per sequence, as the model's decode step gives: pos 0
+    # (kv_len 1), mid-cache, the last slot, and two past the cache (the
+    # reference writes nothing there and reads the whole row)
+    cfg = get_smoke_config("qwen3_1_7b")
+    s_max = 24
+    pos = np.array([0, 9, s_max - 1, s_max, s_max + 5], np.int32)
+    b = len(pos)
+    (q, kc, vc), (tq, tkc, tvc) = _both(
+        _arrays([(b, 1, hq, d), (b, s_max, hkv, d), (b, s_max, hkv, d)],
+                seed=3), "float32")
+    kv_len = np.minimum(pos + 1, s_max)
+    got = decode_ops.decode_attention(tq, tkc, tvc,
+                                      torch.from_numpy(kv_len))
+    valid = jnp.arange(s_max)[None, :] <= jnp.asarray(pos)[:, None]
+    want = jax_attend(cfg, q, kc, vc, q_offset=int(pos.max()),
+                      kv_len_mask=valid)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=3e-5, atol=3e-5)
+    # lengths past the cache are clamped by the op itself
+    got_unclamped = decode_ops.decode_attention(
+        tq, tkc, tvc, torch.from_numpy(pos + 1))
+    np.testing.assert_array_equal(_f32(got_unclamped), _f32(got))
+
+
+def test_decode_plain_zero_length_gives_zeros():
+    (tq, tkc, tvc) = [torch.from_numpy(a) for a in _arrays(
+        [(2, 1, 4, 16), (2, 8, 2, 16), (2, 8, 2, 16)], seed=1)]
+    out = decode_ops.decode_attention(tq, tkc, tvc, torch.tensor([0, 3]))
+    assert torch.equal(out[0], torch.zeros_like(out[0]))
+    assert torch.isfinite(out).all() and out[1].abs().sum() > 0

@@ -244,3 +244,171 @@ def test_engine_auto_on_card_matches_cpu(cuda):
     assert i_gpu.bucket_max == lay.bucket_max
     assert i_gpu.rounds == i_cpu.rounds
     np.testing.assert_allclose(a_gpu.x, a_cpu.x, rtol=0, atol=1e-9)
+
+
+# -- attention kernels (flash for prefill, decode over the cache) ------------
+
+from repro_torch.kernels.decode_attention import kernel as decode_kernel  # noqa: E402
+from repro_torch.kernels.decode_attention import ref as decode_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
+
+#: kernel vs plain: float32 sums in another order (2e-5, the JAX kernel
+#: tests' bound); bfloat16 outputs may round one ulp (2^-8) apart (2e-2)
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _randn(shape, dtype, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g).to(device=device, dtype=dtype)
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d", [
+    (1, 1024, 16, 8, 128), (1, 1000, 16, 8, 128), (2, 77, 4, 2, 16),
+    (1, 1, 4, 2, 16), (2, 130, 8, 1, 64), (1, 200, 6, 3, 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_matches_plain(cuda, b, s, hq, hkv, d, dtype, causal):
+    q = _randn((b, s, hq, d), dtype, cuda, 1)
+    k = _randn((b, s, hkv, d), dtype, cuda, 2)
+    v = _randn((b, s, hkv, d), dtype, cuda, 3)
+    before = flash_kernel.flash_attention.launches
+    got = flash_kernel.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_kernel.flash_attention.launches == before + 1
+    assert got.shape == q.shape and got.dtype == dtype
+    want = flash_ref.flash_attention(q, k, v, causal=causal)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_kernel_reads_strided_layout(cuda):
+    # q, k, v as views of one fused (B, S, Hq + 2 Hkv, D) projection
+    qkv = _randn((2, 150, 16 + 2 * 8, 128), torch.bfloat16, cuda, 4)
+    q, k, v = qkv[:, :, :16], qkv[:, :, 16:24], qkv[:, :, 24:]
+    got = flash_kernel.flash_attention(q, k, v)
+    want = flash_ref.flash_attention(q.contiguous(), k.contiguous(),
+                                     v.contiguous())
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("b,s_max,hq,hkv,d", [
+    (8, 2048, 16, 8, 128), (3, 100, 4, 2, 16), (2, 64, 16, 1, 64),
+    (4, 300, 8, 8, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_matches_plain(cuda, b, s_max, hq, hkv, d, dtype):
+    q = _randn((b, hq, d), dtype, cuda, 5)
+    kc = _randn((b, s_max, hkv, d), dtype, cuda, 6)
+    vc = _randn((b, s_max, hkv, d), dtype, cuda, 7)
+    # 1, the whole cache, past the cache (clamped), and ragged lengths
+    lens = [1, s_max, s_max + 9, s_max // 2 + 3, 65, 64, 2, s_max - 1][:b]
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = decode_kernel.decode_attention.launches
+    got = decode_kernel.decode_attention(q, kc, vc, kv_len)
+    torch.cuda.synchronize()
+    assert decode_kernel.decode_attention.launches == before + 1
+    want = decode_ref.decode_attention(q, kc, vc, kv_len)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_decode_kernel_zero_length_and_strided_cache(cuda):
+    # a (B, S_max, Hkv, D) view inside a wider buffer; length 0 gives zeros
+    buf = _randn((3, 96, 4, 2 * 64), torch.float32, cuda, 8)
+    kc, vc = buf[..., :64], buf[..., 64:]
+    q = _randn((3, 8, 64), torch.float32, cuda, 9)
+    kv_len = torch.tensor([0, 50, 96], dtype=torch.int32, device=cuda)
+    got = decode_kernel.decode_attention(q, kc, vc, kv_len)
+    want = decode_ref.decode_attention(q, kc, vc, kv_len)
+    assert not got[0].any()
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    # one element in: rows not 16-byte aligned take element-wise loads
+    buf1 = _randn((3, 96, 4, 2 * 64 + 2), torch.float32, cuda, 10)
+    kc1, vc1 = buf1[..., 1:65], buf1[..., 65:129]
+    got = decode_kernel.decode_attention(q, kc1, vc1, kv_len)
+    want = decode_ref.decode_attention(q, kc1, vc1, kv_len)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_attention_kernels_reject_bad_inputs(cuda):
+    q = _randn((1, 64, 4, 16), torch.float32, cuda, 0)
+    k = _randn((1, 64, 2, 16), torch.float32, cuda, 0)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_kernel.flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError, match="contiguous head dim"):
+        flash_kernel.flash_attention(q, k.transpose(2, 3).contiguous()
+                                     .transpose(2, 3), k)
+    with pytest.raises(ValueError, match="on"):
+        flash_kernel.flash_attention(q, k.cpu(), k)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        flash_kernel.flash_attention(q[..., :12], k[..., :12], k[..., :12])
+    with pytest.raises(ValueError, match="multiple of"):
+        flash_kernel.flash_attention(q[:, :, :3], k, k)
+    qd = q[:, 0]
+    kv_len = torch.tensor([5], dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        decode_kernel.decode_attention(qd.double(), k.double(), k.double(),
+                                       kv_len)
+    with pytest.raises(ValueError, match="kv_len"):
+        decode_kernel.decode_attention(qd, k, k, kv_len.long())
+    with pytest.raises(ValueError, match="kv_len"):
+        decode_kernel.decode_attention(qd, k, k, kv_len.cpu())
+    with pytest.raises(ValueError, match="contiguous head dim"):
+        decode_kernel.decode_attention(
+            qd, k.transpose(2, 3).contiguous().transpose(2, 3), k, kv_len)
+    with pytest.raises(ValueError, match="at most 16"):
+        decode_kernel.decode_attention(
+            _randn((1, 32, 16), torch.float32, cuda, 0), k[:, :, :1],
+            k[:, :, :1], kv_len)
+
+
+def test_serving_engine_on_card_matches_cpu(cuda):
+    # the smoke config in float32: the engine's tokens on the card (through
+    # both kernels) equal those of the plain versions on the CPU
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import ServingEngine
+    cfg = get_smoke_config("qwen3_1_7b")
+    params = init_params(cfg, 0, device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServingEngine(cfg, params=params.to(dev), max_slots=3,
+                            max_len=24, tenant_weights={"gold": 2.0},
+                            device=dev)
+        rng = np.random.default_rng(0)
+        for i in range(6):
+            eng.submit("gold" if i % 3 else "free",
+                       [int(t) for t in rng.integers(0, cfg.vocab_size, 9)],
+                       max_new_tokens=5)
+        before = (flash_kernel.flash_attention.launches,
+                  decode_kernel.decode_attention.launches)
+        done = eng.run(max_steps=40)
+        after = (flash_kernel.flash_attention.launches,
+                 decode_kernel.decode_attention.launches)
+        out[dev] = [(r.rid, r.out_tokens) for r in done]
+        launched = (after[0] - before[0], after[1] - before[1])
+        if dev == "cpu":
+            assert launched == (0, 0)
+        else:
+            assert launched == (cfg.num_layers * len(done),
+                                cfg.num_layers * eng._steps)
+    assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_bf16_tensor_core_and_fallback_paths(cuda, causal):
+    # bf16 with head_dim 128 and 16-byte-aligned rows takes the tensor-core
+    # body; the same values one element into a wider buffer (rows no
+    # longer 16-byte aligned) take the CUDA-core body: both match plain
+    s, hq, hkv, d = 333, 16, 8, 128
+    buf = _randn((3, 1, s, hq, d + 1), torch.bfloat16, cuda, 11)
+    aligned = [t[..., :d].contiguous() for t in
+               (buf[0], buf[1, :, :, :hkv], buf[2, :, :, :hkv])]
+    shifted = [buf[0, ..., 1:], buf[1, :, :, :hkv, 1:], buf[2, :, :, :hkv, 1:]]
+    for t, u in zip(aligned, shifted):
+        u.copy_(t)
+    want = flash_ref.flash_attention(*aligned, causal=causal).float()
+    for args in (aligned, shifted):
+        got = flash_kernel.flash_attention(*args, causal=causal)
+        torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)

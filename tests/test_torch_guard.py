@@ -12,6 +12,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention import kernel as decode_kernel
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.psdsf_fill import kernel as fill_kernel
 from repro_torch.kernels.psdsf_fill_bucketed import kernel as bucketed_kernel
 from repro_torch.kernels.psdsf_vds import kernel as vds_kernel
@@ -27,6 +29,15 @@ PORT_MODULES = sorted(
 def test_port_modules_listed():
     assert "repro_torch.core.psdsf_torch" in PORT_MODULES
     assert "repro_torch.kernels.psdsf_vds.kernel" in PORT_MODULES
+    for name in ("configs.qwen3_1_7b", "models.config", "models.common",
+                 "models.mlp", "models.attention", "models.blocks",
+                 "models.model", "models.convert", "serve.engine",
+                 "launch.serve", "kernels.flash_attention.kernel",
+                 "kernels.flash_attention.ops", "kernels.flash_attention.ref",
+                 "kernels.decode_attention.kernel",
+                 "kernels.decode_attention.ops",
+                 "kernels.decode_attention.ref"):
+        assert f"repro_torch.{name}" in PORT_MODULES, name
 
 
 def test_port_imports_no_jax_and_no_repro():
@@ -40,6 +51,12 @@ def test_port_imports_no_jax_and_no_repro():
         "a, _ = engine.solve(fig1_instance(), device='cpu', fill='bisect',\n"
         "                    round='jacobi', tol=1e-10, max_rounds=512)\n"
         "assert abs(a.tasks_per_user - [3, 3, 6]).max() < 1e-6\n"
+        "import contextlib, io\n"
+        "from repro_torch.launch import serve\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    done = serve.main(['--smoke', '--device', 'cpu',\n"
+        "                       '--requests', '3', '--max-new', '2'])\n"
+        "assert len(done) == 3\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib')) or m == 'repro'\n"
         "             or m.startswith('repro.'))\n"
@@ -121,7 +138,8 @@ def test_wrappers_refuse_other_devices(no_build):
 
 
 def test_library_name_follows_source(tmp_path, monkeypatch):
-    for name in ("psdsf_fill", "psdsf_fill_bucketed", "psdsf_vds"):
+    for name in ("psdsf_fill", "psdsf_fill_bucketed", "psdsf_vds",
+                 "flash_attention", "decode_attention"):
         src = (_build.CSRC / f"{name}.cu").read_text()
         assert "extern \"C\"" in src and "Replaces the TPU kernel" in src
         (tmp_path / f"{name}.cu").write_text(src)
@@ -185,3 +203,62 @@ def test_convenience_wrappers_take_anderson():
                    device="cpu")
         np.testing.assert_allclose(alloc.tasks_per_user, [3.0, 3.0, 6.0],
                                    atol=1e-6)
+
+
+def test_serving_entry_points_default_to_cuda(no_cuda):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import (forward_decode, forward_prefill,
+                                          init_caches, init_params)
+    from repro_torch.serve import ServingEngine
+    cfg = get_smoke_config("qwen3_1_7b")
+    params = init_params(cfg, device="cpu")
+    caches = init_caches(cfg, 1, 8, device="cpu")
+    calls = [
+        lambda: ServingEngine(cfg),
+        lambda: ServingEngine(cfg, params=params),
+        lambda: init_params(cfg),
+        lambda: init_caches(cfg, 1, 8),
+        lambda: forward_prefill(cfg, params, [[1, 2, 3]]),
+        lambda: forward_decode(cfg, params, caches, [1], 0),
+        lambda: serve.main(["--smoke"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    logits, _ = forward_prefill(cfg, params, [[1, 2, 3]], device="cpu")
+    assert logits.shape == (1, cfg.vocab_padded)
+    eng = ServingEngine(cfg, params=params, max_slots=2, max_len=8,
+                        device="cpu")
+    assert eng.device == torch.device("cpu")
+
+
+def test_attention_wrappers_take_plain_version_for_cpu_tensors(no_build):
+    g = torch.Generator().manual_seed(2)
+    q = torch.randn(1, 5, 4, 16, generator=g)
+    k = torch.randn(1, 5, 2, 16, generator=g)
+    before = (flash_kernel.flash_attention.launches,
+              decode_kernel.decode_attention.launches)
+    out = flash_kernel.flash_attention(q, k, k)
+    assert out.shape == q.shape
+    out = decode_kernel.decode_attention(q[:, 0], k, k,
+                                         torch.tensor([3], dtype=torch.int32))
+    assert out.shape == (1, 4, 16)
+    assert (flash_kernel.flash_attention.launches,
+            decode_kernel.decode_attention.launches) == before
+    meta = torch.empty((1, 5, 2, 16), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        flash_kernel.flash_attention(meta, meta, meta)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        decode_kernel.decode_attention(meta[:, 0], meta, meta,
+                                       torch.empty((1,), device="meta"))
+
+
+def test_unported_configs_name_their_roadmap_item():
+    from repro_torch.configs import ARCH_IDS, PORTED, get_config
+    for arch in ARCH_IDS:
+        if arch in PORTED:
+            assert get_config(arch).name == arch
+            continue
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_config(arch)
