@@ -50,14 +50,27 @@ Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
 9. runs a 2-layer full-width model on the card with the kernels and again
    with the plain versions, on the same params and tokens, and holds the
    prefill and decode logits of the two runs together;
-10. prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and as its
+10. holds ``ssd_scan`` against its plain version (float32 on the card) at
+   mamba2_1_3b's prefill shape (B 1, S 1,024, 64 heads x 64, N 128, chunk
+   128) in bfloat16, at a ragged S 1,000 and in float32, called as the
+   model calls it (``ops.ssd_chunked`` on slices of one conv output, y
+   written through strides): y and the final state; times both (no single
+   PyTorch call computes it);
+11. drives the Mamba-2 serving path the same way, counts set to 0 again:
+   a ``ServingEngine`` on the full mamba2_1_3b config in bfloat16, 8
+   slots, the same 16 requests' shape of traffic; checks completion,
+   token ids, finite logits and one ``ssd_scan`` launch per layer and
+   prefill; profiles a short window for the idle share; then holds a
+   2-layer full-width model's logits with the kernel against the plain
+   version's;
+12. prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and as its
    last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the last line. Without a CUDA device,
 or without the repository's ``src/`` beside it, it fails at once. With
 ``--rehearse`` it runs every phase on the CPU at tiny sizes through the plain
-versions (the serving phases on the qwen3_1_7b smoke config), skips what
-needs the card, and never prints a result line.
+versions (the serving phases on the qwen3_1_7b and mamba2_1_3b smoke
+configs), skips what needs the card, and never prints a result line.
 """
 from __future__ import annotations
 
@@ -96,9 +109,14 @@ ATTN_REL = 2.0 ** -8
 #: product carry that to a few ulps of the largest logit: bound 4 ulps,
 #: 2^-5 x max|logit|
 LOGIT_REL = 2.0 ** -5
+#: ssd_scan vs plain version in float32 on the same inputs, times
+#: max(1, max|plain|): float32 sums in another order (1e-4, the JAX ssd
+#: tests' bound); a bfloat16 y is rounded once more (2^-9 relative), bound
+#: 2^-8; the final state is float32 in both runs (1e-4)
+SSD_REL = {"float32": 1e-4, "bfloat16": 2.0 ** -8}
 
 KERNELS = ("psdsf_fill", "psdsf_fill_bucketed", "psdsf_vds",
-           "flash_attention", "decode_attention")
+           "flash_attention", "decode_attention", "ssd_scan")
 
 
 def wrappers():
@@ -108,11 +126,13 @@ def wrappers():
     from repro_torch.kernels.psdsf_fill import kernel as fill
     from repro_torch.kernels.psdsf_fill_bucketed import kernel as bucketed
     from repro_torch.kernels.psdsf_vds import kernel as vds
+    from repro_torch.kernels.ssd_scan import kernel as ssd
     return {"psdsf_fill": fill.fill_event_levels,
             "psdsf_fill_bucketed": bucketed.fill_event_levels_bucketed,
             "psdsf_vds": vds.vds_argmin,
             "flash_attention": flash.flash_attention,
-            "decode_attention": decode.decode_attention}
+            "decode_attention": decode.decode_attention,
+            "ssd_scan": ssd.ssd_scan}
 
 
 class Smoke:
@@ -647,12 +667,12 @@ class Smoke:
             print(f"    {us / 1e3:9.3f} ms {count:6d}x  {key[:90]}")
 
     # -- attention kernels and the serving path -----------------------------
-    def llm_config(self, layers=None):
-        """qwen3_1_7b at full width in bfloat16 (its smoke config in a
+    def llm_config(self, layers=None, arch="qwen3_1_7b"):
+        """``arch`` at full width in bfloat16 (its smoke config in a
         rehearsal), optionally cut to ``layers``."""
         from repro_torch.configs import get_config, get_smoke_config
-        cfg = (get_smoke_config("qwen3_1_7b") if self.rehearse
-               else get_config("qwen3_1_7b"))
+        cfg = (get_smoke_config(arch) if self.rehearse
+               else get_config(arch))
         return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
 
     def attn_inputs(self, shapes, dtype, seed):
@@ -750,26 +770,52 @@ class Smoke:
             max_abs_err=err, library_ms=library_ms,
             shape=f"{b}x{s_max}x{hq}/{hkv}x{d}")
 
-    def serving(self):
-        """The serving path, counts set to 0 just before ``run`` and read
-        just after."""
+    @staticmethod
+    def serving_launches(cfg, prefills, steps):
+        """Launches the serving path must make: each attention layer one
+        ``flash_attention`` per prefill and one ``decode_attention`` per
+        step, each mamba layer one ``ssd_scan`` per prefill."""
+        pattern = cfg.block_pattern
+        kinds = [pattern[i % len(pattern)][0] for i in range(cfg.num_layers)]
+        attn, mamba = kinds.count("attn"), kinds.count("mamba")
+        return {"flash_attention": attn * prefills,
+                "decode_attention": attn * steps,
+                "ssd_scan": mamba * prefills}
+
+    def serving(self, arch="qwen3_1_7b", path="serving"):
+        """The serving path of ``arch``, counts set to 0 just before ``run``
+        and read just after."""
+        import gc
+
         import numpy as np
         torch = self.torch
         from repro_torch.models import model as tmodel
         from repro_torch.serve import ServingEngine
         from repro_torch.serve import engine as engine_mod
-        cfg = self.llm_config()
+        cfg = self.llm_config(arch=arch)
         max_len, (lo, hi), max_new = ((64, (8, 40), 4) if self.rehearse
                                       else (2048, (128, 1024), 32))
+        self.params_full = None           # an earlier model's params
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
         t0 = time.perf_counter()
         params = tmodel.init_params(cfg, 0, device=self.device)
         self.sync()
         n_params = sum(p.numel() for p in params.parameters())
+        n_bytes = sum(p.numel() * p.element_size()
+                      for p in params.parameters())
+        if cfg.has_mixer("attn"):
+            widths = (f"{cfg.num_heads}/{cfg.num_kv_heads} heads x "
+                      f"{cfg.head_dim}, d_ff {cfg.d_ff}")
+        else:
+            widths = (f"d_inner {cfg.d_inner}, {cfg.ssm_heads} SSM heads x "
+                      f"{cfg.ssm_headdim}, state {cfg.ssm_state}, chunk "
+                      f"{cfg.ssm_chunk}")
         print(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model},"
-              f" {cfg.num_heads}/{cfg.num_kv_heads} heads x {cfg.head_dim}, "
-              f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (padded "
-              f"{cfg.vocab_padded}), {cfg.dtype}: {n_params / 1e9:.4f} B "
-              f"params, {n_params * 2 / 1e9:.3f} GB; seeded init "
+              f" {widths}, vocab {cfg.vocab_size} (padded "
+              f"{cfg.vocab_padded}), {cfg.dtype}: {n_params} params, "
+              f"{n_bytes / 1e9:.3f} GB; seeded init "
               f"{time.perf_counter() - t0:.2f} s")
         # warm-up outside the engine (cuBLAS handles, the kernels' loads)
         tmodel.forward_prefill(cfg, params, [[1] * 70], device=self.device)
@@ -827,7 +873,7 @@ class Smoke:
               f"per step)")
         print(f"  tokens per tenant: {per_tenant}; launches: {launches}"
               + (f"; peak device memory {peak:.2f} GiB" if peak else ""))
-        self.paths["serving"] = dict(
+        self.paths[path] = dict(
             launches=launches, wall_s=wall, requests=len(done),
             prefills=st["prefills"], prefill_tokens=st["prefill_tokens"],
             prefill_ms_per_request=st["prefill_s"] * 1e3 / st["prefills"],
@@ -844,21 +890,20 @@ class Smoke:
                        for t in r.out_tokens), "a token id outside the vocab")
         self.check(bool(torch.stack(finite).all()), "non-finite logits")
         if not self.rehearse:
-            want = {"flash_attention": cfg.num_layers * st["prefills"],
-                    "decode_attention": cfg.num_layers * eng._steps}
+            want = self.serving_launches(cfg, st["prefills"], eng._steps)
             for name, count in launches.items():
                 self.check(count == want.get(name, 0),
                            f"{name} launched {count} times on the serving "
                            f"path, expected {want.get(name, 0)}")
 
-    def serving_profile(self):
+    def serving_profile(self, arch="qwen3_1_7b", path="serving"):
         """Device busy and idle share over a short serving window: 8
         requests of 512 prompt tokens, 8 new tokens each."""
         import numpy as np
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         from repro_torch.serve import ServingEngine
-        cfg = self.llm_config()
+        cfg = self.llm_config(arch=arch)
         prompt = 24 if self.rehearse else 512
         acts = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
@@ -891,14 +936,14 @@ class Smoke:
             return
         attn = {name: sum(r[0] for r in rows if key in r[1]) / 1e3
                 for name, key in (("flash_attention", "flash_"),
-                                  ("decode_attention", "decode_kernel"))}
+                                  ("decode_attention", "decode_kernel"),
+                                  ("ssd_scan", "ssd_kernel"))}
         print(f"  device busy {busy_ms:.1f} ms, idle share "
-              f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; flash_attention "
-              f"{attn['flash_attention']:.2f} ms, decode_attention "
-              f"{attn['decode_attention']:.2f} ms")
+              f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; "
+              + ", ".join(f"{name} {ms:.2f} ms" for name, ms in attn.items()))
         for us, key, count in rows[:10]:
             print(f"    {us / 1e3:9.3f} ms {count:6d}x  {key[:90]}")
-        self.paths["serving"]["profile"] = dict(
+        self.paths[path]["profile"] = dict(
             wall_ms=wall_ms, busy_ms=busy_ms,
             idle_share=max(0.0, 1 - busy_ms / wall_ms), **attn)
 
@@ -950,24 +995,160 @@ class Smoke:
         plain_launches = {n: fn.launches for n, fn in counters.items()}
         print(f"  2-layer {cfg.name} {cfg.dtype}, prompt 2 x {s}, {steps} "
               f"decode steps: launches with kernels {kern_launches}")
+        self.paths["serving_vs_plain"] = dict(
+            max_abs_err=self.compare_logits(cfg, kern, plain))
+        if not self.rehearse:
+            self.check(kern_launches["flash_attention"] == 2
+                       and kern_launches["decode_attention"] == 2 * steps,
+                       f"kernel launches {kern_launches}")
+            self.check(plain_launches == kern_launches,
+                       "the plain run launched a kernel")
+
+    def compare_logits(self, cfg, kern, plain, argmax=False):
+        """Max |kernel-driven - plain-driven| over a run's logits, each step
+        held to 2^-5 x max|logit| (and, with ``argmax``, to equal
+        argmaxes)."""
+        torch = self.torch
         errs = []
         for i, (a, b) in enumerate(zip(kern, plain)):
             # the padded vocab slots read -1e9 in both runs
             a, b = a[:, :cfg.vocab_size], b[:, :cfg.vocab_size]
             err = float((a - b).abs().max())
             bound = LOGIT_REL * float(b.abs().max())
+            same = bool((a.argmax(-1) == b.argmax(-1)).all())
             errs.append(err)
             print(f"  {'prefill' if i == 0 else f'decode {i}'} logits: "
                   f"max|kernels-plain|={err:.4e} (bound {bound:.4e}, "
                   f"max|logit| {float(b.abs().max()):.3f}), argmax equal: "
-                  f"{bool((a.argmax(-1) == b.argmax(-1)).all())}")
+                  f"{same}")
             self.check(bool(torch.isfinite(a).all()) and err <= bound,
                        "kernel-driven and plain-driven logits disagree")
-        self.paths["serving_vs_plain"] = dict(max_abs_err=max(errs))
+            self.check(same or not argmax,
+                       "kernel-driven and plain-driven argmaxes differ")
+        return max(errs)
+
+    # -- the SSD kernel and the Mamba-2 serving path -------------------------
+    def ssd_vs_plain(self):
+        """``ssd_scan`` through ``ops.ssd_chunked``, the main path's call, in
+        the main path's layout: x, B and C slices of one (1, S, d_inner +
+        2 N) conv output, dt (1, S, H), y written through strides."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels.ssd_scan import kernel, ops, ref
+        cfg = self.llm_config(arch="mamba2_1_3b")
+        h, p, n, q = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state, \
+            cfg.ssm_chunk
+        di = h * p
+        s_full, s_ragged = (64, 50) if self.rehearse else (1024, 1000)
+        for key, s, dtype in (("bfloat16", s_full, torch.bfloat16),
+                              ("bfloat16_ragged", s_ragged, torch.bfloat16),
+                              ("float32", s_full, torch.float32)):
+            g = torch.Generator(device=self.device).manual_seed(s)
+
+            def randn(*shape):
+                return torch.randn(shape, generator=g, device=self.device)
+            # the JAX ssd tests' distribution: dt softplus / 2, a in
+            # -exp(0.3 N(0, 1)), B and C at 0.5 N(0, 1)
+            xbc = randn(1, s, di + 2 * n)
+            xbc[..., di:] /= 2
+            xbc = xbc.to(dtype)
+            x = xbc[..., :di].reshape(1, s, h, p)
+            bm, cm = xbc[..., di:di + n], xbc[..., di + n:]
+            dt = F.softplus(randn(1, s, h)) / 2
+            a = -torch.exp(randn(h) * 0.3)
+            y, state = ops.ssd_chunked(x, dt, a, bm, cm, chunk=q)
+            y_plain, state_plain = ref.ssd_scan(
+                x.transpose(1, 2).float(), dt.transpose(1, 2), a,
+                bm.float(), cm.float(), chunk=q)
+            self.sync()
+            label = "bfloat16" if dtype == torch.bfloat16 else "float32"
+            err = float((y.transpose(1, 2).float() - y_plain).abs().max())
+            bound = SSD_REL[label] * max(1.0, float(y_plain.abs().max()))
+            s_err = float((state - state_plain).abs().max())
+            s_bound = SSD_REL["float32"] * max(
+                1.0, float(state_plain.abs().max()))
+            print(f"  ssd {key} S={s}: y max|kernel-plain f32|={err:.3e} "
+                  f"(bound {bound:.3e}), final state {s_err:.3e} (bound "
+                  f"{s_bound:.3e})")
+            self.check(err <= bound and s_err <= s_bound,
+                       f"ssd_scan {key} disagrees with plain")
+            ms = self.time_ms(lambda: ops.ssd_chunked(x, dt, a, bm, cm,
+                                                      chunk=q), 20)
+            plain_ms = self.time_ms(lambda: ref.ssd_scan(
+                x.transpose(1, 2), dt.transpose(1, 2), a, bm, cm, chunk=q),
+                3)
+            el = 2 if dtype == torch.bfloat16 else 4
+            # x, B, C, dt and a read once; y and the final state written
+            nbytes = (2 * h * s * p + 2 * s * n) * el + h * s * 4 + h * 4 \
+                + h * p * n * 4
+            # the operations the function needs, chunk by chunk (the ragged
+            # last one at its own length c): the causal C B^T, the same for
+            # every head (ngroups = 1), c(c+1) N; per head the causal W x,
+            # c(c+1) P, and C state^T and x^T B, 4 c N P
+            flops = sum(c * (c + 1) * n + h * (c * (c + 1) * p + 4 * c * n * p)
+                        for c in [q] * (s // q) + ([s % q] if s % q else []))
+            t_bytes = nbytes / PEAK_BYTES_PER_S
+            t_ops = flops / (PEAK_BF16_FLOPS if dtype == torch.bfloat16
+                             else PEAK_FLOPS["float32"])
+            bound_ms = max(t_bytes, t_ops) * 1e3
+            bound_by = "bytes" if t_bytes > t_ops else "operations"
+            print(f"  ssd (1, {s}, {h}, {p}) N {n} chunk {q} {label}: kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library n/a, bound "
+                  f"{bound_ms:.5f} ms ({nbytes / 1e6:.2f} MB, "
+                  f"{flops / 1e9:.3f} GFLOP: bound by {bound_by})")
+            self.rows[("ssd_scan", key)] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=err, state_max_abs_err=s_err,
+                library_ms=None, shape=f"1x{h}x{s}x{p}xN{n}/Q{q}")
+
+    def mamba_vs_plain(self):
+        """A 2-layer full-width mamba2 model, the kernel's run then the
+        plain version's run, on the same params and tokens."""
+        import numpy as np
+        from repro_torch.kernels.ssd_scan import ref as ssd_ref
+        from repro_torch.models import model as tmodel
+        from repro_torch.models import ssm as ssm_mod
+        cfg = self.llm_config(layers=2, arch="mamba2_1_3b")
+        params = tmodel.init_params(cfg, 1, device=self.device)
+        s, steps = (20, 4) if self.rehearse else (300, 4)
+        rng = np.random.default_rng(2)
+        prompt = rng.integers(0, cfg.vocab_size, (2, s))
+        feed = rng.integers(0, cfg.vocab_size, (steps, 2))
+
+        def run():
+            logits, caches = tmodel.forward_prefill(cfg, params, prompt,
+                                                    device=self.device)
+            out = [logits]
+            for tok in feed:
+                logits, caches = tmodel.forward_decode(
+                    cfg, params, caches, tok, s, device=self.device)
+                out.append(logits)
+            self.sync()
+            return out
+
+        def plain_chunked(x, dt, a, b_mat, c_mat, *, chunk, init_state=None):
+            y, state = ssd_ref.ssd_scan(x.transpose(1, 2), dt.transpose(1, 2),
+                                        a, b_mat, c_mat, chunk=chunk,
+                                        init_state=init_state)
+            return y.transpose(1, 2), state
+
+        counters = wrappers()
+        for fn in counters.values():
+            fn.launches = 0
+        kern = run()
+        kern_launches = {n: fn.launches for n, fn in counters.items()}
+        with mock.patch.object(ssm_mod, "ssd_chunked", plain_chunked):
+            plain = run()
+        plain_launches = {n: fn.launches for n, fn in counters.items()}
+        print(f"  2-layer {cfg.name} {cfg.dtype}, prompt 2 x {s}, {steps} "
+              f"decode steps: launches with the kernel {kern_launches}")
+        self.paths["serving_mamba2_vs_plain"] = dict(
+            max_abs_err=self.compare_logits(cfg, kern, plain, argmax=True))
         if not self.rehearse:
-            self.check(kern_launches["flash_attention"] == 2
-                       and kern_launches["decode_attention"] == 2 * steps,
-                       f"kernel launches {kern_launches}")
+            self.check(kern_launches == dict(
+                self.serving_launches(cfg, 1, steps), psdsf_fill=0,
+                psdsf_fill_bucketed=0, psdsf_vds=0),
+                f"kernel launches {kern_launches}")
             self.check(plain_launches == kern_launches,
                        "the plain run launched a kernel")
 
@@ -989,7 +1170,9 @@ class Smoke:
                 ("decode_attention",
                  "src/repro_torch/kernels/csrc/decode_attention.cu",
                  "src/repro/kernels/decode_attention/kernel.py:63",
-                 "bfloat16")):
+                 "bfloat16"),
+                ("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan/kernel.py:67", "bfloat16")):
             main = self.rows[(name, dtype)]
             by_path = {layout: path["launches"][name]
                        for layout, path in self.paths.items()
@@ -1004,7 +1187,7 @@ class Smoke:
                    "bound_by": main["bound_by"],
                    "library_ms": main.get("library_ms"),
                    "shape": main["shape"], "dtype": dtype}
-            f32 = self.rows.get((name, "float32")) if dtype == "float64" \
+            f32 = self.rows.get((name, "float32")) if dtype != "float32" \
                 else None
             if f32:
                 row.update({f"f32_{key}": f32[key] for key in (
@@ -1059,6 +1242,13 @@ def main(argv=None) -> int:
     if "serving path" not in smoke.failed:
         smoke.phase("serving profile", smoke.serving_profile)
     smoke.phase("serving path, kernel vs plain", smoke.serving_vs_plain)
+    smoke.phase("ssd_scan vs plain", smoke.ssd_vs_plain)
+    mamba = ("mamba2_1_3b", "serving_mamba2")
+    smoke.phase("serving path, mamba2_1_3b", lambda: smoke.serving(*mamba))
+    if "serving path, mamba2_1_3b" not in smoke.failed:
+        smoke.phase("serving profile, mamba2_1_3b",
+                    lambda: smoke.serving_profile(*mamba))
+    smoke.phase("mamba2 serving, kernel vs plain", smoke.mamba_vs_plain)
     if smoke.failed:
         print(f"chip_smoke: FAILED phases: {smoke.failed}", file=sys.stderr)
         return 1

@@ -25,10 +25,9 @@ ARCH_IDS = (
 )
 
 #: archs the port can run, and what each other arch waits for
-PORTED = ("qwen3_1_7b",)
+PORTED = ("qwen3_1_7b", "mamba2_1_3b")
 WAITS_FOR = {
-    "mamba2_1_3b": "models/ssm and kernels/ssd_scan (ROADMAP, next slice)",
-    "jamba_v0_1_52b": "models/ssm and models/moe (ROADMAP, next slice)",
+    "jamba_v0_1_52b": "models/moe (ROADMAP, modules still to port)",
     "granite_moe_3b_a800m": "models/moe (ROADMAP queue 1 item 11)",
     "grok_1_314b": "models/moe (ROADMAP queue 1 item 11)",
     "qwen2_vl_72b": "apply_mrope and the vision frontend stub (ROADMAP "

@@ -5,7 +5,10 @@ The port keeps the reference's (in, out) projection layout (``x @ W``), so
 nothing is transposed; each layer leaf's leading ``groups`` axis is
 unstacked into per-layer tensors (layer ``g * len(pattern) + slot``); the
 norm ``scale`` leaves are zeros-based (applied as ``1 + scale``) in both
-packages and are carried as they are.
+packages and are carried as they are. Every leaf keeps its dtype: bfloat16
+leaves (numpy's ``ml_dtypes.bfloat16``) arrive as ``torch.bfloat16``, and
+the mamba mixer's ``A_log``, ``D`` and ``dt_bias`` stay float32 in a
+bfloat16 model, as ``init_mamba`` makes them.
 """
 from __future__ import annotations
 
@@ -17,6 +20,14 @@ import torch
 from ..device import DeviceLike, resolve_device
 from .config import ModelConfig
 from .model import Transformer
+
+
+def _tensor(arr) -> torch.Tensor:
+    """A CPU tensor holding a copy of ``arr`` in its own dtype."""
+    arr = np.array(arr)
+    if arr.dtype.name == "bfloat16":   # from_numpy rejects ml_dtypes bf16
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def _flatten(tree, prefix=""):
@@ -36,7 +47,7 @@ def params_from_numpy(cfg: ModelConfig, tree) -> Dict[str, torch.Tensor]:
     state = {}
     for name, arr in _flatten({k: v for k, v in tree.items()
                                if k != "groups"}):
-        state[name] = torch.from_numpy(np.array(arr))
+        state[name] = _tensor(arr)
     for slot, blk in tree["groups"].items():
         for name, arr in _flatten(blk):
             arr = np.asarray(arr)
@@ -45,7 +56,7 @@ def params_from_numpy(cfg: ModelConfig, tree) -> Dict[str, torch.Tensor]:
                                  f"{arr.shape[0]} != groups {cfg.groups}")
             for g in range(cfg.groups):
                 state[f"layers.{g * width + int(slot)}.{name}"] = \
-                    torch.from_numpy(np.array(arr[g]))
+                    _tensor(arr[g])
     return state
 
 

@@ -10,10 +10,12 @@ Entry points:
   init_caches(cfg, batch, max_len, device=None) -> caches
 
 ``params`` is a ``Transformer`` module (its state dict mirrors the
-reference's pytree, see ``convert.py``); ``caches`` is a list with one
-``{"k", "v"}`` dict of (B, S_max, Hkv, D) tensors per layer, updated in
-place by ``forward_decode``. Each entry point runs on the card unless
-``device="cpu"`` is passed, and ``params`` must live there. Tied
+reference's pytree, see ``convert.py``); ``caches`` is a list with one dict
+per layer, by mixer: ``{"k", "v"}`` (B, S_max, Hkv, D) tensors for
+attention, ``{"conv": (B, ssm_conv - 1, d_inner + 2 N), "ssm": (B, H, P,
+N) float32}`` for mamba; ``forward_decode`` updates them in place. Each
+entry point runs on the card unless ``device="cpu"`` is passed, and
+``params`` must live there. Tied
 embeddings only share the table; padded vocab slots read -1e9.
 ``forward_train`` waits for the training slice.
 """
@@ -98,7 +100,8 @@ def _logits(cfg: ModelConfig, params: Transformer, h):
 def forward_prefill(cfg: ModelConfig, params: Transformer, tokens,
                     positions=None, device: DeviceLike = None):
     """tokens: (B, S) ints. Returns (logits at the last position (B, V)
-    float32, caches: one {"k", "v"} (B, S, Hkv, D) dict per layer)."""
+    float32, caches: one dict per layer, {"k", "v"} (B, S, Hkv, D) for
+    attention, {"conv", "ssm"} for mamba)."""
     dev = _check_params(params, device)
     tokens = torch.as_tensor(tokens, device=dev).long()
     if positions is None:
@@ -131,11 +134,23 @@ def forward_decode(cfg: ModelConfig, params: Transformer, caches, token,
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 device: DeviceLike = None):
-    """Zeroed decode caches: one {"k", "v"} (batch, max_len, Hkv, D) dict
-    per layer, in the compute dtype."""
+    """Zeroed decode caches, one dict per layer as ``init_group_cache``
+    builds them: {"k", "v"} (batch, max_len, Hkv, D) in the compute dtype
+    for attention; for mamba {"conv": (batch, ssm_conv - 1, d_inner + 2 N)
+    in the compute dtype, "ssm": (batch, H, P, N) float32}."""
     dev = resolve_device(device)
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     dtype = dtype_of(cfg.dtype)
-    return [{"k": torch.zeros(shape, dtype=dtype, device=dev),
-             "v": torch.zeros(shape, dtype=dtype, device=dev)}
-            for _ in range(cfg.num_layers)]
+    pattern = cfg.block_pattern
+    caches = []
+    for i in range(cfg.num_layers):
+        if pattern[i % len(pattern)][0] == "attn":
+            shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+            caches.append({"k": torch.zeros(shape, dtype=dtype, device=dev),
+                           "v": torch.zeros(shape, dtype=dtype, device=dev)})
+        else:
+            conv = (batch, cfg.ssm_conv - 1, cfg.d_inner + 2 * cfg.ssm_state)
+            ssm = (batch, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state)
+            caches.append({
+                "conv": torch.zeros(conv, dtype=dtype, device=dev),
+                "ssm": torch.zeros(ssm, dtype=torch.float32, device=dev)})
+    return caches

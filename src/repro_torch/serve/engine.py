@@ -8,10 +8,17 @@ request is prefilled alone and its cache written into a free slot; every
 order (``active / weight``, stable), then advances every slot one token.
 
 Unlike the reference, whose caches are immutable arrays rebuilt on every
-step, the port keeps one (max_slots, max_len, Hkv, D) tensor pair per layer
-and updates it IN PLACE: a prefill writes its slot's rows, a decode step
-each slot's row at its position. ``pos`` advances for every slot, free
-ones too, as in the reference; a slot past ``max_len`` writes nothing.
+step, the port keeps one cache per layer and updates it IN PLACE. An
+attention layer's is a (max_slots, max_len, Hkv, D) tensor pair: a prefill
+writes its slot's rows, a decode step each slot's row at its position.
+``pos`` advances for every slot, free ones too, as in the reference; a slot
+past ``max_len`` writes nothing. A mamba layer's is its conv tail and SSM
+state per slot: a prefill replaces the slot's whole, with the conv tail
+right-aligned (zeros first) after a prompt shorter than ``ssm_conv - 1``,
+as the model's causal conv sees it. The reference's engine pads that tail
+at the end instead (``repro/serve/engine.py:95-98``), so after a 1- or
+2-token prompt its next logits differ from its own model's; the port
+follows the model.
 
 ``stats`` keeps host-clock totals of the prefills and decode steps; each
 ends in the host read of its argmax, so the clock covers the device work.
@@ -99,9 +106,13 @@ class ServingEngine:
         logits, caches = forward_prefill(self.cfg, self.params, [req.prompt],
                                          device=self.device)
         for pool, one in zip(self.caches, caches):
-            for key in ("k", "v"):
-                pool[key][slot, :n] = one[key][0]
-                pool[key][slot, n:] = 0
+            if "k" in pool:
+                for key in ("k", "v"):
+                    pool[key][slot, :n] = one[key][0]
+                    pool[key][slot, n:] = 0
+            else:       # the tail arrives right-aligned (models/ssm.py)
+                for key in ("conv", "ssm"):
+                    pool[key][slot] = one[key][0]
         req.slot = slot
         req.out_tokens.append(int(logits[0].argmax()))
         self.active[req.rid] = req

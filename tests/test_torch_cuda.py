@@ -3,7 +3,7 @@ CUDA card. Every test here is marked ``gpu`` and skips without a card; on
 one, run ``python -m pytest -q -m gpu tests/test_torch_cuda.py``. The file
 imports neither jax nor ``repro`` (the card's machine has no jax): the plain
 versions are held against the JAX reference by the CPU tests in
-tests/test_torch_{fill,vds,solve}.py."""
+tests/test_torch_{fill,vds,solve,attention,ssd}.py."""
 import numpy as np
 import pytest
 import torch
@@ -412,3 +412,127 @@ def test_flash_kernel_bf16_tensor_core_and_fallback_paths(cuda, causal):
     for args in (aligned, shifted):
         got = flash_kernel.flash_attention(*args, causal=causal)
         torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+
+
+# -- the SSD scan (Mamba-2 prefill) -------------------------------------------
+
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ref as ssd_ref  # noqa: E402
+
+#: kernel vs plain (float32 on the same inputs), times max(1, max|plain|):
+#: float32 sums in another order (1e-4, the JAX ssd tests' bound); a
+#: bfloat16 y is rounded once more (2^-9 relative), bound 2^-8; the final
+#: state is float32 in both (1e-4)
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -8}
+
+
+def _ssd_inputs(b, h, s, p, n, dtype, device, seed, init=False):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, h, s, p, generator=g)
+    dt = torch.nn.functional.softplus(torch.randn(b, h, s, generator=g)) / 2
+    a = -torch.exp(torch.randn(h, generator=g) * 0.3)
+    bm = torch.randn(b, s, n, generator=g) / 2
+    cm = torch.randn(b, s, n, generator=g) / 2
+    st0 = torch.randn(b, h, p, n, generator=g) if init else None
+    out = [x.to(dtype), dt, a, bm.to(dtype), cm.to(dtype), st0]
+    return [None if t is None else t.to(device) for t in out]
+
+
+def _ssd_close(got, want, tol, what):
+    err = float((got.float() - want.float()).abs().max())
+    bound = tol * max(1.0, float(want.abs().max()))
+    assert err <= bound, f"{what}: {err:.3e} > {bound:.3e}"
+
+
+@pytest.mark.parametrize("b,h,s,p,n,chunk,init", [
+    (1, 64, 1024, 64, 128, 128, False),   # mamba2_1_3b's prefill shape
+    (1, 64, 1000, 64, 128, 128, False),   # ragged S
+    (1, 4, 5, 64, 128, 128, True),        # S < chunk
+    (2, 3, 100, 16, 16, 16, True),        # the smoke widths, one P block
+    (2, 3, 200, 40, 24, 128, True),       # P split 32 + 8, odd N
+    (1, 2, 77, 96, 32, 16, False)])       # P split in three
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_matches_plain(cuda, b, h, s, p, n, chunk, init, dtype):
+    x, dt, a, bm, cm, st0 = _ssd_inputs(b, h, s, p, n, dtype, cuda, s,
+                                        init)
+    before = ssd_kernel.ssd_scan.launches
+    y, state = ssd_kernel.ssd_scan(x, dt, a, bm, cm, chunk=chunk,
+                                   init_state=st0)
+    torch.cuda.synchronize()
+    assert ssd_kernel.ssd_scan.launches == before + 1
+    assert y.shape == x.shape and y.dtype == dtype
+    assert state.shape == (b, h, p, n) and state.dtype == torch.float32
+    want_y, want_state = ssd_ref.ssd_scan(x.float(), dt, a, bm.float(),
+                                          cm.float(), chunk=chunk,
+                                          init_state=st0)
+    _ssd_close(y, want_y, SSD_TOL[dtype], "y")
+    _ssd_close(state, want_state, SSD_TOL[torch.float32], "final state")
+
+
+def test_ssd_ops_reads_the_model_layout(cuda):
+    # x, B and C as slices of one (B, S, d_inner + 2 N) conv output, x
+    # viewed (B, S, H, P) and dt (B, S, H): the layer's own strides
+    b, s, h, p, n = 2, 150, 6, 32, 64
+    g = torch.Generator().manual_seed(12)
+    xbc = torch.randn(b, s, h * p + 2 * n, generator=g).to(cuda,
+                                                           torch.bfloat16)
+    x = xbc[..., :h * p].reshape(b, s, h, p)
+    bm, cm = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+    dt = torch.rand(b, s, h, generator=g).to(cuda) / 2
+    a = -torch.rand(h, generator=g).to(cuda) - 0.5
+    y, state = ssd_ops.ssd_chunked(x, dt, a, bm, cm, chunk=16)
+    assert y.shape == (b, s, h, p) and y.is_contiguous()
+    want_y, want_state = ssd_ref.ssd_scan(
+        x.transpose(1, 2).float(), dt.transpose(1, 2), a, bm.float(),
+        cm.float(), chunk=16)
+    _ssd_close(y.transpose(1, 2), want_y, SSD_TOL[torch.bfloat16], "y")
+    _ssd_close(state, want_state, SSD_TOL[torch.float32], "final state")
+
+
+def test_ssd_kernel_rejects_bad_inputs(cuda):
+    x, dt, a, bm, cm, _ = _ssd_inputs(1, 2, 40, 16, 16, torch.float32, cuda,
+                                      0)
+    with pytest.raises(ValueError, match="chunks of"):
+        ssd_kernel.ssd_scan(x, dt, a, bm, cm, chunk=24)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ssd_kernel.ssd_scan(x.double(), dt, a, bm.double(), cm.double())
+    with pytest.raises(ValueError, match="dt is"):
+        ssd_kernel.ssd_scan(x, dt.bfloat16(), a, bm, cm)
+    with pytest.raises(ValueError, match="c_mat is"):
+        ssd_kernel.ssd_scan(x, dt, a, bm, cm.cpu())
+    with pytest.raises(ValueError, match="state width"):
+        big = torch.zeros(1, 40, 129, device=cuda)
+        ssd_kernel.ssd_scan(x, dt, a, big, big)
+    with pytest.raises(ValueError, match="init_state"):
+        ssd_kernel.ssd_scan(x, dt, a, bm, cm, init_state=torch.zeros(
+            1, 2, 16, 16, device=cuda).transpose(2, 3))
+
+
+def test_mamba_serving_engine_on_card_matches_cpu(cuda):
+    # the mamba2 smoke config in float32: the engine's tokens on the card
+    # (prefill through ssd_scan) equal those of the plain version on the
+    # CPU, prompts of 1 to 9 tokens
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import ServingEngine
+    cfg = get_smoke_config("mamba2_1_3b")
+    params = init_params(cfg, 0, device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServingEngine(cfg, params=params.to(dev), max_slots=3,
+                            max_len=24, tenant_weights={"gold": 2.0},
+                            device=dev)
+        rng = np.random.default_rng(0)
+        for i in range(6):
+            eng.submit("gold" if i % 3 else "free",
+                       [int(t) for t in rng.integers(0, cfg.vocab_size,
+                                                     1 + 2 * i)],
+                       max_new_tokens=5)
+        before = ssd_kernel.ssd_scan.launches
+        done = eng.run(max_steps=40)
+        launched = ssd_kernel.ssd_scan.launches - before
+        out[dev] = [(r.rid, r.out_tokens) for r in done]
+        assert launched == (0 if dev == "cpu"
+                            else cfg.num_layers * len(done))
+    assert out["cuda"] == out["cpu"]

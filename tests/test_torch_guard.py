@@ -36,7 +36,9 @@ def test_port_modules_listed():
                  "kernels.flash_attention.ops", "kernels.flash_attention.ref",
                  "kernels.decode_attention.kernel",
                  "kernels.decode_attention.ops",
-                 "kernels.decode_attention.ref"):
+                 "kernels.decode_attention.ref", "configs.mamba2_1_3b",
+                 "models.ssm", "kernels.ssd_scan.kernel",
+                 "kernels.ssd_scan.ops", "kernels.ssd_scan.ref"):
         assert f"repro_torch.{name}" in PORT_MODULES, name
 
 
@@ -53,10 +55,12 @@ def test_port_imports_no_jax_and_no_repro():
         "assert abs(a.tasks_per_user - [3, 3, 6]).max() < 1e-6\n"
         "import contextlib, io\n"
         "from repro_torch.launch import serve\n"
-        "with contextlib.redirect_stdout(io.StringIO()):\n"
-        "    done = serve.main(['--smoke', '--device', 'cpu',\n"
-        "                       '--requests', '3', '--max-new', '2'])\n"
-        "assert len(done) == 3\n"
+        "for arch in ('qwen3_1_7b', 'mamba2_1_3b'):\n"
+        "    with contextlib.redirect_stdout(io.StringIO()):\n"
+        "        done = serve.main(['--arch', arch, '--smoke', '--device',\n"
+        "                           'cpu', '--requests', '3', '--max-new',\n"
+        "                           '2'])\n"
+        "    assert len(done) == 3\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib')) or m == 'repro'\n"
         "             or m.startswith('repro.'))\n"
@@ -139,7 +143,7 @@ def test_wrappers_refuse_other_devices(no_build):
 
 def test_library_name_follows_source(tmp_path, monkeypatch):
     for name in ("psdsf_fill", "psdsf_fill_bucketed", "psdsf_vds",
-                 "flash_attention", "decode_attention"):
+                 "flash_attention", "decode_attention", "ssd_scan"):
         src = (_build.CSRC / f"{name}.cu").read_text()
         assert "extern \"C\"" in src and "Replaces the TPU kernel" in src
         (tmp_path / f"{name}.cu").write_text(src)
@@ -211,26 +215,27 @@ def test_serving_entry_points_default_to_cuda(no_cuda):
     from repro_torch.models.model import (forward_decode, forward_prefill,
                                           init_caches, init_params)
     from repro_torch.serve import ServingEngine
-    cfg = get_smoke_config("qwen3_1_7b")
-    params = init_params(cfg, device="cpu")
-    caches = init_caches(cfg, 1, 8, device="cpu")
-    calls = [
-        lambda: ServingEngine(cfg),
-        lambda: ServingEngine(cfg, params=params),
-        lambda: init_params(cfg),
-        lambda: init_caches(cfg, 1, 8),
-        lambda: forward_prefill(cfg, params, [[1, 2, 3]]),
-        lambda: forward_decode(cfg, params, caches, [1], 0),
-        lambda: serve.main(["--smoke"]),
-    ]
-    for call in calls:
-        with pytest.raises(RuntimeError, match="device='cpu'"):
-            call()
-    logits, _ = forward_prefill(cfg, params, [[1, 2, 3]], device="cpu")
-    assert logits.shape == (1, cfg.vocab_padded)
-    eng = ServingEngine(cfg, params=params, max_slots=2, max_len=8,
-                        device="cpu")
-    assert eng.device == torch.device("cpu")
+    for arch in ("qwen3_1_7b", "mamba2_1_3b"):
+        cfg = get_smoke_config(arch)
+        params = init_params(cfg, device="cpu")
+        caches = init_caches(cfg, 1, 8, device="cpu")
+        calls = [
+            lambda: ServingEngine(cfg),
+            lambda: ServingEngine(cfg, params=params),
+            lambda: init_params(cfg),
+            lambda: init_caches(cfg, 1, 8),
+            lambda: forward_prefill(cfg, params, [[1, 2, 3]]),
+            lambda: forward_decode(cfg, params, caches, [1], 0),
+            lambda: serve.main(["--arch", arch, "--smoke"]),
+        ]
+        for call in calls:
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call()
+        logits, _ = forward_prefill(cfg, params, [[1, 2, 3]], device="cpu")
+        assert logits.shape == (1, cfg.vocab_padded)
+        eng = ServingEngine(cfg, params=params, max_slots=2, max_len=8,
+                            device="cpu")
+        assert eng.device == torch.device("cpu")
 
 
 def test_attention_wrappers_take_plain_version_for_cpu_tensors(no_build):
