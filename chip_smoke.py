@@ -15,7 +15,10 @@ Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
    main paths' shapes (one dense fill event of the 20,000 x 256 datacenter
    pin in float64 and of 20,000 x 1,024 in float32, one bucketed fill event
    on the same two instances' buckets, the VDS reduction over the pin's
-   gamma), and times both with CUDA events (warm, back to back);
+   gamma), and times both with CUDA events: a kernel (and a library call)
+   around the replay of a CUDA graph of many warm calls, which leaves out
+   the host's time to launch them, and again back to back; the plain
+   version back to back;
 4. drives the dense main path with every launch count set to 0: the
    20,000 x 256 pin in float64 (``engine.solve``, Jacobi rounds, bisect
    fill, ``layout="dense"``, 32 rounds at tol=0), its ``min_vds_guarded``
@@ -37,8 +40,9 @@ Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
    qwen3_1_7b's widths (16 query and 8 kv heads, head_dim 128, bfloat16):
    ``flash_attention`` at S 1,024 and a ragged S 1,000, ``decode_attention``
    over 8 slots of a 2,048-row cache with one length per slot (1, the whole
-   cache, past the cache, ragged); times both and
-   ``F.scaled_dot_product_attention`` as a yardstick the port never calls;
+   cache, past the cache, ragged) and over one 32,768-row cache; times each
+   kernel and ``F.scaled_dot_product_attention``, a yardstick the port
+   never calls, in turns (kernel, SDPA, SDPA, kernel);
 8. drives the serving path with every launch count set to 0: a
    ``ServingEngine`` on the full qwen3_1_7b config in bfloat16 (params from
    the port's seeded init on the card), 8 slots of 2,048 rows, 16 requests
@@ -167,9 +171,12 @@ class Smoke:
         if self.device.type == "cuda":
             self.torch.cuda.synchronize()
 
-    def time_ms(self, fn, iters):
-        """Mean milliseconds of ``fn`` over ``iters`` warm calls (CUDA
-        events on the card; host clock in a rehearsal)."""
+    def time_ms(self, fn, iters, graph=False):
+        """Mean milliseconds of ``fn`` over ``iters`` warm calls: CUDA
+        events around back-to-back calls, or (``graph``) around a replay of
+        one CUDA graph of the ``iters`` calls, which leaves out the host's
+        time to launch them (a kernel shorter than its Python call is
+        otherwise timed at the host's pace); host clock in a rehearsal."""
         torch = self.torch
         for _ in range(2):
             fn()
@@ -181,12 +188,43 @@ class Smoke:
             return (time.perf_counter() - t0) * 1e3 / iters
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if graph:
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn()
+            torch.cuda.current_stream().wait_stream(side)
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                for _ in range(iters):
+                    fn()
+            g.replay()
+            torch.cuda.synchronize()
+            start.record()
+            g.replay()
+            end.record()
+            torch.cuda.synchronize()
+            return start.elapsed_time(end) / iters
         start.record()
         for _ in range(iters):
             fn()
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
+
+    def timed(self, fn, iters):
+        """(graph-replay ms, back-to-back ms) of ``fn``: see ``time_ms``."""
+        return (self.time_ms(fn, iters, graph=True),
+                self.time_ms(fn, iters))
+
+    def interleaved(self, kernel_fn, library_fn, iters):
+        """Kernel and library call timed in turns, kernel, library, library,
+        kernel (graph replays): the readings of each, in that order."""
+        k1 = self.time_ms(kernel_fn, iters, graph=True)
+        l1 = self.time_ms(library_fn, iters, graph=True)
+        l2 = self.time_ms(library_fn, iters, graph=True)
+        k2 = self.time_ms(kernel_fn, iters, graph=True)
+        return [k1, k2], [l1, l2]
 
     def check(self, cond, what):
         if not cond:
@@ -303,7 +341,10 @@ class Smoke:
               f"{time.perf_counter() - t0:.1f} s")
         for name, log in logs.items():
             for line in log.splitlines():
-                if "registers" in line or "spill" in line:
+                if "Compiling entry function" in line:
+                    entry = line.split("'")[1] if "'" in line else line
+                    print(f"  {name}: {entry[:100]}")
+                elif "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}")
 
     def paper(self):
@@ -352,19 +393,24 @@ class Smoke:
             b = 8 if dtype == torch.float64 else 4
             nbytes = (2 * n * k + n * r + 2 * k * r + k) * b + k * r \
                 + (k + 3 * k * r) * b
-            flops = (steps + 3) * n * k * (2 * r + 3)
+            # every pass over the entries that can move a usage: an entry
+            # of rate 0 adds exactly 0 to every sum
+            nnz = int((args[1] > 0).sum())
+            flops = (steps + 3) * nnz * (2 * r + 3)
             bound_ms, bound_by = self.bound(nbytes, flops, label)
-            ms = self.time_ms(lambda: kernel.fill_event_levels(
+            ms, eager_ms = self.timed(lambda: kernel.fill_event_levels(
                 *args, steps=steps), 10)
             plain_ms = self.time_ms(lambda: ref.fill_event_levels(
                 *args, steps=steps), 3)
-            print(f"  {label} {n}x{k} R={r} steps={steps}: kernel {ms:.3f} ms,"
-                  f" plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-                  f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP: "
-                  f"bound by {bound_by})")
+            print(f"  {label} {n}x{k} R={r} steps={steps}: kernel {ms:.4f} ms"
+                  f" ({eager_ms:.4f} ms back to back), plain {plain_ms:.3f} "
+                  f"ms, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, "
+                  f"{flops / 1e9:.3f} GFLOP over the {nnz} entries of rate "
+                  f"> 0: bound by {bound_by})")
             self.rows[("psdsf_fill", label)] = dict(
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, max_abs_err=err, shape=f"{n}x{k}x{r}")
+                ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                shape=f"{n}x{k}x{r}")
 
     def bucketed_vs_plain(self):
         torch = self.torch
@@ -398,16 +444,18 @@ class Smoke:
                 + (k + 3 * k * r) * b
             flops = (steps + 3) * k * bmax * (2 * r + 3)
             bound_ms, bound_by = self.bound(nbytes, flops, label)
-            ms = self.time_ms(lambda: kernel.fill_event_levels_bucketed(
-                *args, steps=steps), 50)
+            ms, eager_ms = self.timed(
+                lambda: kernel.fill_event_levels_bucketed(*args, steps=steps),
+                50)
             plain_ms = self.time_ms(lambda: ref.fill_event_levels_bucketed(
                 *args, steps=steps), 5)
             print(f"  {label} buckets {k}x{bmax} R={r} steps={steps}: kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+                  f"{ms:.4f} ms ({eager_ms:.4f} ms back to back), plain "
+                  f"{plain_ms:.3f} ms, bound "
                   f"{bound_ms:.4f} ms ({nbytes / 1e6:.2f} MB, "
                   f"{flops / 1e6:.1f} MFLOP: bound by {bound_by})")
             self.rows[("psdsf_fill_bucketed", label)] = dict(
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, max_abs_err=err,
                 shape=f"{k}x{bmax}x{r}")
 
@@ -426,18 +474,21 @@ class Smoke:
         self.sync()
         err = self.compare_vds((mn, arg), (pmn, parg), "pin gamma")
         snorm = ref.masked_snorm(xo, g)
-        ms = self.time_ms(lambda: kernel.vds_argmin(xo, g), 50)
+        ms, eager_ms = self.timed(lambda: kernel.vds_argmin(xo, g), 50)
         plain_ms = self.time_ms(lambda: ref.vds_argmin(xo, g), 10)
-        library_ms = self.time_ms(lambda: torch.min(snorm, dim=0), 50)
+        library_ms = self.time_ms(lambda: torch.min(snorm, dim=0), 50,
+                                  graph=True)
         nbytes = n * k * 4 + n * 4 + k * 8
         bound_ms = max(nbytes / PEAK_BYTES_PER_S,
                        2 * n * k / PEAK_FLOPS["float32"]) * 1e3
-        print(f"  vds {n}x{k}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        print(f"  vds {n}x{k}: kernel {ms:.4f} ms ({eager_ms:.4f} ms back "
+              f"to back), plain {plain_ms:.4f} ms, "
               f"torch.min(snorm, dim=0) {library_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB)")
         self.rows[("psdsf_vds", "float32")] = dict(
-            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
-            max_abs_err=err, library_ms=library_ms, shape=f"{n}x{k}")
+            ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by="bytes", max_abs_err=err, library_ms=library_ms,
+            shape=f"{n}x{k}")
 
     def compare_vds(self, got, want, what):
         mn, arg = got
@@ -704,70 +755,103 @@ class Smoke:
             plain32 = ref.flash_attention(q.float(), k.float(), v.float())
             self.sync()
             err = self.compare_attn(got, plain32, f"flash S={s}")
-            ms = self.time_ms(lambda: kernel.flash_attention(q, k, v), 20)
-            plain_ms = self.time_ms(lambda: ref.flash_attention(q, k, v), 5)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            library_ms = self.time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+            ks, ls = self.interleaved(
+                lambda: kernel.flash_attention(q, k, v), sdpa, 20)
+            ms, library_ms = sum(ks) / 2, sum(ls) / 2
+            eager_ms = self.time_ms(lambda: kernel.flash_attention(q, k, v),
+                                    20)
+            library_eager_ms = self.time_ms(sdpa, 20)
+            plain_ms = self.time_ms(lambda: ref.flash_attention(q, k, v), 5)
             nbytes = (2 * hq + 2 * hkv) * s * d * 2
             flops = 4 * hq * d * s * (s + 1) // 2
             t_bytes = nbytes / PEAK_BYTES_PER_S
             t_ops = flops / PEAK_BF16_FLOPS
             bound_ms = max(t_bytes, t_ops) * 1e3
             bound_by = "bytes" if t_bytes > t_ops else "operations"
-            print(f"  flash (1, {s}, {hq}/{hkv}, {d}) bf16 causal: kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
-                  f"{library_ms:.4f} ms, bound {bound_ms:.5f} ms "
+            print(f"  flash (1, {s}, {hq}/{hkv}, {d}) bf16 causal, kernel and "
+                  f"SDPA in turns: kernel {ks[0]:.4f}, {ks[1]:.4f} ms, SDPA "
+                  f"{ls[0]:.4f}, {ls[1]:.4f} ms (back to back: kernel "
+                  f"{eager_ms:.4f}, SDPA {library_eager_ms:.4f} ms), plain "
+                  f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
                   f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP: bound "
                   f"by {bound_by})")
             key = "bfloat16" if s % 64 == 0 else "bfloat16_ragged"
             self.rows[("flash_attention", key)] = dict(
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, max_abs_err=err, library_ms=library_ms,
+                ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                library_ms=library_ms, library_eager_ms=library_eager_ms,
+                turns_ms=ks, library_turns_ms=ls,
                 shape=f"1x{s}x{hq}/{hkv}x{d}")
 
     def decode_vs_plain(self):
+        """The serving shape (8 slots of a 2,048-row cache, one length per
+        slot: 1, the whole cache, past the cache, ragged), then one long
+        sequence (1 x 32,768 rows), where splitting the rows matters most."""
+        cfg = self.llm_config()
+        long_rows = 256 if self.rehearse else 32768
+        self.decode_case("bfloat16", cfg, 8, 64 if self.rehearse else 2048)
+        self.decode_case("bfloat16_long", cfg, 1, long_rows,
+                         lens=[long_rows - 3])
+
+    def decode_case(self, key, cfg, b, s_max, lens=None):
         torch = self.torch
         import torch.nn.functional as F
         from repro_torch.kernels.decode_attention import kernel, ref
-        cfg = self.llm_config()
         hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        b, s_max = 8, (64 if self.rehearse else 2048)
         dtype = torch.bfloat16
         q, kc, vc = self.attn_inputs([(b, hq, d), (b, s_max, hkv, d),
                                       (b, s_max, hkv, d)], dtype, seed=3)
-        # 1, the whole cache, past the cache (clamped to it), ragged
-        lens = [1, s_max, s_max + 37, s_max // 2 + 3, s_max // 4 + 1, 64,
-                3 * s_max // 4 - 5, s_max - 1]
+        if lens is None:
+            lens = [1, s_max, s_max + 37, s_max // 2 + 3, s_max // 4 + 1, 64,
+                    3 * s_max // 4 - 5, s_max - 1]
         kv_len = torch.tensor(lens, dtype=torch.int32, device=self.device)
         got = kernel.decode_attention(q, kc, vc, kv_len)
         plain32 = ref.decode_attention(q.float(), kc.float(), vc.float(),
                                        kv_len)
         self.sync()
         err = self.compare_attn(got, plain32, f"decode {b}x{s_max}")
-        ms = self.time_ms(lambda: kernel.decode_attention(q, kc, vc, kv_len),
-                          50)
-        plain_ms = self.time_ms(lambda: ref.decode_attention(q, kc, vc,
-                                                             kv_len), 10)
         valid = [min(n, s_max) for n in lens]
         top = max(valid)
         qt = q[:, :, None, :]
         kt, vt = (t[:, :top].transpose(1, 2) for t in (kc, vc))
         mask = (torch.arange(top, device=self.device)[None, :]
                 < kv_len.clamp(max=s_max)[:, None])[:, None, None, :]
-        library_ms = self.time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True), 50)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        def kern():
+            return kernel.decode_attention(q, kc, vc, kv_len)
+        ks, ls = self.interleaved(kern, sdpa, 50)
+        ms, library_ms = sum(ks) / 2, sum(ls) / 2
+        eager_ms = self.time_ms(kern, 50)
+        library_eager_ms = self.time_ms(sdpa, 50)
+        plain_ms = self.time_ms(lambda: ref.decode_attention(q, kc, vc,
+                                                             kv_len), 10)
         nbytes = 2 * sum(valid) * hkv * d * 2 + 2 * b * hq * d * 2 + b * 4
         flops = 4 * sum(valid) * hq * d
         bound_ms = max(nbytes / PEAK_BYTES_PER_S,
                        flops / PEAK_BF16_FLOPS) * 1e3
+        chunk = kernel.chunk_rows(b, s_max, hkv)
+        blocks = b * hkv * -(-s_max // chunk)
         print(f"  decode ({b} slots, {s_max} rows, {hq}/{hkv}, {d}) bf16, "
-              f"lengths {valid}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
-              f" SDPA on the valid prefix {library_ms:.4f} ms, bound "
-              f"{bound_ms:.5f} ms ({nbytes / 1e6:.2f} MB: bound by bytes)")
-        self.rows[("decode_attention", "bfloat16")] = dict(
-            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
-            max_abs_err=err, library_ms=library_ms,
+              f"lengths {valid}; {blocks} blocks of {chunk} rows; kernel and "
+              f"SDPA on the valid prefix in turns: kernel {ks[0]:.4f}, "
+              f"{ks[1]:.4f} ms, SDPA {ls[0]:.4f}, {ls[1]:.4f} ms (back to "
+              f"back: kernel {eager_ms:.4f}, SDPA {library_eager_ms:.4f} ms),"
+              f" plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
+              f"({nbytes / 1e6:.2f} MB: bound by bytes)")
+        self.rows[("decode_attention", key)] = dict(
+            ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by="bytes", max_abs_err=err, library_ms=library_ms,
+            library_eager_ms=library_eager_ms, turns_ms=ks,
+            library_turns_ms=ls, blocks=blocks,
             shape=f"{b}x{s_max}x{hq}/{hkv}x{d}")
 
     @staticmethod
@@ -936,7 +1020,7 @@ class Smoke:
             return
         attn = {name: sum(r[0] for r in rows if key in r[1]) / 1e3
                 for name, key in (("flash_attention", "flash_"),
-                                  ("decode_attention", "decode_kernel"),
+                                  ("decode_attention", "decode_"),
                                   ("ssd_scan", "ssd_kernel"))}
         print(f"  device busy {busy_ms:.1f} ms, idle share "
               f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; "
@@ -1072,8 +1156,8 @@ class Smoke:
                   f"{s_bound:.3e})")
             self.check(err <= bound and s_err <= s_bound,
                        f"ssd_scan {key} disagrees with plain")
-            ms = self.time_ms(lambda: ops.ssd_chunked(x, dt, a, bm, cm,
-                                                      chunk=q), 20)
+            ms, eager_ms = self.timed(lambda: ops.ssd_chunked(
+                x, dt, a, bm, cm, chunk=q), 20)
             plain_ms = self.time_ms(lambda: ref.ssd_scan(
                 x.transpose(1, 2), dt.transpose(1, 2), a, bm, cm, chunk=q),
                 3)
@@ -1093,11 +1177,12 @@ class Smoke:
             bound_ms = max(t_bytes, t_ops) * 1e3
             bound_by = "bytes" if t_bytes > t_ops else "operations"
             print(f"  ssd (1, {s}, {h}, {p}) N {n} chunk {q} {label}: kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library n/a, bound "
+                  f"{ms:.4f} ms ({eager_ms:.4f} ms back to back), plain "
+                  f"{plain_ms:.4f} ms, library n/a, bound "
                   f"{bound_ms:.5f} ms ({nbytes / 1e6:.2f} MB, "
                   f"{flops / 1e9:.3f} GFLOP: bound by {bound_by})")
             self.rows[("ssd_scan", key)] = dict(
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, max_abs_err=err, state_max_abs_err=s_err,
                 library_ms=None, shape=f"1x{h}x{s}x{p}xN{n}/Q{q}")
 
@@ -1187,17 +1272,15 @@ class Smoke:
                    "bound_by": main["bound_by"],
                    "library_ms": main.get("library_ms"),
                    "shape": main["shape"], "dtype": dtype}
-            f32 = self.rows.get((name, "float32")) if dtype != "float32" \
-                else None
-            if f32:
-                row.update({f"f32_{key}": f32[key] for key in (
-                    "ms", "plain_ms", "bound_ms", "bound_by",
-                    "max_abs_err", "shape")})
-            ragged = self.rows.get((name, "bfloat16_ragged"))
-            if ragged:
-                row.update({f"ragged_{key}": ragged[key] for key in (
-                    "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
-                    "library_ms", "shape")})
+            row.update({key: v for key, v in main.items() if key not in row})
+            # the other shapes and dtypes the phases measured
+            for variant, prefix in (("float32", "f32"),
+                                    ("bfloat16_ragged", "ragged"),
+                                    ("bfloat16_long", "long")):
+                other = self.rows.get((name, variant))
+                if other and variant != dtype:
+                    row.update({f"{prefix}_{key}": v
+                                for key, v in other.items()})
             kernels.append(row)
         print(json.dumps({"kernels": kernels, "main_paths": self.paths}))
 

@@ -6,6 +6,11 @@ The kernel (``csrc/decode_attention.cu``, CUDA C++ for sm_90a) replaces
 with ``nvcc`` and loaded through ``ctypes`` on the first call with a CUDA
 tensor; CPU tensors take the plain version in ``ref.py``, and nothing else
 does. ``decode_attention.launches`` counts the kernel's launches.
+
+Split-KV: every (sequence, kv head)'s cache rows are cut into chunks of
+:func:`chunk_rows` rows, one block each, whose float32 partials (max, sum,
+accumulator) a second kernel merges by their log-sum-exp; the wrapper
+allocates that scratch.
 """
 from __future__ import annotations
 
@@ -24,6 +29,21 @@ MAX_HEAD_DIM = 128
 MAX_GROUP = 16
 _ENTRY = {torch.float32: "decode_attention_f32",
           torch.bfloat16: "decode_attention_bf16"}
+#: blocks the split grid aims at (4 per SM of an H100, about as many as
+#: are resident at once), and its chunks' least rows
+TARGET_BLOCKS = 4 * 132
+MIN_CHUNK = 64
+
+
+def chunk_rows(batch: int, s_max: int, hkv: int) -> int:
+    """Rows per split block: the least power of two >= ``MIN_CHUNK`` that
+    keeps the grid of B x Hkv x ceil(S_max / chunk) blocks within
+    ``TARGET_BLOCKS``. The grid is sized from S_max, since the lengths stay
+    on the device; blocks past a sequence's length exit at once."""
+    chunk = MIN_CHUNK
+    while batch * hkv * -(-s_max // chunk) > TARGET_BLOCKS:
+        chunk *= 2
+    return chunk
 
 
 def decode_attention(q, k_cache, v_cache, kv_len, *,
@@ -79,14 +99,19 @@ def decode_attention(q, k_cache, v_cache, kv_len, *,
         return out
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
+    chunk = chunk_rows(b, s_max, hkv)
+    # per (sequence, kv head, chunk, query head): max, sum, accumulator
+    part = torch.empty((b * -(-s_max // chunk) * hq * (d + 2),),
+                       dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 10)(
         *q.stride()[:2], *k_cache.stride()[:3], *v_cache.stride()[:3],
         *out.stride()[:2])
     with torch.cuda.device(q.device):
         err = _entry(_ENTRY[q.dtype])(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            kv_len.data_ptr(), out.data_ptr(), strides, b, s_max, hq, hkv, d,
-            float(sm_scale), torch.cuda.current_stream().cuda_stream)
+            kv_len.data_ptr(), out.data_ptr(), part.data_ptr(), strides, b,
+            s_max, hq, hkv, d, float(sm_scale), chunk,
+            torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")
@@ -100,7 +125,7 @@ decode_attention.launches = 0
 @functools.lru_cache(maxsize=None)
 def _entry(name):
     fn = getattr(_build.load("decode_attention"), name)
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_longlong)] \
-        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_longlong)] \
+        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

@@ -7,6 +7,8 @@ Inputs come from a numpy seed. Bounds: float32 2e-5 and bfloat16 2e-2
 (rtol and atol), the JAX kernel tests' own (tests/test_kernel_flash_
 attention.py); against the model's ``_attend`` 3e-5, that file's bound for
 the same comparison."""
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -163,3 +165,97 @@ def test_decode_plain_zero_length_gives_zeros():
     out = decode_ops.decode_attention(tq, tkc, tvc, torch.tensor([0, 3]))
     assert torch.equal(out[0], torch.zeros_like(out[0]))
     assert torch.isfinite(out).all() and out[1].abs().sum() > 0
+
+
+# -- the split-KV plan of the Hopper decode kernel, emulated in plain torch --
+
+from repro_torch.kernels.decode_attention import kernel as decode_kernel  # noqa: E402
+from repro_torch.kernels.decode_attention import ref as decode_ref  # noqa: E402
+
+
+def _split_kv(q, k_cache, v_cache, kv_len, chunk):
+    """What ``csrc/decode_attention.cu`` computes, step for step: each
+    (sequence, kv head)'s valid rows in chunks of ``chunk``, one float32
+    partial (max, sum, unnormalised accumulator) per chunk that holds a
+    valid row, then the partials merged by their log-sum-exp; a length of
+    0 leaves no partial and gives zeros."""
+    b, hq, d = q.shape
+    s_max, hkv = k_cache.shape[1], k_cache.shape[2]
+    rep = hq // hkv
+    qg = q.float().reshape(b, hkv, rep, d) / math.sqrt(d)
+    out = torch.zeros(b, hkv, rep, d)
+    for i in range(b):
+        n = min(max(int(kv_len[i]), 0), s_max)
+        parts = []
+        for r0 in range(0, n, chunk):
+            kc = k_cache[i, r0:min(r0 + chunk, n)].float()   # (rows, Hkv, D)
+            vc = v_cache[i, r0:min(r0 + chunk, n)].float()
+            s = torch.einsum("hrd,jhd->hrj", qg[i], kc)
+            m = s.amax(dim=-1, keepdim=True)
+            p = torch.exp(s - m)
+            parts.append((m, p.sum(-1, keepdim=True),
+                          torch.einsum("hrj,jhd->hrd", p, vc)))
+        if not parts:
+            continue
+        mm = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+        num = sum(torch.exp(m - mm) * a for m, _, a in parts)
+        den = sum(torch.exp(m - mm) * l for m, l, _ in parts)
+        out[i] = num / den
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+@pytest.mark.parametrize("chunk", [7, 32, 64, 100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_kv_plan_matches_plain_and_jax(chunk, dtype):
+    # lengths 0, 1, a chunk boundary and one past it, S_max and past it
+    b, s_max, hq, hkv, d = 7, 100, 8, 2, 32
+    lens = np.array([0, 1, chunk, chunk + 1, 63, s_max, s_max + 9],
+                    np.int32)
+    (q, kc, vc), (tq, tkc, tvc) = _both(
+        _arrays([(b, hq, d), (b, s_max, hkv, d), (b, s_max, hkv, d)],
+                seed=chunk), dtype)
+    got = _split_kv(tq, tkc, tvc, torch.from_numpy(lens), chunk)
+    assert got.dtype == TDT[dtype]
+    plain = decode_ref.decode_attention(tq, tkc, tvc, torch.from_numpy(lens))
+    np.testing.assert_allclose(_f32(got), _f32(plain), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    assert not got[0].float().any()
+    rep = hq // hkv
+    for i, n in enumerate(lens):
+        if n == 0:
+            continue
+        want = decode_attention_ref(q[i:i + 1].reshape(1, hkv, rep, d),
+                                    jnp.swapaxes(kc[i:i + 1], 1, 2),
+                                    jnp.swapaxes(vc[i:i + 1], 1, 2), int(n))
+        np.testing.assert_allclose(_f32(got[i]), _f32(want.reshape(hq, d)),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_split_kv_plan_matches_pallas_interpret_at_serving_heads():
+    # qwen3_1_7b's heads, a length on a chunk boundary of the wrapper's
+    # own chunk, the Pallas kernel in interpret mode with the same length
+    b, s_max, hq, hkv, d = 2, 256, 16, 8, 128
+    chunk = decode_kernel.chunk_rows(b, s_max, hkv)
+    (q, kc, vc), (tq, tkc, tvc) = _both(
+        _arrays([(b, 1, hq, d), (b, s_max, hkv, d), (b, s_max, hkv, d)],
+                seed=11), "float32")
+    got = _split_kv(tq[:, 0], tkc, tvc, torch.tensor([chunk, chunk]), chunk)
+    want = jax_decode_attention(q, kc, vc, jnp.int32(chunk),
+                                num_kv_heads=hkv, block_k=64, interpret=True)
+    np.testing.assert_allclose(_f32(got), _f32(want[:, 0]), rtol=TOL[
+        "float32"], atol=TOL["float32"])
+
+
+def test_split_kv_chunks_fill_the_card():
+    # the serving shape (8 slots x 2,048 rows, 8 kv heads): more than the
+    # 132 SMs' worth of blocks; one long sequence splits finer
+    for b, s_max, hkv in ((8, 2048, 8), (1, 32768, 8), (1, 2048, 8),
+                          (3, 100, 2)):
+        chunk = decode_kernel.chunk_rows(b, s_max, hkv)
+        blocks = b * hkv * -(-s_max // chunk)
+        assert chunk >= decode_kernel.MIN_CHUNK and chunk & (chunk - 1) == 0
+        assert blocks <= decode_kernel.TARGET_BLOCKS \
+            or chunk == decode_kernel.MIN_CHUNK
+        if b * hkv * s_max >= 132 * decode_kernel.MIN_CHUNK:
+            assert blocks > 132, (b, s_max, hkv, chunk)
+    assert decode_kernel.chunk_rows(8, 2048, 8) == 256

@@ -83,6 +83,92 @@ def test_fill_kernel_rejects_bad_inputs(cuda):
                                       steps=4)
 
 
+def _close_event(got, want, bound):
+    for name, g_, w_ in zip(("level", "usage", "local_slope", "slope"),
+                            got, want):
+        scale = max(float(w_.abs().max()), 1.0)
+        assert float((g_ - w_).abs().max()) <= bound * scale, name
+
+
+@pytest.mark.parametrize("r", range(1, 9))
+@pytest.mark.parametrize("dtype,bound", [(torch.float64, 1e-9),
+                                         (torch.float32, 5e-6)])
+def test_fill_kernel_every_resource_count(cuda, r, dtype, bound):
+    # every R case the source instantiates, ragged N and K (K not a
+    # multiple of the tile, N not of the cluster)
+    args = _event_inputs(333, 37, r, dtype, cuda, seed=r)
+    steps = 48 if dtype == torch.float64 else 26
+    _close_event(fill_kernel.fill_event_levels(*args, steps=steps),
+                 fill_ref.fill_event_levels(*args, steps=steps), bound)
+
+
+@pytest.mark.parametrize("dtype,bound", [(torch.float64, 1e-9),
+                                         (torch.float32, 5e-6)])
+def test_fill_kernel_one_server_and_all_saturated(cuda, dtype, bound):
+    steps = 48 if dtype == torch.float64 else 26
+    # K = 1: one tile, one live server
+    args = _event_inputs(500, 1, 4, dtype, cuda, seed=5)
+    args[5][:] = False
+    _close_event(fill_kernel.fill_event_levels(*args, steps=steps),
+                 fill_ref.fill_event_levels(*args, steps=steps), bound)
+    # every resource saturated: no server can bind, every bracket collapses
+    # and the level stays where it was
+    args = _event_inputs(400, 20, 3, dtype, cuda, seed=6)
+    args[5][:] = True
+    got = fill_kernel.fill_event_levels(*args, steps=steps)
+    _close_event(got, fill_ref.fill_event_levels(*args, steps=steps), bound)
+    assert torch.equal(got[0], args[6])
+
+
+@pytest.mark.parametrize("dtype,bound", [(torch.float64, 1e-9),
+                                         (torch.float32, 5e-6)])
+def test_fill_kernel_streaming_branch(cuda, monkeypatch, dtype, bound):
+    # a dense slice too large for one cluster's shared memory (40,000
+    # users of 8 servers, ~56% active): each block keeps the rows that fit
+    # and streams the rest every pass; with no room at all (cap 0) it
+    # streams its whole slice, here and on a small instance
+    args = _event_inputs(40000, 8, 6, dtype, cuda, seed=8)
+    steps = 48 if dtype == torch.float64 else 26
+    cluster, cap = fill_kernel.plan(40000, 8, 6, args[0].element_size())
+    assert cap < -(-40000 // cluster)            # the slice does not fit
+    want = fill_ref.fill_event_levels(*args, steps=steps)
+    partly = fill_kernel.fill_event_levels(*args, steps=steps)
+    monkeypatch.setattr(fill_kernel, "plan", lambda *a: (cluster, 0))
+    streamed = fill_kernel.fill_event_levels(*args, steps=steps)
+    small = _event_inputs(600, 8, 6, dtype, cuda, seed=8)
+    small_streamed = fill_kernel.fill_event_levels(*small, steps=steps)
+    torch.cuda.synchronize()
+    for got in (partly, streamed):
+        _close_event(got, want, bound)
+    _close_event(small_streamed, fill_ref.fill_event_levels(
+        *small, steps=steps), bound)
+
+
+def test_fill_kernel_main_path_shape(cuda):
+    # chip_smoke's float64 pin shape (20,000 x 256, R = 4, 3% dense): at
+    # least 132 blocks, and the kernel agrees with its plain version
+    from repro_torch.core.instances import sparse_cell_instance
+    prob, _ = sparse_cell_instance()
+    g = torch.as_tensor(gamma_matrix(prob), device=cuda)
+    n, k = g.shape
+    cluster, _ = fill_kernel.plan(n, k, 4, 8)
+    assert cluster * -(-k // fill_kernel.tile_servers(8)) >= 132
+    rng = np.random.default_rng(1)
+    rate = torch.where(g > 0, torch.as_tensor(prob.weights, device=cuda)
+                       [:, None] * g, torch.zeros((), device=cuda,
+                                                  dtype=g.dtype))
+    floors = torch.where(g > 0, torch.as_tensor(
+        rng.uniform(0, 2, (n, k)), device=cuda) / rate.clamp(min=1e-300),
+        torch.zeros((), device=cuda, dtype=g.dtype))
+    caps = torch.as_tensor(prob.capacities, device=cuda)
+    args = [floors, rate, torch.as_tensor(prob.demands, device=cuda), caps,
+            0.1 * caps, torch.zeros(caps.shape, dtype=torch.bool,
+                                    device=cuda),
+            torch.zeros(k, dtype=torch.float64, device=cuda)]
+    _close_event(fill_kernel.fill_event_levels(*args, steps=48),
+                 fill_ref.fill_event_levels(*args, steps=48), 1e-9)
+
+
 @pytest.mark.parametrize("mode", ["rdm", "tdm"])
 def test_fill_cluster_on_card_matches_cpu(cuda, mode):
     prob = dense_random_instance()
@@ -311,6 +397,37 @@ def test_decode_kernel_matches_plain(cuda, b, s_max, hq, hkv, d, dtype):
     want = decode_ref.decode_attention(q, kc, vc, kv_len)
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("b,s_max,lens", [
+    (1, 32768, [32765]),                   # one long cache: many chunks
+    (8, 2048, [1, 2048, 2085, 1027, 513, 64, 1531, 2047]),   # serving
+    (6, 1000, [0, 1, "c", "c+1", 1000, 1009]),   # 0, 1, a chunk's end,
+    (3, 4096, ["c", "c+1", 4096]),               # S_max and past it
+    (2, 64, [64, 70])])                    # one chunk per sequence
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_split_kv_lengths(cuda, b, s_max, lens, dtype):
+    # qwen3_1_7b's heads; "c" is the wrapper's own chunk (the rows of one
+    # split block), so "c" ends a chunk and "c+1" starts the next
+    chunk = decode_kernel.chunk_rows(b, s_max, 8)
+    lens = [chunk + (1 if n == "c+1" else 0) if isinstance(n, str) else n
+            for n in lens]
+    q = _randn((b, 16, 128), dtype, cuda, 12)
+    kc = _randn((b, s_max, 8, 128), dtype, cuda, 13)
+    vc = _randn((b, s_max, 8, 128), dtype, cuda, 14)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    if s_max >= 2048:
+        assert b * 8 * -(-s_max // chunk) > 132
+    if s_max <= 64:
+        assert chunk >= s_max
+    got = decode_kernel.decode_attention(q, kc, vc, kv_len)
+    want = decode_ref.decode_attention(q, kc, vc, kv_len)
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    for i, n in enumerate(lens):
+        if n == 0:
+            assert not got[i].any()
 
 
 def test_decode_kernel_zero_length_and_strided_cache(cuda):
