@@ -38,28 +38,31 @@ Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
 6. profiles 32 Jacobi rounds of each layout for the device-time breakdown;
 7. holds the attention kernels against their plain versions at
    qwen3_1_7b's widths (16 query and 8 kv heads, head_dim 128, bfloat16):
-   ``flash_attention`` at S 1,024 and a ragged S 1,000, ``decode_attention``
-   over 8 slots of a 2,048-row cache with one length per slot (1, the whole
-   cache, past the cache, ragged) and over one 32,768-row cache; times each
-   kernel and ``F.scaled_dot_product_attention``, a yardstick the port
-   never calls, in turns (kernel, SDPA, SDPA, kernel);
+   ``flash_attention`` at S 1,024, a ragged S 1,000, 512 and 128 (each call
+   must take its Hopper body: TMA and wgmma), ``decode_attention`` over 8
+   slots of a 2,048-row cache with one length per slot (1, the whole cache,
+   past the cache, ragged) and over one 32,768-row cache; times each kernel
+   and ``F.scaled_dot_product_attention``, a yardstick the port never
+   calls, in turns (kernel, SDPA, SDPA, kernel); then times the Hopper
+   flash body at both of its block sizes (64 and 128 query rows) at S 128
+   to 1,024 beside the one its wrapper picks;
 8. drives the serving path with every launch count set to 0: a
    ``ServingEngine`` on the full qwen3_1_7b config in bfloat16 (params from
    the port's seeded init on the card), 8 slots of 2,048 rows, 16 requests
    from two tenants (gold weight 2, free weight 1) with prompts of 128-1,024
    tokens and 32 new tokens each; checks completion, token ids, finite
-   logits and that every prefill launched ``flash_attention`` and every
-   decode step ``decode_attention`` once per layer; then profiles a short
-   serving window for the device's idle share;
+   logits and that every prefill launched ``flash_attention`` (its Hopper
+   body) and every decode step ``decode_attention`` once per layer; then
+   profiles a short serving window for the device's idle share;
 9. runs a 2-layer full-width model on the card with the kernels and again
    with the plain versions, on the same params and tokens, and holds the
    prefill and decode logits of the two runs together;
 10. holds ``ssd_scan`` against its plain version (float32 on the card) at
    mamba2_1_3b's prefill shape (B 1, S 1,024, 64 heads x 64, N 128, chunk
-   128) in bfloat16, at a ragged S 1,000 and in float32, called as the
-   model calls it (``ops.ssd_chunked`` on slices of one conv output, y
-   written through strides): y and the final state; times both (no single
-   PyTorch call computes it);
+   128) in bfloat16, at a ragged S 1,000, at S 512 and in float32, called
+   as the model calls it (``ops.ssd_chunked`` on slices of one conv
+   output, y written through strides): y and the final state; times both
+   (no single PyTorch call computes it);
 11. drives the Mamba-2 serving path the same way, counts set to 0 again:
    a ``ServingEngine`` on the full mamba2_1_3b config in bfloat16, 8
    slots, the same 16 requests' shape of traffic; checks completion,
@@ -121,6 +124,19 @@ SSD_REL = {"float32": 1e-4, "bfloat16": 2.0 ** -8}
 
 KERNELS = ("psdsf_fill", "psdsf_fill_bucketed", "psdsf_vds",
            "flash_attention", "decode_attention", "ssd_scan")
+
+
+#: per-body launch counts beside ``.launches`` (flash_attention's two)
+BODY_COUNTS = ("hopper_launches", "cuda_core_launches")
+
+
+def reset_counts(counters):
+    """Every wrapper's launch counts, its bodies' too, set to 0."""
+    for fn in counters.values():
+        fn.launches = 0
+        for attr in BODY_COUNTS:
+            if hasattr(fn, attr):
+                setattr(fn, attr, 0)
 
 
 def wrappers():
@@ -524,8 +540,7 @@ class Smoke:
 
         if self.device.type == "cuda":
             torch.cuda.reset_peak_memory_stats()
-        for fn in counters.values():
-            fn.launches = 0
+        reset_counts(counters)
         self.sync()
         t0 = time.perf_counter()
         alloc, info = engine.solve(pin, "psdsf-rdm", device=self.device,
@@ -742,19 +757,31 @@ class Smoke:
         return err
 
     def flash_vs_plain(self):
+        """At S 1,024, a ragged 1,000, 512 (the profiled window's prompts)
+        and 128 (the shortest prompt): each held against the plain version
+        and timed in turns with SDPA; each call must take the Hopper body."""
         torch = self.torch
         import torch.nn.functional as F
         from repro_torch.kernels.flash_attention import kernel, ref
         cfg = self.llm_config()
         hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         dtype = torch.bfloat16
-        for s in ((128, 100) if self.rehearse else (1024, 1000)):
+        lengths = (128, 100, 64, 32) if self.rehearse else (1024, 1000, 512,
+                                                             128)
+        keys = ("bfloat16", "bfloat16_ragged", "bfloat16_s512",
+                "bfloat16_s128")
+        for key, s in zip(keys, lengths):
             q, k, v = self.attn_inputs([(1, s, hq, d), (1, s, hkv, d),
                                         (1, s, hkv, d)], dtype, seed=s)
+            hopper = kernel.flash_attention.hopper_launches
             got = kernel.flash_attention(q, k, v)
             plain32 = ref.flash_attention(q.float(), k.float(), v.float())
             self.sync()
             err = self.compare_attn(got, plain32, f"flash S={s}")
+            if not self.rehearse:
+                self.check(kernel.flash_attention.hopper_launches
+                           == hopper + 1, f"flash S={s} missed the Hopper "
+                                          f"body")
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
             def sdpa():
@@ -773,20 +800,54 @@ class Smoke:
             t_ops = flops / PEAK_BF16_FLOPS
             bound_ms = max(t_bytes, t_ops) * 1e3
             bound_by = "bytes" if t_bytes > t_ops else "operations"
-            print(f"  flash (1, {s}, {hq}/{hkv}, {d}) bf16 causal, kernel and "
-                  f"SDPA in turns: kernel {ks[0]:.4f}, {ks[1]:.4f} ms, SDPA "
-                  f"{ls[0]:.4f}, {ls[1]:.4f} ms (back to back: kernel "
-                  f"{eager_ms:.4f}, SDPA {library_eager_ms:.4f} ms), plain "
-                  f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
-                  f"({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP: bound "
-                  f"by {bound_by})")
-            key = "bfloat16" if s % 64 == 0 else "bfloat16_ragged"
+            bq = kernel.block_rows(1, s, hq)
+            print(f"  flash (1, {s}, {hq}/{hkv}, {d}) bf16 causal, blocks "
+                  f"of {bq} rows, kernel and SDPA in turns: kernel {ks[0]:.4f}, "
+                  f"{ks[1]:.4f} ms, SDPA {ls[0]:.4f}, {ls[1]:.4f} ms (back "
+                  f"to back: kernel {eager_ms:.4f}, SDPA "
+                  f"{library_eager_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+                  f"bound {bound_ms:.5f} ms ({nbytes / 1e6:.2f} MB, "
+                  f"{flops / 1e9:.3f} GFLOP: bound by {bound_by})")
             self.rows[("flash_attention", key)] = dict(
                 ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
                 library_ms=library_ms, library_eager_ms=library_eager_ms,
-                turns_ms=ks, library_turns_ms=ls,
+                turns_ms=ks, library_turns_ms=ls, block_rows=bq,
                 shape=f"1x{s}x{hq}/{hkv}x{d}")
+
+    def flash_plans(self):
+        """The Hopper flash body at both block sizes (query rows a block)
+        timed at the serving path's prompt lengths (graph replays), beside
+        the one the wrapper picks: the measurement behind
+        ``kernel.block_rows``."""
+        if self.rehearse:
+            print("rehearsal: no card, no plan timings")
+            return
+        torch = self.torch
+        from repro_torch.kernels.flash_attention import kernel, ref
+        cfg = self.llm_config()
+        hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        table = {}
+        for s in (128, 256, 512, 768, 1024):
+            q, k, v = self.attn_inputs([(1, s, hq, d), (1, s, hkv, d),
+                                        (1, s, hkv, d)], torch.bfloat16,
+                                       seed=s)
+            plain32 = ref.flash_attention(q.float(), k.float(), v.float())
+            row = {}
+            for bq in kernel.BLOCK_ROWS:
+                with mock.patch.object(kernel, "block_rows",
+                                       lambda b, s_, h, _bq=bq: _bq):
+                    self.compare_attn(kernel.flash_attention(q, k, v),
+                                      plain32, f"flash S={s} BQ {bq}")
+                    row[f"BQ {bq}"] = self.time_ms(
+                        lambda: kernel.flash_attention(q, k, v), 20,
+                        graph=True)
+            chosen = kernel.block_rows(1, s, hq)
+            table[s] = dict(row, chosen=f"BQ {chosen}")
+            print(f"  S={s}: " + ", ".join(f"{p} {ms:.4f} ms"
+                                           for p, ms in row.items())
+                  + f"; the wrapper picks BQ {chosen}")
+        self.paths["flash_tile_plans"] = table
 
     def decode_vs_plain(self):
         """The serving shape (8 slots of a 2,048-row cache, one length per
@@ -931,14 +992,15 @@ class Smoke:
                                   watch(engine_mod.forward_decode)):
             if self.device.type == "cuda":
                 torch.cuda.reset_peak_memory_stats()
-            for fn in counters.values():
-                fn.launches = 0
+            reset_counts(counters)
             self.sync()
             t0 = time.perf_counter()
             done = eng.run(max_steps=16 * max_new + 64)
             self.sync()
             wall = time.perf_counter() - t0
             launches = {name: fn.launches for name, fn in counters.items()}
+            bodies = {attr: getattr(counters["flash_attention"], attr)
+                      for attr in BODY_COUNTS}
         st = eng.stats
         per_tenant = {}
         for r in done:
@@ -955,10 +1017,12 @@ class Smoke:
               f"{st['decode_tokens'] / st['decode_s']:.1f} tokens/s, "
               f"{st['decode_tokens'] / st['decode_steps']:.2f} active slots "
               f"per step)")
-        print(f"  tokens per tenant: {per_tenant}; launches: {launches}"
+        print(f"  tokens per tenant: {per_tenant}; launches: {launches}; "
+              f"flash_attention by body: {bodies}"
               + (f"; peak device memory {peak:.2f} GiB" if peak else ""))
         self.paths[path] = dict(
-            launches=launches, wall_s=wall, requests=len(done),
+            launches=launches, flash_bodies=bodies, wall_s=wall,
+            requests=len(done),
             prefills=st["prefills"], prefill_tokens=st["prefill_tokens"],
             prefill_ms_per_request=st["prefill_s"] * 1e3 / st["prefills"],
             prefill_tokens_per_s=st["prefill_tokens"] / st["prefill_s"],
@@ -979,6 +1043,11 @@ class Smoke:
                 self.check(count == want.get(name, 0),
                            f"{name} launched {count} times on the serving "
                            f"path, expected {want.get(name, 0)}")
+            # every prefill's attention took the Hopper (TMA + wgmma) body
+            self.check(bodies == {"hopper_launches": want["flash_attention"],
+                                  "cuda_core_launches": 0},
+                       f"flash_attention bodies {bodies}, expected every "
+                       f"launch on the Hopper body")
 
     def serving_profile(self, arch="qwen3_1_7b", path="serving"):
         """Device busy and idle share over a short serving window: 8
@@ -1021,7 +1090,7 @@ class Smoke:
         attn = {name: sum(r[0] for r in rows if key in r[1]) / 1e3
                 for name, key in (("flash_attention", "flash_"),
                                   ("decode_attention", "decode_"),
-                                  ("ssd_scan", "ssd_kernel"))}
+                                  ("ssd_scan", "ssd_"))}
         print(f"  device busy {busy_ms:.1f} ms, idle share "
               f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; "
               + ", ".join(f"{name} {ms:.2f} ms" for name, ms in attn.items()))
@@ -1066,8 +1135,7 @@ class Smoke:
             return out
 
         counters = wrappers()
-        for fn in counters.values():
-            fn.launches = 0
+        reset_counts(counters)
         kern = run()
         kern_launches = {n: fn.launches for n, fn in counters.items()}
         with mock.patch.object(attention_mod, "flash_attention",
@@ -1123,9 +1191,11 @@ class Smoke:
         h, p, n, q = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state, \
             cfg.ssm_chunk
         di = h * p
-        s_full, s_ragged = (64, 50) if self.rehearse else (1024, 1000)
+        s_full, s_ragged, s_half = ((64, 50, 32) if self.rehearse
+                                    else (1024, 1000, 512))
         for key, s, dtype in (("bfloat16", s_full, torch.bfloat16),
                               ("bfloat16_ragged", s_ragged, torch.bfloat16),
+                              ("bfloat16_s512", s_half, torch.bfloat16),
                               ("float32", s_full, torch.float32)):
             g = torch.Generator(device=self.device).manual_seed(s)
 
@@ -1218,8 +1288,7 @@ class Smoke:
             return y.transpose(1, 2), state
 
         counters = wrappers()
-        for fn in counters.values():
-            fn.launches = 0
+        reset_counts(counters)
         kern = run()
         kern_launches = {n: fn.launches for n, fn in counters.items()}
         with mock.patch.object(ssm_mod, "ssd_chunked", plain_chunked):
@@ -1276,7 +1345,9 @@ class Smoke:
             # the other shapes and dtypes the phases measured
             for variant, prefix in (("float32", "f32"),
                                     ("bfloat16_ragged", "ragged"),
-                                    ("bfloat16_long", "long")):
+                                    ("bfloat16_long", "long"),
+                                    ("bfloat16_s512", "s512"),
+                                    ("bfloat16_s128", "s128")):
                 other = self.rows.get((name, variant))
                 if other and variant != dtype:
                     row.update({f"{prefix}_{key}": v
@@ -1320,6 +1391,7 @@ def main(argv=None) -> int:
             smoke.phase("main path, sparse", smoke.sparse_path)
         smoke.phase("profile", smoke.profile)
     smoke.phase("flash_attention vs plain", smoke.flash_vs_plain)
+    smoke.phase("flash tile plans", smoke.flash_plans)
     smoke.phase("decode_attention vs plain", smoke.decode_vs_plain)
     smoke.phase("serving path", smoke.serving)
     if "serving path" not in smoke.failed:

@@ -6,9 +6,8 @@
 //     o[b, i, h] = sum_j softmax_j(scale * q[b, i, h] . k[b, j, hk]) v[b, j, hk]
 // over j <= i (causal) or all j < S, with float32 scores, softmax
 // statistics and accumulator, and the output rounded once to q's type
-// (float32 or bfloat16), as the TPU kernel computes it; the tensor-core
-// body below also rounds the softmax weights to bfloat16 for the second
-// product.
+// (float32 or bfloat16), as the TPU kernel computes it; the Hopper body
+// also rounds the softmax weights to bfloat16 for the second product.
 //
 // What bounds it on an H100: 4 S^2 Hq D / 2 operations (causal) against
 // (2 Hq + 2 Hkv) S D elements moved; at S = 1024, D = 128 that is ~2,000
@@ -17,13 +16,25 @@
 //
 // Design. The TPU grid walks kv blocks sequentially and carries the
 // running max, denominator and accumulator in VMEM scratch. Here one block
-// owns a tile of BQ = 64 query rows of one (batch, head) and loops over kv
-// tiles of BK = 64 rows up to the causal limit, so the online-softmax state
-// never leaves the block. Two bodies share that plan:
-// - bfloat16 with D a multiple of 16 and 16-byte-aligned rows (the model's
-//   case) runs on the tensor cores, mma.sync m16n8k16 with float32 sums
-//   (flash_mma_kernel, below);
-// - float32, and bfloat16 otherwise, runs float32 FMAs on the CUDA cores
+// owns a tile of query rows of one (batch, head) and loops over kv tiles up
+// to the causal limit, so the online-softmax state never leaves the block.
+// Query tiles are issued heaviest (latest) first, since causal tiles differ
+// in length. The wrapper picks one of two bodies from its inputs:
+// - bfloat16 with D 64 or 128, 16-byte-aligned pointers and strides that
+//   are multiples of 8 elements (the model's case): the Hopper body
+//   (flash_wgmma_kernel). One producer warpgroup issues TMA loads: the
+//   block's Q tile once, then K and V tiles into a ring of stages, each
+//   guarded by a full and an empty mbarrier. The tensor maps describe the
+//   (B, S, H, D) tensors through their strides (no transposed copy) with
+//   the 128-byte swizzle, so a D = 128 row is two 64-wide boxes; rows past
+//   S arrive as zeros. One or two consumer warpgroups, 64 query rows each,
+//   compute S = Q K^T with wgmma (Q and K from shared memory, both K-major),
+//   the online softmax in the log2 domain in float32 registers, round P to
+//   bfloat16 in registers and feed it as wgmma's register A operand for
+//   O += P V (V from shared memory, MN-major: the transpose flag). Only the
+//   tiles that cross the diagonal or the end of S test the mask; a
+//   warpgroup skips tiles wholly above its rows.
+// - float32, and bfloat16 otherwise: float32 FMAs on the CUDA cores
 //   (flash_kernel): 256 threads, each holding 4 query rows' statistics and
 //   a 4 x ceil(D/16) slice of the accumulator in registers; the Q tile
 //   (pre-scaled), the K and V tiles and the probabilities staged in shared
@@ -31,17 +42,24 @@
 //   (rows 4 ty.., columns tx + 16 j), so the K rows read by the 16 column
 //   threads sit D + 1 words apart and hit 16 different banks. It is bound
 //   by the CUDA cores' issue rate and shared-memory loads.
-// Both read the model's (B, S, H, D) layout through strides (the head
-// dimension contiguous): no transposed copy. Ragged S is masked here (rows
-// >= S are neither read nor written, columns >= S score -inf), so nothing
-// is padded. Query tiles are issued heaviest (latest) first, since causal
-// tiles differ in length.
+// Both mask ragged S themselves (rows >= S are not written, columns >= S
+// score -inf), so nothing is padded.
+//
+// Tile plan of the Hopper body: kv tiles of 128 rows a stage, and BQ query
+// rows a block, 64 per consumer warpgroup. The wrapper's block_rows() takes
+// 64-row blocks while all of them run at once, one an SM (B Hq ceil(S / 64)
+// <= 132), else 128-row blocks. chip_smoke.py's "flash tile plans" phase
+// times both at qwen3_1_7b's heads (B 1, 16/8 x 128, causal; CUDA-graph
+// replays on an NVIDIA H100 80GB HBM3 at 700 W), e.g. at S 128: BQ 64
+// 0.0057 ms, BQ 128 0.0079; S 512: 0.0102, 0.0142; S 768: 0.0189, 0.0182;
+// S 1,024: 0.0268, 0.0221 (PERF.md keeps the readings).
+#include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
+#include <stdint.h>
 
-#include <type_traits>
 
 namespace {
 
@@ -209,253 +227,505 @@ __global__ void __launch_bounds__(NT) flash_kernel(
   }
 }
 
+// ---- bfloat16 on Hopper's tensor cores: TMA loads, wgmma products -------
 
-// ---- bfloat16 on the tensor cores (mma.sync m16n8k16, float32 sums) -------
-//
-// One block of 4 warps owns BQ = 64 query rows, 16 per warp, and loops over
-// kv tiles of BK = 64 rows. K and V are staged in shared memory as bfloat16
-// (rows D + 8 apart: fragment loads hit 32 different banks), two tiles deep:
-// cp.async copies tile t + 1 while the warps compute on tile t. Each
-// warp computes its 16 x 64 scores with mma.sync from its Q fragments (held
-// in registers for the whole loop), keeps the online-softmax statistics of
-// its two rows per thread in registers, turns the probabilities into
-// bfloat16 A fragments without leaving registers, and accumulates the
-// 16 x D output with mma.sync on V fragments read by ldmatrix.trans. Scores
-// and the output are float32; P is rounded to bfloat16 for the second
-// product, as flash-attention kernels on tensor cores do.
-constexpr int MMA_NT = 128;     // 4 warps x 16 query rows
-constexpr int MMA_PAD = 8;      // bf16 row padding of the staged tiles
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a,
-                                         unsigned b0, unsigned b1) {
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count));
+}
+
+// one arrival that also announces the bytes the TMA loads will deliver
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
 }
 
-// 16 bytes global -> shared without registers; zeros when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0));
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
 }
 
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+// wait for the phase of parity `parity` to complete; a wait that outlasts
+// any real one (~2^30 polls) traps, so a broken pipeline fails the launch
+// instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  for (uint32_t polls = 0;; ++polls) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls > (1u << 30)) __trap();
+  }
+}
+
+// TMA: one box of a 4-d tensor map (coordinates innermost first) into
+// shared memory, completion counted in bytes on `bar`
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets (16-byte units), layout type 1 (B128)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from touching accumulators across an async wgmma
+template <int N>
+__device__ __forceinline__ void reg_fence(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// D (64 x N, float32, the wgmma accumulator layout) (+)= A B: A 64 x 16 and
+// B 16 x N from shared memory, both K-major (ss, N = 128: one kv tile), or
+// A from registers and B MN-major (rs, N = D: the transpose flag of 16-bit
+// types)
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "n"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss0_n128(float* d, uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
+        "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
+        "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
+        "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]),
+        "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
+        "=f"(d[30]), "=f"(d[31]), "=f"(d[32]), "=f"(d[33]), "=f"(d[34]),
+        "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]),
+        "=f"(d[45]), "=f"(d[46]), "=f"(d[47]), "=f"(d[48]), "=f"(d[49]),
+        "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]),
+        "=f"(d[55]), "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]),
+        "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+      : "l"(da), "l"(db), "n"(0));
+}
+
+
+// the first k16 step of a product writes D without reading it, so no
+// earlier instruction that defined D's registers is an input of the pipe
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
+                                         bool first) {
+  if (first) wgmma_ss0_n128(d, da, db);
+  else wgmma_ss_n128(d, da, db);
+}
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t db) {
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else wgmma_rs_n128(d, a, db);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
-size_t mma_smem_bytes(int d) {       // two stages of K and V
-  return sizeof(__nv_bfloat16) * (size_t)(4 * BK * (d + MMA_PAD));
-}
+// D head dim (64 or 128), NWG consumer warpgroups of 64 query rows; one
+// more warpgroup produces. kv tiles are 128 rows.
+template <int D, int NWG>
+struct Tile {
+  static constexpr int BQ = 64 * NWG;
+  static constexpr int BK = 128;                    // kv rows per stage
+  static constexpr int BOXES = D / 64;              // 64-wide boxes per row
+  // three stages in the ring, so the next two tiles load while one is
+  // computed (230,456 bytes at most: BQ 128, D 128)
+  static constexpr int STAGES = 3;
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;       // one of K, V per stage
+  static constexpr int SMEM =
+      1024 + Q_BYTES + STAGES * 2 * KV_BYTES + 8 * (1 + 2 * STAGES);
+  static constexpr int THREADS = 128 * (NWG + 1);
+};
 
-template <int D>
-__global__ void __launch_bounds__(MMA_NT) flash_mma_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-    Strides qs, Strides ks, Strides vs, Strides os, int seq, int rep,
-    float scale_log2, int causal) {
-  constexpr int LD = D + MMA_PAD;
-  constexpr int KC = D / 16;    // 16-wide chunks of the head dim
-  constexpr int NB = BK / 8;    // 8-wide score tiles per kv tile
-  constexpr int ND = D / 8;     // 8-wide output tiles
-  extern __shared__ float4 smem4[];
-  // [2][BK][LD] each: tile t computes from stage t & 1 while tile t + 1
-  // is copied into the other (cp.async)
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem4);
-  __nv_bfloat16* Vs = Ks + 2 * BK * LD;
+template <int D, int NWG>
+__global__ void __launch_bounds__(Tile<D, NWG>::THREADS, 1)
+    flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap,
+                       __nv_bfloat16* __restrict__ o, Strides os, int seq,
+                       int rep, float scale_log2, int causal) {
+  using T = Tile<D, NWG>;
+  constexpr int BK = T::BK;  // (the CUDA-core body's BK is 64)
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzle atoms (8 rows x 128 bytes) need 1024-byte alignment
+  uint8_t* qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* kvs = qs + T::Q_BYTES;          // stage s: K, then V
+  uint64_t* qbar =
+      reinterpret_cast<uint64_t*>(kvs + T::STAGES * 2 * T::KV_BYTES);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + T::STAGES;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / rep;
-  const int q0 = qt * BQ;
-  const int r0 = q0 + warp * 16 + gid, r1 = r0 + 8;   // this thread's rows
-
-  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
-  const __nv_bfloat16* kb = k + b * ks.b + hk * ks.h;
-  const __nv_bfloat16* vb = v + b * vs.b + hk * vs.h;
-
-  unsigned qa[KC][4];
-#pragma unroll
-  for (int kc = 0; kc < KC; ++kc) {
-    const int c = kc * 16 + tig * 2;
-    const unsigned* p0 = reinterpret_cast<const unsigned*>(qb + r0 * qs.s);
-    const unsigned* p1 = reinterpret_cast<const unsigned*>(qb + r1 * qs.s);
-    qa[kc][0] = r0 < seq ? p0[c / 2] : 0u;
-    qa[kc][1] = r1 < seq ? p1[c / 2] : 0u;
-    qa[kc][2] = r0 < seq ? p0[c / 2 + 4] : 0u;
-    qa[kc][3] = r1 < seq ? p1[c / 2 + 4] : 0u;
-  }
-
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-
-  auto load_tile = [&](int stage, int k0) {
-    __nv_bfloat16* kd = Ks + stage * BK * LD;
-    __nv_bfloat16* vd = Vs + stage * BK * LD;
-    for (int idx = tid; idx < BK * (D / 8); idx += MMA_NT) {
-      const int r = idx / (D / 8), c = (idx - r * (D / 8)) * 8;
-      const bool ok = k0 + r < seq;           // rows past S read as zeros
-      const int row = ok ? k0 + r : 0;
-      cp_async16(kd + r * LD + c, kb + row * ks.s + c, ok);
-      cp_async16(vd + r * LD + c, vb + row * vs.s + c, ok);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-
-  const int kv_end = causal ? min(seq, q0 + BQ) : seq;
+  const int q0 = qt * T::BQ;
+  const int kv_end = causal ? min(seq, q0 + T::BQ) : seq;
   const int ntiles = (kv_end + BK - 1) / BK;
-  load_tile(0, 0);
-  for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * BK;
-    if (t + 1 < ntiles) {
-      load_tile((t + 1) & 1, k0 + BK);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();              // tile t has landed for every thread
-    const __nv_bfloat16* Kt = Ks + (t & 1) * BK * LD;
-    const __nv_bfloat16* Vt = Vs + (t & 1) * BK * LD;
+  const int wg = threadIdx.x / 128;
 
-    float s[NB][4];
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
+    for (int s = 0; s < T::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NWG * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == NWG) {
+    // -- producer: one thread issues every TMA load ----------------------
+    if (threadIdx.x == NWG * 128) {
+      const int hk = h / rep;
+      mbar_expect_tx(qbar, T::Q_BYTES);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s[nb][i] = 0.f;
-      const __nv_bfloat16* kr = Kt + (nb * 8 + gid) * LD + tig * 2;
+      for (int x = 0; x < T::BOXES; ++x)
+        tma_load_4d(qs + x * T::BQ * 128, &qmap, qbar, x * 64, h, q0, b);
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % T::STAGES;
+        mbar_wait(&empty[s], ((t / T::STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], 2 * T::KV_BYTES);
+        uint8_t* ks = kvs + s * 2 * T::KV_BYTES;
+        uint8_t* vs = ks + T::KV_BYTES;
 #pragma unroll
-      for (int kc = 0; kc < KC; ++kc) {
-        const unsigned b0 = *reinterpret_cast<const unsigned*>(kr + kc * 16);
-        const unsigned b1 =
-            *reinterpret_cast<const unsigned*>(kr + kc * 16 + 8);
-        mma_bf16(s[nb], qa[kc], b0, b1);
+        for (int x = 0; x < T::BOXES; ++x) {
+          tma_load_4d(ks + x * BK * 128, &kmap, &full[s], x * 64, hk, t * BK,
+                      b);
+          tma_load_4d(vs + x * BK * 128, &vmap, &full[s], x * 64, hk, t * BK,
+                      b);
+        }
       }
     }
+  } else {
+    // -- consumers: 64 query rows per warpgroup --------------------------
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int tig = lane % 4;
+    const int first = q0 + wg * 64, last = first + 63;
+    const int r0 = first + warp * 16 + lane / 4, r1 = r0 + 8;  // my rows
+    // this warpgroup's 64 rows inside each Q box
+    const uint32_t q_addr = smem_u32(qs) + wg * 64 * 128;
 
-    // scale into the log2 domain and mask: c0, c1 are row r0, c2, c3 row r1
-    float mx[2] = {-INFINITY, -INFINITY};
+    float acc[D / 2], sc[BK / 2];
+    uint32_t pa[BK / 16][4];              // P of the tile in P V
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb)
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
+
+    // S = Q K^T for stage s: D / 16 steps of k16, 32 bytes apart in a box
+    auto issue_qk = [&](int s) {
+      const uint32_t k_addr = smem_u32(kvs + s * 2 * T::KV_BYTES);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = i < 2 ? r0 : r1;
-        const int col = k0 + nb * 8 + tig * 2 + (i & 1);
-        float x = s[nb][i] * scale_log2;
-        if (col >= seq || (causal && col > row)) x = -INFINITY;
-        s[nb][i] = x;
-        mx[i >> 1] = fmaxf(mx[i >> 1], x);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;
+        wgmma_ss(
+            sc, sw128_desc(q_addr + (kk / 4) * T::BQ * 128 + off, 16, 1024),
+            sw128_desc(k_addr + (kk / 4) * BK * 128 + off, 16, 1024),
+            kk == 0);
       }
-    float corr[2], base[2];
+      wgmma_commit();
+    };
+    // O += P V for stage s: V's k16 rows are 16 x 128 bytes apart, its two
+    // 64-wide boxes (D = 128) BK x 128 bytes apart
+    auto issue_pv = [&](int s) {
+      const uint32_t v_addr =
+          smem_u32(kvs + s * 2 * T::KV_BYTES) + T::KV_BYTES;
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs<D>(acc, pa[kk],
+                    sw128_desc(v_addr + kk * 16 * 128, BK * 128, 1024));
+      wgmma_commit();
+    };
+    // the online softmax of tile k0: sc becomes P (float32), with corr
+    // and l updated
+    auto softmax = [&](int k0) {
+      // log2-domain scores; sc[4 j + i]: row i < 2 ? r0 : r1, column
+      // k0 + 8 j + 2 tig + (i & 1). Only tiles crossing my rows' diagonal
+      // or the end of S test the mask.
+      float mx[2] = {-INFINITY, -INFINITY};
+      if ((causal && k0 + BK - 1 > first) || k0 + BK > seq) {
+#pragma unroll
+        for (int e = 0; e < BK / 2; ++e) {
+          const int row = (e & 2) ? r1 : r0;
+          const int col = k0 + 8 * (e / 4) + 2 * tig + (e & 1);
+          float x = sc[e] * scale_log2;
+          if (col >= seq || (causal && col > row)) x = -INFINITY;
+          sc[e] = x;
+          mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], x);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < BK / 2; ++e) {
+          sc[e] *= scale_log2;
+          mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
+        }
+      }
+      float base[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        // the four threads of a row are lanes 4 (lane / 4) .. + 3
+        mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 1));
+        mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 2));
+        const float m_new = fmaxf(m[j], mx[j]);
+        // a row with nothing valid yet keeps m = -inf and p = 0
+        base[j] = m_new == -INFINITY ? 0.f : m_new;
+        corr[j] = exp2f(m[j] - base[j]);
+        m[j] = m_new;
+        l[j] *= corr[j];
+      }
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) {
+        sc[e] = exp2f(sc[e] - base[(e >> 1) & 1]);
+        l[(e >> 1) & 1] += sc[e];
+      }
+    };
+    // rescale O, and round P to bfloat16 as the A fragments of the BK / 16
+    // k16 steps of P V
+    auto take = [&]() {
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e) acc[e] *= corr[(e >> 1) & 1];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+    };
+    // Tiles wholly above my rows (causal) come last: I only release them.
+    mbar_wait(qbar, 0);
+    for (int t = 0; t < ntiles; ++t) {
+      const int s = t % T::STAGES;
+      mbar_wait(&full[s], (t / T::STAGES) & 1);
+      if (!(causal && t * BK > last)) {
+        wgmma_fence();
+        issue_qk(s);
+        wgmma_wait<0>();
+        reg_fence<BK / 2>(sc);
+        softmax(t * BK);
+        take();
+        wgmma_fence();
+        issue_pv(s);
+        wgmma_wait<0>();
+        reg_fence<D / 2>(acc);
+      }
+      mbar_arrive(&empty[s]);
+    }
+
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      // the four threads of a row are lanes 4 gid .. 4 gid + 3
-      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 1));
-      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 2));
-      const float m_new = fmaxf(m[j], mx[j]);
-      base[j] = m_new == -INFINITY ? 0.f : m_new;
-      corr[j] = exp2f(m[j] - base[j]);
-      m[j] = m_new;
-      l[j] *= corr[j];
+      l[j] += __shfl_xor_sync(0xffffffffu, l[j], 1);
+      l[j] += __shfl_xor_sync(0xffffffffu, l[j], 2);
     }
+    __nv_bfloat16* ob = o + b * os.b + h * os.h;
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb)
+    for (int j = 0; j < 2; ++j) {
+      const int row = j ? r1 : r0;
+      if (row >= seq) continue;
+      const float inv = 1.f / fmaxf(l[j], 1e-30f);
+      uint32_t* orow = reinterpret_cast<uint32_t*>(ob + row * os.s);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[nb][i] = exp2f(s[nb][i] - base[i >> 1]);
-        l[i >> 1] += s[nb][i];
-      }
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      acc[n][0] *= corr[0];
-      acc[n][1] *= corr[0];
-      acc[n][2] *= corr[1];
-      acc[n][3] *= corr[1];
+      for (int n = 0; n < D / 8; ++n)
+        orow[(n * 8 + tig * 2) / 2] = pack_bf16(acc[4 * n + 2 * j] * inv,
+                                                acc[4 * n + 2 * j + 1] * inv);
     }
-
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      unsigned pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const __nv_bfloat16* vrow =
-          Vt + (kk * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
-#pragma unroll
-      for (int n = 0; n < ND; n += 2) {
-        unsigned b0, b1, b2, b3;
-        const unsigned addr =
-            (unsigned)__cvta_generic_to_shared(vrow + n * 8);
-        asm volatile(
-            "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-            "{%0,%1,%2,%3}, [%4];\n"
-            : "=r"(b0), "=r"(b1), "=r"(b2), "=r"(b3)
-            : "r"(addr));
-        mma_bf16(acc[n], pa, b0, b1);
-        mma_bf16(acc[n + 1], pa, b2, b3);
-      }
-    }
-    __syncthreads();              // stage t & 1 is free for tile t + 2
-  }
-
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    l[j] += __shfl_xor_sync(0xffffffffu, l[j], 1);
-    l[j] += __shfl_xor_sync(0xffffffffu, l[j], 2);
-  }
-  __nv_bfloat16* ob = o + b * os.b + h * os.h;
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int row = j ? r1 : r0;
-    if (row >= seq) continue;
-    const float inv = 1.f / fmaxf(l[j], 1e-30f);
-    unsigned* orow = reinterpret_cast<unsigned*>(ob + row * os.s);
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-      orow[(n * 8 + tig * 2) / 2] =
-          pack_bf16(acc[n][2 * j] * inv, acc[n][2 * j + 1] * inv);
   }
 }
 
-template <int D>
-int launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
-               const __nv_bfloat16* v, __nv_bfloat16* o, Strides qs,
-               Strides ks, Strides vs, Strides os, int batch, int seq,
-               int hq, int hkv, float scale, int causal,
-               cudaStream_t stream) {
-  const size_t smem = mma_smem_bytes(D);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((seq + BQ - 1) / BQ, hq, batch);
-  flash_mma_kernel<D><<<grid, MMA_NT, smem, stream>>>(
-      q, k, v, o, qs, ks, vs, os, seq, hq / hkv,
-      scale * 1.4426950408889634f, causal);
+// cuTensorMapEncodeTiled through the runtime's entry-point lookup, so the
+// library links no -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault,
+                                         &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a (B, S, H, D) bfloat16 tensor as a 4-d map (D, H, S, B) through its
+// strides; boxes of 64 x 1 x rows x 1, 128-byte swizzle, zeros past S
+int tensor_map(CUtensorMap* map, const void* ptr, const Strides& st, int d,
+               int heads, int seq, int batch, int rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
+                              (cuuint64_t)seq, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.s * 2,
+                                 (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int D, int NWG>
+int launch_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                 const __nv_bfloat16* v, __nv_bfloat16* o, Strides qs,
+                 Strides ks, Strides vs, Strides os, int batch, int seq,
+                 int hq, int hkv, float scale, int causal,
+                 cudaStream_t stream) {
+  using T = Tile<D, NWG>;
+  CUtensorMap qm, km, vm;
+  int err = tensor_map(&qm, q, qs, D, hq, seq, batch, T::BQ);
+  if (!err) err = tensor_map(&km, k, ks, D, hkv, seq, batch, T::BK);
+  if (!err) err = tensor_map(&vm, v, vs, D, hkv, seq, batch, T::BK);
+  if (err) return err;
+  // the shared-memory limit is raised once per device for each instance
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64)
+    return (int)cudaErrorInvalidDevice;
+  static bool raised[64] = {};
+  if (!raised[dev]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_wgmma_kernel<D, NWG>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    raised[dev] = true;
+  }
+  const dim3 grid((seq + T::BQ - 1) / T::BQ, hq, batch);
+  flash_wgmma_kernel<D, NWG><<<grid, T::THREADS, T::SMEM, stream>>>(
+      qm, km, vm, o, os, seq, hq / hkv, scale * 1.4426950408889634f, causal);
   return (int)cudaGetLastError();
-}
-
-// The tensor-core path takes head dims that are multiples of 16 and rows
-// that start on 16 bytes (strides multiples of 8, aligned pointers).
-bool mma_ok(const void* q, const void* k, const void* v, const void* o,
-            const long long* st, int d) {
-  if (d % 16) return false;
-  const void* ptrs[4] = {q, k, v, o};
-  for (int i = 0; i < 4; ++i)
-    if (reinterpret_cast<unsigned long long>(ptrs[i]) % 16) return false;
-  for (int i = 0; i < 12; ++i)
-    if (st[i] % 8) return false;
-  return true;
 }
 
 template <typename T, int NC>
@@ -484,25 +754,6 @@ int launch(const T* q, const T* k, const T* v, T* o, const long long* st,
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
       vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (mma_ok(q, k, v, o, st, d)) {
-#define FLASH_MMA_CASE(D)                                                 \
-  case D:                                                                 \
-    return launch_mma<D>(q, k, v, o, qs, ks, vs, os, batch, seq, hq, hkv, \
-                         scale, causal, s);
-      switch (d) {
-        FLASH_MMA_CASE(16)
-        FLASH_MMA_CASE(32)
-        FLASH_MMA_CASE(48)
-        FLASH_MMA_CASE(64)
-        FLASH_MMA_CASE(80)
-        FLASH_MMA_CASE(96)
-        FLASH_MMA_CASE(112)
-        FLASH_MMA_CASE(128)
-      }
-#undef FLASH_MMA_CASE
-    }
-  }
 #define FLASH_CASE(NC)                                                    \
   case NC:                                                                \
     return launch_nc<T, NC>(q, k, v, o, qs, ks, vs, os, batch, seq, hq,  \
@@ -521,9 +772,43 @@ int launch(const T* q, const T* k, const T* v, T* o, const long long* st,
   return (int)cudaErrorInvalidValue;
 }
 
+// The Hopper body takes D 64 or 128 and rows TMA can address: 16-byte
+// aligned pointers, strides that are multiples of 8 elements.
+int launch_hopper(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                  const __nv_bfloat16* v, __nv_bfloat16* o,
+                  const long long* st, int batch, int seq, int hq, int hkv,
+                  int d, float scale, int causal, int bq, void* stream) {
+  if (batch <= 0 || seq <= 0 || hq <= 0 || hkv <= 0 || hq % hkv ||
+      batch > 65535 || hq > 65535 || (d != 64 && d != 128) ||
+      (bq != 64 && bq != 128))
+    return (int)cudaErrorInvalidValue;
+  const void* ptrs[4] = {q, k, v, o};
+  for (int i = 0; i < 4; ++i)
+    if (reinterpret_cast<unsigned long long>(ptrs[i]) % 16)
+      return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < 12; ++i)
+    if (st[i] % 8 || st[i] <= 0) return (int)cudaErrorInvalidValue;
+  const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
+      vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FLASH_HOPPER_CASE(D, NWG)                                          \
+  if (d == D && bq == 64 * NWG)                                            \
+    return launch_wgmma<D, NWG>(q, k, v, o, qs, ks, vs, os, batch, seq, hq, \
+                                hkv, scale, causal, s);
+  FLASH_HOPPER_CASE(128, 2)
+  FLASH_HOPPER_CASE(128, 1)
+  FLASH_HOPPER_CASE(64, 2)
+  FLASH_HOPPER_CASE(64, 1)
+#undef FLASH_HOPPER_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// strides: 12 values, (batch, seq, head) for q, k, v and o, in elements
+// strides: 12 values, (batch, seq, head) for q, k, v and o, in elements.
+// flash_attention_f32 and flash_attention_bf16 run the CUDA-core body;
+// flash_attention_bf16_hopper the TMA + wgmma body with blocks of bq query
+// rows (64 or 128).
 extern "C" int flash_attention_f32(const float* q, const float* k,
                                    const float* v, float* o,
                                    const long long* strides, int batch,
@@ -541,4 +826,12 @@ extern "C" int flash_attention_bf16(const __nv_bfloat16* q,
                                     float scale, int causal, void* stream) {
   return launch<__nv_bfloat16>(q, k, v, o, strides, batch, seq, hq, hkv, d,
                                scale, causal, stream);
+}
+
+extern "C" int flash_attention_bf16_hopper(
+    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+    __nv_bfloat16* o, const long long* strides, int batch, int seq, int hq,
+    int hkv, int d, float scale, int causal, int bq, void* stream) {
+  return launch_hopper(q, k, v, o, strides, batch, seq, hq, hkv, d, scale,
+                       causal, bq, stream);
 }

@@ -4,7 +4,10 @@ The kernel (``csrc/ssd_scan.cu``, CUDA C++ for sm_90a) replaces
 ``repro/kernels/ssd_scan/kernel.py::_ssd_kernel``. It is built with
 ``nvcc`` and loaded through ``ctypes`` on the first call with a CUDA
 tensor; CPU tensors take the plain version in ``ref.py``, and nothing else
-does. ``ssd_scan.launches`` counts the kernel's launches.
+does. ``ssd_scan.launches`` counts the wrapper's launches: one a call,
+whose bfloat16 body runs three CUDA kernels (the chunk scores and deltas,
+the state pass, the outputs) on scratch the wrapper allocates
+(:func:`scratch_size`), and whose float32 body runs one.
 """
 from __future__ import annotations
 
@@ -21,6 +24,15 @@ from . import ref
 CHUNKS = (16, 128)
 MAX_STATE = 128
 _ENTRY = {torch.float32: "ssd_scan_f32", torch.bfloat16: "ssd_scan_bf16"}
+
+
+def scratch_size(b: int, h: int, s: int, p: int, n: int, chunk: int) -> int:
+    """float32 values of the bfloat16 body's scratch: the chunk scores
+    C_c B_c^T (B, nc, Q, Q), the chunk deltas (B, nc, H, P, N), the entry
+    states as hi and lo bfloat16 planes (the same bytes) and the chunk
+    decays (B, H, nc)."""
+    nc = -(-s // chunk)
+    return b * nc * (chunk * chunk + 2 * h * p * n + h)
 
 
 def ssd_scan(x, dt, a, b_mat, c_mat, *, chunk: int = 128, init_state=None,
@@ -89,12 +101,17 @@ def ssd_scan(x, dt, a, b_mat, c_mat, *, chunk: int = 128, init_state=None,
     strides = (ctypes.c_longlong * 17)(
         *x.stride(), *dt.stride(), *b_mat.stride(), *c_mat.stride(),
         *out.stride())
-    with torch.cuda.device(x.device):
-        err = _entry(_ENTRY[x.dtype])(
-            x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(),
+    ptrs = [x.data_ptr(), dt.data_ptr(), a.data_ptr(), b_mat.data_ptr(),
             c_mat.data_ptr(),
             None if init_state is None else init_state.data_ptr(),
-            out.data_ptr(), state.data_ptr(), strides, b, h, s, p, n, chunk,
+            out.data_ptr(), state.data_ptr()]
+    if x.dtype == torch.bfloat16:
+        scratch = torch.empty((scratch_size(b, h, s, p, n, chunk),),
+                              dtype=torch.float32, device=x.device)
+        ptrs.append(scratch.data_ptr())
+    with torch.cuda.device(x.device):
+        err = _entry(_ENTRY[x.dtype])(
+            *ptrs, strides, b, h, s, p, n, chunk,
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
@@ -108,7 +125,9 @@ ssd_scan.launches = 0
 @functools.lru_cache(maxsize=None)
 def _entry(name):
     fn = getattr(_build.load("ssd_scan"), name)
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_longlong)] \
+    pointers = 9 if name == _ENTRY[torch.bfloat16] else 8
+    fn.argtypes = [ctypes.c_void_p] * pointers \
+        + [ctypes.POINTER(ctypes.c_longlong)] \
         + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

@@ -259,3 +259,130 @@ def test_split_kv_chunks_fill_the_card():
         if b * hkv * s_max >= 132 * decode_kernel.MIN_CHUNK:
             assert blocks > 132, (b, s_max, hkv, chunk)
     assert decode_kernel.chunk_rows(8, 2048, 8) == 256
+
+
+# -- the tile plan of the Hopper flash body, emulated in plain torch ---------
+
+from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
+
+
+def _flash_tiles(q, k, v, causal, bq, bk):
+    """What the Hopper body of ``csrc/flash_attention.cu`` computes, tile
+    for tile: blocks of ``bq`` query rows, a warpgroup per 64 of them, kv
+    tiles of ``bk`` rows up to the block's causal limit; a warpgroup skips
+    the tiles wholly above its rows and tests the mask only on tiles that
+    cross its diagonal or the end of S (asserting that every other tile
+    needs no mask); online softmax in the log2 domain in float32, P
+    rounded to bfloat16 for P V, the output rounded once."""
+    b, s, hq, d = q.shape
+    rep = hq // k.shape[2]
+    scale_log2 = 1.0 / math.sqrt(d) * math.log2(math.e)
+    qf = q.float().transpose(1, 2)                              # (B, H, S, D)
+    kf = k.float().repeat_interleave(rep, dim=2).transpose(1, 2)
+    vf = v.float().repeat_interleave(rep, dim=2).transpose(1, 2)
+    out = torch.zeros(b, hq, s, d)
+    for q0 in range(0, s, bq):
+        kv_end = min(s, q0 + bq) if causal else s
+        for first in range(q0, min(q0 + bq, s), 64):
+            last = first + 63
+            rows = torch.arange(first, min(first + 64, s))
+            m = torch.full((b, hq, len(rows), 1), -math.inf)
+            l = torch.zeros(b, hq, len(rows), 1)
+            acc = torch.zeros(b, hq, len(rows), d)
+            for k0 in range(0, kv_end, bk):
+                if causal and k0 > last:
+                    continue
+                cols = torch.arange(k0, k0 + bk)
+                kt = torch.zeros(b, hq, bk, d)
+                vt = torch.zeros(b, hq, bk, d)
+                n = min(bk, s - k0)        # rows past S arrive as zeros
+                kt[:, :, :n], vt[:, :, :n] = kf[:, :, k0:k0 + n], \
+                    vf[:, :, k0:k0 + n]
+                sc = qf[:, :, rows] @ kt.transpose(-1, -2) * scale_log2
+                valid = (cols[None, :] < s) & (
+                    ~torch.tensor(causal) | (cols[None, :] <= rows[:, None]))
+                if (causal and k0 + bk - 1 > first) or k0 + bk > s:
+                    sc = sc.masked_fill(~valid, -math.inf)
+                else:
+                    assert bool(valid.all()), (q0, first, k0)
+                m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+                base = torch.where(m_new == -math.inf, 0.0, m_new)
+                corr = torch.exp2(m - base)
+                p = torch.exp2(sc - base)
+                l = l * corr + p.sum(-1, keepdim=True)
+                acc = acc * corr + p.bfloat16().float() @ vt
+                m = m_new
+            out[:, :, rows] = acc / l.clamp_min(1e-30)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+@pytest.mark.parametrize("bq", flash_kernel.BLOCK_ROWS)
+@pytest.mark.parametrize("rep", [1, 2, 4])
+@pytest.mark.parametrize("edge", ["1", "63", "64", "65", "bk-1", "bk",
+                                  "bk+1", "1000"])
+def test_flash_tile_plan_matches_plain_and_jax(bq, rep, edge):
+    # S at a warpgroup's and the kv tile's edges and a ragged 1,000; GQA
+    # 1:1, 2:1, 4:1; held against the plain version and the JAX oracle at
+    # the bf16 bound
+    bk = flash_kernel.KV_ROWS
+    s = {"1": 1, "bk-1": bk - 1, "bk": bk, "bk+1": bk + 1,
+         "1000": 1000}.get(edge) or int(edge)
+    hkv, d = 2, 64
+    hq = hkv * rep
+    (q, k, v), (tq, tk, tv) = _both(
+        _arrays([(1, s, hq, d), (1, s, hkv, d), (1, s, hkv, d)],
+                seed=s + rep), "bfloat16")
+    for causal in (True, False):
+        got = _flash_tiles(tq, tk, tv, causal, bq, bk)
+        assert got.dtype == torch.bfloat16 and got.shape == tq.shape
+        plain = flash_ref.flash_attention(tq, tk, tv, causal=causal)
+        np.testing.assert_allclose(_f32(got), _f32(plain),
+                                   rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
+        want = attention_ref(*(jnp.swapaxes(a, 1, 2) for a in (q, k, v)),
+                             causal=causal)
+        np.testing.assert_allclose(_f32(got), _f32(jnp.swapaxes(want, 1, 2)),
+                                   rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (8, 2)])
+def test_flash_tile_plan_matches_pallas_interpret(hq, hkv):
+    # qwen3_1_7b's head dim, two kv tiles of the wrapper's plan
+    b, s, d = 1, 256, 128
+    bq, bk = flash_kernel.block_rows(b, s, hq), flash_kernel.KV_ROWS
+    (q, k, v), (tq, tk, tv) = _both(
+        _arrays([(b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d)], seed=hq),
+        "bfloat16")
+    got = _flash_tiles(tq, tk, tv, True, bq, bk)
+    want = jax_flash_attention(q, k, v, causal=True, block_q=128,
+                               block_k=128, interpret=True)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=TOL["bfloat16"],
+                               atol=TOL["bfloat16"])
+
+
+def test_flash_plan_and_body_choice():
+    # the serving path's prompts (B 1, 16 query heads, S 128..1,024): the
+    # block size is a compiled one, 64 rows while the blocks fit one wave;
+    # bf16 at head dims 64 and 128 on 16-byte-aligned rows takes the
+    # Hopper body, the rest the CUDA cores
+    for s in (1, 128, 333, 512, 1000, 1024, 4096):
+        bq = flash_kernel.block_rows(1, s, 16)
+        assert bq in flash_kernel.BLOCK_ROWS
+        assert (bq == 64) == (16 * -(-s // 64) <= flash_kernel.SMS)
+    q = torch.zeros(1, 8, 4, 128, dtype=torch.bfloat16)
+    k = torch.zeros(1, 8, 2, 128, dtype=torch.bfloat16)
+    assert flash_kernel.takes_hopper_body(q, k, k)
+    assert flash_kernel.takes_hopper_body(q[..., :64].contiguous(),
+                                          k[..., :64].contiguous(),
+                                          k[..., :64].contiguous())
+    assert not flash_kernel.takes_hopper_body(q.float(), k.float(),
+                                              k.float())
+    assert not flash_kernel.takes_hopper_body(
+        q[..., :32].contiguous(), k[..., :32].contiguous(),
+        k[..., :32].contiguous())
+    wide = torch.zeros(1, 8, 4, 129, dtype=torch.bfloat16)
+    assert not flash_kernel.takes_hopper_body(wide[..., 1:], k, k)
+    # a fused (B, S, Hq + 2 Hkv, D) projection's views: the model's layout
+    qkv = torch.zeros(1, 8, 8, 128, dtype=torch.bfloat16)
+    assert flash_kernel.takes_hopper_body(qkv[:, :, :4], qkv[:, :, 4:6],
+                                          qkv[:, :, 6:])

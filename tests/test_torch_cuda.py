@@ -653,3 +653,120 @@ def test_mamba_serving_engine_on_card_matches_cpu(cuda):
         assert launched == (0 if dev == "cpu"
                             else cfg.num_layers * len(done))
     assert out["cuda"] == out["cpu"]
+
+
+# -- the Hopper flash body (TMA + wgmma) and the chunk-parallel SSD ----------
+
+def _flash_counts():
+    fa = flash_kernel.flash_attention
+    return fa.launches, fa.hopper_launches, fa.cuda_core_launches
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 1000])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_hopper_body_edges(cuda, monkeypatch, s, d):
+    # both block sizes, GQA 1:1, 2:1 and 4:1, causal or not, at the
+    # warpgroups' and kv tiles' edges and a ragged 1,000: each call takes
+    # the Hopper body
+    for bq in flash_kernel.BLOCK_ROWS:
+        monkeypatch.setattr(flash_kernel, "block_rows",
+                            lambda b, s_, h, _bq=bq: _bq)
+        for rep in (1, 2, 4):
+            q = _randn((1, s, 2 * rep, d), torch.bfloat16, cuda, s + rep)
+            k = _randn((1, s, 2, d), torch.bfloat16, cuda, s + 2 * rep)
+            v = _randn((1, s, 2, d), torch.bfloat16, cuda, s + 3 * rep)
+            for causal in (True, False):
+                before = _flash_counts()
+                got = flash_kernel.flash_attention(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                assert _flash_counts() == (before[0] + 1, before[1] + 1,
+                                           before[2])
+                want = flash_ref.flash_attention(q, k, v, causal=causal)
+                torch.testing.assert_close(got.float(), want.float(),
+                                           rtol=2e-2, atol=2e-2)
+
+
+def test_flash_hopper_body_model_layout(cuda):
+    # q, k, v as views of one fused (B, S, Hq + 2 Hkv, D) projection at
+    # qwen3_1_7b's heads: TMA reads the strides, nothing is copied
+    qkv = _randn((2, 300, 16 + 2 * 8, 128), torch.bfloat16, cuda, 21)
+    q, k, v = qkv[:, :, :16], qkv[:, :, 16:24], qkv[:, :, 24:]
+    before = _flash_counts()
+    got = flash_kernel.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert _flash_counts()[1] == before[1] + 1
+    want = flash_ref.flash_attention(q.contiguous(), k.contiguous(),
+                                     v.contiguous())
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("case", ["float32", "unaligned", "head_dim_32",
+                                  "head_dim_64"])
+def test_flash_body_is_chosen_by_input(cuda, case):
+    # float32, rows off 16 bytes and head dims other than 64 and 128 take
+    # the CUDA-core body; aligned bf16 at 64 or 128 the Hopper one
+    s, d = 200, 32 if case == "head_dim_32" else 64
+    dtype = torch.float32 if case == "float32" else torch.bfloat16
+    buf = _randn((3, 1, s, 4, d + 8), dtype, cuda, 22)
+    lo = 1 if case == "unaligned" else 0
+    q, k, v = (buf[i, :, :, :(4 if i == 0 else 2), lo:lo + d]
+               for i in range(3))
+    before = _flash_counts()
+    got = flash_kernel.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    hopper = case == "head_dim_64"
+    assert _flash_counts() == (before[0] + 1, before[1] + hopper,
+                               before[2] + (not hopper))
+    want = flash_ref.flash_attention(q, k, v)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("b,h,s,p,n,chunk,init", [
+    (1, 3, 0, 64, 128, 128, True),        # no rows: the state passes through
+    (1, 2, 129, 130, 7, 128, True),       # P in three tiles, odd N
+    (2, 4, 1024, 64, 128, 128, True),     # B 2 at mamba2's widths
+    (1, 3, 17, 64, 128, 16, False),       # ragged at chunk 16
+    (2, 2, 16, 64, 24, 16, True),         # one full chunk of 16
+    (1, 5, 127, 40, 128, 128, False)])    # S one short of a chunk
+def test_ssd_bf16_chunked_body_edges(cuda, b, h, s, p, n, chunk, init):
+    x, dt, a, bm, cm, st0 = _ssd_inputs(b, h, s, p, n, torch.bfloat16, cuda,
+                                        s + n, init)
+    before = ssd_kernel.ssd_scan.launches
+    y, state = ssd_kernel.ssd_scan(x, dt, a, bm, cm, chunk=chunk,
+                                   init_state=st0)
+    torch.cuda.synchronize()
+    assert ssd_kernel.ssd_scan.launches == before + 1
+    assert y.shape == x.shape and y.dtype == torch.bfloat16
+    if s == 0:
+        assert torch.equal(state, st0)
+        return
+    want_y, want_state = ssd_ref.ssd_scan(x.float(), dt, a, bm.float(),
+                                          cm.float(), chunk=chunk,
+                                          init_state=st0)
+    _ssd_close(y, want_y, SSD_TOL[torch.bfloat16], "y")
+    _ssd_close(state, want_state, SSD_TOL[torch.float32], "final state")
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_ssd_bf16_model_layout_at_prefill_width(cuda, offset):
+    # ops.ssd_chunked on slices of one conv output at mamba2_1_3b's widths
+    # (64 heads x 64, N 128, chunk 128), S 512: 16-byte rows take the
+    # cp.async staging; one element in, the element-wise staging
+    s, h, p, n = 512, 64, 64, 128
+    g = torch.Generator().manual_seed(23)
+    xbc = torch.randn(1, s, offset + h * p + 2 * n, generator=g)
+    xbc[..., offset + h * p:] /= 2
+    xbc = xbc.to(cuda, torch.bfloat16)[..., offset:]
+    x = xbc[..., :h * p].reshape(1, s, h, p)
+    bm, cm = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+    dt = torch.nn.functional.softplus(
+        torch.randn(1, s, h, generator=g)).to(cuda) / 2
+    a = -torch.exp(torch.randn(h, generator=g) * 0.3).to(cuda)
+    y, state = ssd_ops.ssd_chunked(x, dt, a, bm, cm, chunk=128)
+    want_y, want_state = ssd_ref.ssd_scan(
+        x.transpose(1, 2).float(), dt.transpose(1, 2), a, bm.float(),
+        cm.float(), chunk=128)
+    _ssd_close(y.transpose(1, 2), want_y, SSD_TOL[torch.bfloat16], "y")
+    _ssd_close(state, want_state, SSD_TOL[torch.float32], "final state")

@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.configs import get_smoke_config
 from repro.kernels.ssd_scan.kernel import ssd_scan as pallas_ssd_scan
@@ -135,3 +136,140 @@ def test_wrapper_takes_plain_version_for_cpu_tensors(monkeypatch):
     with pytest.raises(ValueError, match="cuda or cpu"):
         kernel.ssd_scan(meta, meta[..., 0], meta[0, :, 0, 0], meta[:, 0],
                         meta[:, 0])
+
+
+# -- the chunk decomposition of the Hopper bfloat16 body, in plain torch -----
+
+def _split(v):
+    """A float32 tensor as two bfloat16 terms, hi + lo."""
+    hi = v.bfloat16()
+    return hi, (v - hi.float()).bfloat16()
+
+
+def _ssd_four_steps(x, dt, a, b_mat, c_mat, chunk, init_state=None):
+    """What the bfloat16 body of ``csrc/ssd_scan.cu`` computes, step for
+    step, in the kernel's (B, H, S, P) layout, on bfloat16 x, B and C:
+    (1) the scores C_c B_c^T once per chunk for all heads; (2) per (chunk,
+    head) the delta sum_j (w_j x_j)^T B_j, w_j = exp(seg_last - seg_j) dt_j;
+    (3) the state pass over the chunks, keeping each chunk's entry state;
+    (4) y = exp(seg_i) C_i . entry^T + (G o decay o dt) x. Products take
+    bfloat16 operands with float32 sums; a float32 operand (w x, the entry
+    state, the decayed scores) is split into hi + lo bfloat16 terms, both
+    multiplied in. Rows past S have dt = 0. Returns (y float32, final
+    state)."""
+    b, h, s, p = x.shape
+    n = b_mat.shape[-1]
+    q, nc = chunk, -(-s // chunk)
+    pad = nc * q - s
+    xc = F.pad(x.float(), (0, 0, 0, pad)).reshape(b, h, nc, q, p)
+    dtc = F.pad(dt.float(), (0, pad)).reshape(b, h, nc, q)
+    bc = F.pad(b_mat.float(), (0, 0, 0, pad)).reshape(b, nc, q, n)
+    cc = F.pad(c_mat.float(), (0, 0, 0, pad)).reshape(b, nc, q, n)
+    seg = torch.cumsum(dtc * a.float()[None, :, None, None], dim=-1)
+    last = seg[..., -1:]
+    g = torch.einsum("bcin,bcjn->bcij", cc, bc)                       # (1)
+    hi, lo = _split(torch.exp(last - seg)[..., None] * dtc[..., None] * xc)
+    delta = sum(torch.einsum("bhcjp,bcjn->bhcpn", t.float(), bc)      # (2)
+                for t in (hi, lo))
+    state = (torch.zeros(b, h, p, n) if init_state is None
+             else init_state.float())
+    entry = []
+    for c in range(nc):                                               # (3)
+        entry.append(state)
+        state = state * torch.exp(last[:, :, c])[..., None] + delta[:, :, c]
+    eh, el = _split(torch.stack(entry, dim=2))
+    y = sum(torch.einsum("bcin,bhcpn->bhcip", cc, t.float())          # (4)
+            for t in (eh, el)) * torch.exp(seg)[..., None]
+    causal = torch.ones(q, q, dtype=torch.bool).tril()
+    w = torch.where(causal, g[:, None] * torch.exp(
+        seg[..., :, None] - seg[..., None, :]) * dtc[..., None, :], 0.0)
+    wh, wl = _split(w)
+    y = y + sum(torch.einsum("bhcij,bhcjp->bhcip", t.float(), xc)
+                for t in (wh, wl))
+    return y.reshape(b, h, nc * q, p)[:, :, :s], state
+
+
+def _bf16_inputs(b, h, s, p, n, seed, layout="bhsp"):
+    """_inputs with x, B and C rounded to bfloat16 values (float32)."""
+    x, dt, a, bm, cm = _inputs(b, h, s, p, n, seed=seed, layout=layout)
+    rnd = [torch.from_numpy(t).bfloat16().float().numpy()
+           for t in (x, bm, cm)]
+    return rnd[0], dt, a, rnd[1], rnd[2]
+
+
+def test_split_holds_float32_operands():
+    # one bfloat16 rounding costs up to 2^-9 relative; hi + lo keeps 2^-17
+    v = torch.from_numpy(np.random.default_rng(0).standard_normal(10000)
+                         .astype(np.float32)) * 37.0
+    hi, lo = _split(v)
+    one = ((hi.float() - v).abs() / v.abs()).max()
+    two = ((hi.float() + lo.float() - v).abs() / v.abs()).max()
+    assert one > 2.0 ** -10 and two <= 2.0 ** -17
+
+
+@pytest.mark.parametrize("b,h,s,p,n,chunk", [
+    (1, 2, 128, 32, 16, 32),
+    (2, 4, 256, 64, 32, 64),
+    (1, 1, 64, 16, 8, 64),     # single chunk
+    (1, 3, 256, 64, 128, 128),  # mamba2_1_3b's head width, state, chunk
+])
+def test_four_step_plan_matches_pallas_kernel_and_recurrence(b, h, s, p, n,
+                                                             chunk):
+    arrays = _bf16_inputs(b, h, s, p, n, seed=s + n)
+    want = np.asarray(pallas_ssd_scan(*map(jnp.asarray, arrays), chunk=chunk,
+                                      interpret=True))
+    y, st = _ssd_four_steps(*_t(arrays), chunk=chunk)
+    np.testing.assert_allclose(y.numpy(), want, rtol=TOL, atol=TOL)
+    seq = np.asarray(ssd_scan_ref(*map(jnp.asarray, arrays)))
+    np.testing.assert_allclose(y.numpy(), seq, rtol=TOL, atol=TOL)
+    _, st_seq = ref.ssd_scan_sequential(*_t(arrays))
+    np.testing.assert_allclose(st.numpy(), st_seq.numpy(), rtol=TOL,
+                               atol=TOL)
+
+
+@pytest.mark.parametrize("s", [64, 100, 7])
+@pytest.mark.parametrize("init", [False, True])
+def test_four_step_plan_matches_model_ssd_chunked(s, init):
+    # the smoke config's chunk 16: a ragged tail at S 100 and S 7 < chunk,
+    # with and without an initial state, final state included
+    cfg = get_smoke_config("mamba2_1_3b")
+    b, h, p, n = 2, 3, 16, 16
+    x, dt, a, bm, cm = _bf16_inputs(b, h, s, p, n, seed=s, layout="bshp")
+    s0 = (np.random.default_rng(9).standard_normal((b, h, p, n))
+          .astype(np.float32) if init else None)
+    y_ref, st_ref = _ssd_chunked(
+        cfg, *map(jnp.asarray, (x, dt, a, bm, cm)),
+        init_state=None if s0 is None else jnp.asarray(s0))
+    y, st = _ssd_four_steps(
+        *_t((x.transpose(0, 2, 1, 3), dt.transpose(0, 2, 1), a, bm, cm)),
+        chunk=cfg.ssm_chunk,
+        init_state=None if s0 is None else torch.from_numpy(s0))
+    np.testing.assert_allclose(y.transpose(1, 2).numpy(), np.asarray(y_ref),
+                               rtol=MODEL_TOL, atol=MODEL_TOL)
+    np.testing.assert_allclose(st.numpy(), np.asarray(st_ref),
+                               rtol=MODEL_TOL, atol=MODEL_TOL)
+
+
+@pytest.mark.parametrize("s,chunk", [(37, 16), (5, 128), (300, 128)])
+def test_four_step_plan_ragged_matches_plain_and_sequential(s, chunk):
+    # a ragged last chunk and an initial state: y and the final state
+    # against the plain chunked version and the recurrence
+    x, dt, a, bm, cm = _t(_bf16_inputs(2, 3, s, 24, 12, seed=s))
+    s0 = torch.from_numpy(np.random.default_rng(s).standard_normal(
+        (2, 3, 24, 12)).astype(np.float32))
+    y, st = _ssd_four_steps(x, dt, a, bm, cm, chunk=chunk, init_state=s0)
+    for want_y, want_st in (
+            ref.ssd_scan(x, dt, a, bm, cm, chunk=chunk, init_state=s0),
+            ref.ssd_scan_sequential(x, dt, a, bm, cm, init_state=s0)):
+        torch.testing.assert_close(y, want_y, rtol=TOL, atol=TOL)
+        torch.testing.assert_close(st, want_st, rtol=TOL, atol=TOL)
+
+
+def test_scratch_size_counts_the_four_buffers():
+    # scores (B, nc, Q, Q), deltas (B, nc, H, P, N), entry states as hi and
+    # lo bfloat16 (the same bytes) and decays (B, H, nc), in float32 values;
+    # 16.8 MB of deltas at mamba2's prefill
+    assert kernel.scratch_size(1, 64, 1024, 64, 128, 128) == \
+        8 * 128 * 128 + 2 * 8 * 64 * 64 * 128 + 64 * 8
+    assert kernel.scratch_size(2, 3, 100, 16, 16, 16) == \
+        2 * 7 * (16 * 16 + 2 * 3 * 16 * 16 + 3)
