@@ -356,12 +356,26 @@ class Smoke:
         print(f"built {sorted(logs) or 'nothing (cached)'} in "
               f"{time.perf_counter() - t0:.1f} s")
         for name, log in logs.items():
-            for line in log.splitlines():
+            lines = log.splitlines()
+            entries = sum("Compiling entry function" in ln for ln in lines)
+            if entries > 16:
+                # one line per source of many instances (the bucketed fill's
+                # dtype x R x slots), and every one that spills
+                regs = [int(ln.split("Used ")[1].split()[0]) for ln in lines
+                        if "registers" in ln and "Used " in ln]
+                print(f"  {name}: {entries} kernels, {min(regs)}-"
+                      f"{max(regs)} registers a thread")
+            entry = ""
+            for line in lines:
                 if "Compiling entry function" in line:
                     entry = line.split("'")[1] if "'" in line else line
-                    print(f"  {name}: {entry[:100]}")
-                elif "registers" in line or "spill" in line:
+                    if entries <= 16:
+                        print(f"  {name}: {entry[:100]}")
+                elif entries <= 16 and ("registers" in line
+                                        or "spill" in line):
                     print(f"  {name}: {line.strip()}")
+                elif "spill" in line and " 0 bytes spill stores" not in line:
+                    print(f"  {name}: {entry[-60:]}: {line.strip()}")
 
     def paper(self):
         import numpy as np
@@ -465,15 +479,51 @@ class Smoke:
                 50)
             plain_ms = self.time_ms(lambda: ref.fill_event_levels_bucketed(
                 *args, steps=steps), 5)
+            how = kernel.plan(bmax, r, dtype, steps)
             print(f"  {label} buckets {k}x{bmax} R={r} steps={steps}: kernel "
                   f"{ms:.4f} ms ({eager_ms:.4f} ms back to back), plain "
                   f"{plain_ms:.3f} ms, bound "
                   f"{bound_ms:.4f} ms ({nbytes / 1e6:.2f} MB, "
-                  f"{flops / 1e6:.1f} MFLOP: bound by {bound_by})")
+                  f"{flops / 1e6:.1f} MFLOP: bound by {bound_by}); plan: "
+                  f"{how['threads']} threads, {how['slots']} slots a thread, "
+                  f"{how['passes']} passes an event ({how['path']})")
             self.rows[("psdsf_fill_bucketed", label)] = dict(
                 ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, max_abs_err=err,
-                shape=f"{k}x{bmax}x{r}")
+                shape=f"{k}x{bmax}x{r}", plan=how)
+            self.bucketed_plans(label, args, want, got, steps)
+
+    def bucketed_plans(self, label, args, want, first, steps):
+        """The bucketed kernel's three paths on one event (registers, shared
+        memory, streamed), forced through the wrapper's thresholds: each
+        must give the default plan's bits and hold the plain version, and
+        each is timed (graph replays)."""
+        if self.rehearse:
+            print("  rehearsal: no card, no path timings")
+            return
+        torch = self.torch
+        from repro_torch.kernels.psdsf_fill_bucketed import kernel
+        paths = {"registers": (kernel.REG_SLOTS, kernel.SMEM_STAGE_MAX),
+                 "shared": ((), kernel.SMEM_STAGE_MAX), "streamed": ((), 0)}
+        table = {}
+        for path, (reg, smem) in paths.items():
+            with mock.patch.object(kernel, "REG_SLOTS", reg), \
+                    mock.patch.object(kernel, "SMEM_STAGE_MAX", smem):
+                def run():
+                    return kernel.fill_event_levels_bucketed(*args,
+                                                             steps=steps)
+                got = run()
+                self.sync()
+                self.check(all(torch.equal(a, b) for a, b in zip(got, first)),
+                           f"bucketed {label} {path} differs from the "
+                           f"default plan")
+                err = max(float((a - b).abs().max())
+                          for a, b in zip(got, want))
+                ms = self.time_ms(run, 20, graph=True)
+            table[path] = ms
+            print(f"    {label} {path}: {ms:.4f} ms, max|kernel-plain|="
+                  f"{err:.3e}, bits equal to the default plan's")
+        self.paths.setdefault("bucketed_plans", {})[label] = table
 
     def vds_vs_plain(self):
         import numpy as np
@@ -505,6 +555,42 @@ class Smoke:
             ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by="bytes", max_abs_err=err, library_ms=library_ms,
             shape=f"{n}x{k}")
+        if self.rehearse:
+            print("  rehearsal: no card, no grid")
+            return
+        big = torch.as_tensor(self.big_gamma, dtype=torch.float32,
+                              device=self.device).contiguous()
+        xo_big = torch.as_tensor(rng.uniform(0.0, 10.0, big.shape[0]),
+                                 dtype=torch.float32, device=self.device)
+        sms = kernel._sm_count(self.device)
+        for gx, xg in ((g, xo), (big, xo_big)):
+            n_, k_ = gx.shape
+            shape = f"{n_}x{k_}"
+            self.compare_vds(kernel.vds_argmin(xg, gx), ref.vds_argmin(xg, gx),
+                             f"{shape} gamma")
+            t = self.time_ms(lambda: kernel.vds_argmin(xg, gx), 50,
+                             graph=True)
+            # the merge alone, on the slabs' partials of the plain version
+            grid = kernel.grid(n_, k_, sms)
+            rows = grid["rows"]
+            starts = range(0, n_, rows)
+            parts = [ref.vds_argmin(xg[r0:r0 + rows], gx[r0:r0 + rows])
+                     for r0 in starts]
+            pmin = torch.stack([p[0] for p in parts]).contiguous()
+            parg = torch.stack([p[1] + r0 for p, r0 in zip(parts, starts)])
+            parg = parg.to(torch.int32).contiguous()
+            self.compare_vds(kernel.merge_slabs(pmin, parg),
+                             ref.vds_argmin(xg, gx), f"{shape} merge alone")
+            merge_ms = self.time_ms(lambda: kernel.merge_slabs(pmin, parg),
+                                    50, graph=True)
+            print(f"    {shape}: grid {grid['tiles']} column tiles x "
+                  f"{grid['slabs']} slabs of {grid['rows']} rows on {sms} "
+                  f"SMs: {t:.4f} ms, the merge kernel alone {merge_ms:.4f} ms")
+            self.paths.setdefault("vds_grid", {})[shape] = dict(
+                grid, ms=t, merge_ms=merge_ms)
+            if gx is g:
+                self.rows[("psdsf_vds", "float32")].update(
+                    grid=grid, merge_ms=merge_ms)
 
     def compare_vds(self, got, want, what):
         mn, arg = got

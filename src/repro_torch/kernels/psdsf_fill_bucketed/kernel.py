@@ -21,11 +21,47 @@ from . import ref
 #: resource counts the CUDA source instantiates (its ``R`` template cases)
 MAX_RESOURCES = 8
 
-#: a server's bucket (Bmax * (R + 2) values) is staged in shared memory
-#: when it fits in this many bytes (the H100's 227 KB per block, less the
-#: kernel's static partials); a wider bucket is read from device memory in
-#: every pass instead
-SMEM_STAGE_MAX = 224 * 1024
+#: threads a block, one block a server (the CUDA source's ``NT``): a
+#: float64 thread holds about the bytes of slots a float32 thread does
+THREADS = {torch.float64: 128, torch.float32: 64}
+
+#: slots a thread the register path instantiates (its ``S`` cases): a
+#: bucket is held in registers for the whole event when it fits in
+#: THREADS * S slots for one of them whose S * (R + 2) values take at most
+#: REG_WORDS_MAX 32-bit registers a thread (the CUDA source's own bound)
+REG_SLOTS = (1, 2, 4, 6, 8, 12, 16)
+REG_WORDS_MAX = 96
+
+#: a bucket off the register path (Bmax * (R + 2) values) is staged in
+#: shared memory when it fits in this many bytes (the H100's 227 KB per
+#: block, less the kernel's static partials; the CUDA source's
+#: SMEM_DYN_MAX), and read from device memory in every pass otherwise
+SMEM_STAGE_MAX = 220 * 1024
+
+
+def plan(bmax: int, r: int, dtype, steps: int) -> dict:
+    """How the kernel runs one event on buckets of ``bmax`` slots: threads a
+    block, slots a thread in registers (0 off the register path), the path
+    (``registers``, ``shared`` or ``streamed``) and the passes an event
+    takes (the slope, bracket and output passes and one a bisection step).
+    The dict is cached and shared: read it, do not change it."""
+    return _plan(bmax, r, dtype, steps, REG_SLOTS, SMEM_STAGE_MAX)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(bmax, r, dtype, steps, reg_slots, smem_stage_max) -> dict:
+    threads = THREADS[dtype]
+    words = dtype.itemsize // 4
+    need = -(-bmax // threads)
+    fits = [s for s in reg_slots
+            if need <= s and s * (r + 2) * words <= REG_WORDS_MAX]
+    if fits:
+        slots, path = fits[0], "registers"
+    else:
+        slots = 0
+        path = "shared" if bmax * (r + 2) * words * 4 <= smem_stage_max \
+            else "streamed"
+    return dict(threads=threads, slots=slots, path=path, passes=3 + steps)
 
 
 def fill_event_levels_bucketed(floors, rate, dem_b, caps, frozen, saturated,
@@ -71,7 +107,7 @@ def fill_event_levels_bucketed(floors, rate, dem_b, caps, frozen, saturated,
     slope = torch.empty((k, r), dtype=dt, device=floors.device)
     if k == 0:
         return lvl, u, lsl, slope
-    stage = int(bmax * (r + 2) * floors.element_size() <= SMEM_STAGE_MAX)
+    how = plan(bmax, r, dt, steps)
     fn = _entry("psdsf_fill_bucketed_f64" if dt == torch.float64
                 else "psdsf_fill_bucketed_f32")
     with torch.cuda.device(floors.device):
@@ -79,8 +115,8 @@ def fill_event_levels_bucketed(floors, rate, dem_b, caps, frozen, saturated,
         err = fn(floors.data_ptr(), rate.data_ptr(), dem_b.data_ptr(),
                  caps.data_ptr(), frozen.data_ptr(), saturated.data_ptr(),
                  level.data_ptr(), lvl.data_ptr(), u.data_ptr(),
-                 lsl.data_ptr(), slope.data_ptr(), k, bmax, r, steps, stage,
-                 stream)
+                 lsl.data_ptr(), slope.data_ptr(), k, bmax, r, steps,
+                 how["slots"], int(how["path"] == "shared"), stream)
     if err:
         raise RuntimeError(f"psdsf_fill_bucketed kernel launch failed: CUDA "
                            f"error {err}")
@@ -94,7 +130,7 @@ fill_event_levels_bucketed.launches = 0
 @functools.lru_cache(maxsize=None)
 def _entry(symbol: str):
     fn = getattr(_build.load("psdsf_fill_bucketed"), symbol)
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 \
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

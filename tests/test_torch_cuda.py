@@ -203,6 +203,83 @@ def test_vds_kernel_matches_plain(cuda, n, k):
     torch.testing.assert_close(mn, pmn, rtol=1e-6, atol=0)
 
 
+def _vds_case(n, k, seed=0):
+    rng = np.random.default_rng(seed)
+    xo = rng.uniform(0, 10, n).astype(np.float32)
+    gamma = (rng.uniform(0, 2, (n, k))
+             * (rng.random((n, k)) > 0.4)).astype(np.float32)
+    gamma[:, 0] = 0.0                      # empty column: BIG, row 0
+    return xo, gamma
+
+
+def _vds_check(xo, g):
+    before = vds_kernel.vds_argmin.launches
+    mn, arg = vds_kernel.vds_argmin(xo, g)
+    torch.cuda.synchronize()
+    assert vds_kernel.vds_argmin.launches == before + 1
+    pmn, parg = vds_ref.vds_argmin(xo, g)
+    assert torch.equal(arg, parg)
+    assert torch.equal(mn, pmn)            # IEEE division: the same bits
+    return mn, arg
+
+
+def test_vds_kernel_ties_across_slabs(cuda):
+    n, k = 20000, 256
+    xo, gamma = _vds_case(n, k)
+    rows = vds_kernel.grid(n, k, vds_kernel._sm_count(cuda))["rows"]
+    assert rows < n
+    # the minimum 0 (a zero numerator) won at both sides of a slab
+    # boundary and in a later slab; no other row reaches it
+    ties = {1: (rows - 1, rows, 3 * rows), 2: (rows, 5 * rows),
+            3: (0, n - 1)}
+    tied = sorted({row for rows_ in ties.values() for row in rows_})
+    xo[tied] = 0.0
+    for col, rows_ in ties.items():
+        gamma[tied, col] = 0.0
+        gamma[list(rows_), col] = 4.0
+    xo_t = torch.as_tensor(xo, device=cuda)
+    mn, arg = _vds_check(xo_t, torch.as_tensor(gamma, device=cuda))
+    assert arg[:4].tolist() == [0, rows - 1, rows, 0]
+
+
+@pytest.mark.parametrize("n,k", [(20000, 130), (3000, 255), (50, 7),
+                                 (1, 1), (1, 300), (63, 4), (700, 1024)])
+def test_vds_kernel_ragged_shapes(cuda, n, k):
+    # K % 4 != 0 takes the scalar path; N below one slab (64 rows) writes
+    # the outputs from one slab; N = 1
+    xo, gamma = _vds_case(n, k, seed=n + k)
+    _vds_check(torch.as_tensor(xo, device=cuda),
+               torch.as_tensor(gamma, device=cuda))
+
+
+@pytest.mark.parametrize("n,k", [(20000, 256), (97, 8)])
+def test_vds_kernel_unaligned_base(cuda, n, k):
+    # gamma one float past a 16-byte boundary: contiguous, not float4-able
+    xo, gamma = _vds_case(n, k, seed=3)
+    buf = torch.empty(n * k + 1, dtype=torch.float32, device=cuda)
+    g = buf[1:].view(n, k)
+    g.copy_(torch.as_tensor(gamma))
+    assert g.is_contiguous() and g.data_ptr() % 16 != 0
+    _vds_check(torch.as_tensor(xo, device=cuda), g)
+
+
+def test_vds_merge_kernel_alone(cuda):
+    n, k = 20000, 256
+    xo, gamma = _vds_case(n, k, seed=4)
+    xo_t = torch.as_tensor(xo, device=cuda)
+    g = torch.as_tensor(gamma, device=cuda)
+    rows = vds_kernel.grid(n, k, vds_kernel._sm_count(cuda))["rows"]
+    parts = [vds_ref.vds_argmin(xo_t[r0:r0 + rows], g[r0:r0 + rows])
+             for r0 in range(0, n, rows)]
+    pmin = torch.stack([p[0] for p in parts]).contiguous()
+    parg = torch.stack([p[1] + r0 for p, r0 in
+                        zip(parts, range(0, n, rows))]).contiguous()
+    mn, arg = vds_kernel.merge_slabs(pmin, parg)
+    torch.cuda.synchronize()
+    pmn, pa = vds_ref.vds_argmin(xo_t, g)
+    assert torch.equal(mn, pmn) and torch.equal(arg, pa)
+
+
 def test_engine_solve_on_card_matches_cpu(cuda):
     prob = fig2_instance()
     kw = dict(fill="bisect", round="jacobi", tol=0.0, max_rounds=40)
@@ -262,18 +339,57 @@ def test_bucketed_kernel_matches_plain(cuda, k, bmax, r, dtype, bound):
 @pytest.mark.parametrize("dtype,bound", [(torch.float64, 1e-9),
                                          (torch.float32, 5e-6)])
 def test_bucketed_kernel_streaming_branch(cuda, monkeypatch, dtype, bound):
-    # the same event with staging switched off, at the pin's bucket shape
+    # the same event at the pin's bucket shape held in registers, staged in
+    # shared memory and streamed from device memory: bit-identical
     args = _bucketed_event_inputs(64, 692, 4, dtype, cuda)
     steps = 48 if dtype == torch.float64 else 26
-    staged = bucketed_kernel.fill_event_levels_bucketed(*args, steps=steps)
+    fill = bucketed_kernel.fill_event_levels_bucketed
+    assert bucketed_kernel.plan(692, 4, dtype, steps)["path"] == "registers"
+    in_registers = fill(*args, steps=steps)
+    monkeypatch.setattr(bucketed_kernel, "REG_SLOTS", ())
+    staged = fill(*args, steps=steps)
     monkeypatch.setattr(bucketed_kernel, "SMEM_STAGE_MAX", 0)
-    streamed = bucketed_kernel.fill_event_levels_bucketed(*args, steps=steps)
+    streamed = fill(*args, steps=steps)
     want = bucketed_ref.fill_event_levels_bucketed(*args, steps=steps)
     torch.cuda.synchronize()
-    for g_, s_, w_ in zip(staged, streamed, want):
-        assert torch.equal(g_, s_)
+    for r_, g_, s_, w_ in zip(in_registers, staged, streamed, want):
+        assert torch.equal(g_, s_) and torch.equal(r_, s_)
         scale = max(float(w_.abs().max()), 1.0)
         assert float((s_ - w_).abs().max()) <= bound * scale
+
+
+@pytest.mark.parametrize("steps", ["full", 5])
+@pytest.mark.parametrize("r", range(1, 9))
+@pytest.mark.parametrize("k,bmax", [(64, 692), (40, 662), (33, 130), (7, 1)])
+@pytest.mark.parametrize("dtype,bound", [(torch.float64, 1e-9),
+                                         (torch.float32, 5e-6)])
+def test_bucketed_kernel_plans_agree(cuda, monkeypatch, k, bmax, r, steps,
+                                     dtype, bound):
+    # every path (registers, shared memory, streamed) gives the same bits:
+    # one slot-to-thread map and one reduction order. Bmax 692 is not a
+    # multiple of the slots a thread, a float32 row of 662 is not a
+    # multiple of 16 bytes, and 5 steps stop the bisection early
+    steps = (48 if dtype == torch.float64 else 26) if steps == "full" \
+        else steps
+    args = _bucketed_event_inputs(k, bmax, r, dtype, cuda, seed=r)
+    want = bucketed_ref.fill_event_levels_bucketed(*args, steps=steps)
+    fill = bucketed_kernel.fill_event_levels_bucketed
+    first = None
+    reg_slots = bucketed_kernel.REG_SLOTS
+    for reg, smem in ((reg_slots, 220 * 1024), ((), 220 * 1024), ((), 0)):
+        monkeypatch.setattr(bucketed_kernel, "REG_SLOTS", reg)
+        monkeypatch.setattr(bucketed_kernel, "SMEM_STAGE_MAX", smem)
+        got = fill(*args, steps=steps)
+        torch.cuda.synchronize()
+        for name, g_, w_ in zip(("level", "usage", "local_slope", "slope"),
+                                got, want):
+            scale = max(float(w_.abs().max()), 1.0)
+            assert float((g_ - w_).abs().max()) <= bound * scale, \
+                (name, reg, smem)
+        if first is None:
+            first = got
+        assert all(torch.equal(a, b) for a, b in zip(first, got)), \
+            (reg, smem)
 
 
 def test_bucketed_kernel_rejects_bad_inputs(cuda):

@@ -90,3 +90,74 @@ def test_min_vds_guarded_all_inactive():
     mn, arg = min_vds_guarded(x, weights, gamma, active, device="cpu")
     assert (mn.numpy() == np.float32(3e38)).all()
     assert (arg.numpy() == 0).all()
+
+
+# -- the CUDA kernel's grid: user slabs merged by (value, row) ---------------
+
+def slab_merge(x_over_phi, gamma, rows, reverse=False):
+    """``ref.vds_argmin`` taken as the CUDA kernel takes it: per slab of
+    ``rows`` user rows the (min, lowest row), then the slabs merged by
+    "smaller value, or equal value and lower row" (in either order)."""
+    n = gamma.shape[0]
+    parts = []
+    for r0 in range(0, n, rows):
+        mn, arg = port_ref.vds_argmin(x_over_phi[r0:r0 + rows],
+                                      gamma[r0:r0 + rows])
+        parts.append((mn, arg + r0))
+    if reverse:
+        parts.reverse()
+    m, a = parts[0]
+    for pm, pa in parts[1:]:
+        better = (pm < m) | ((pm == m) & (pa < a))
+        m, a = torch.where(better, pm, m), torch.where(better, pa, a)
+    return m, a
+
+
+def _slab_inputs():
+    """``_inputs`` with ties that straddle slab boundaries: column 7 is
+    won by rows 31, 32 and 63 (one value), column 8 by rows 0 and 95."""
+    x_over_phi, gamma = _inputs()
+    for col, rows in ((7, (31, 32, 63)), (8, (0, 95))):
+        gamma[:, col] = np.where(gamma[:, col] > 0, 0.01, 0.0)
+        gamma[[20, 21], col] = 0.0        # their zero numerators stay out
+        for row in rows:
+            x_over_phi[row] = 0.5
+            gamma[row, col] = 4.0
+    gamma[:, 9] = np.where(gamma[:, 9] > 0, 1.0, 0.0)  # one value throughout
+    return x_over_phi, gamma
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("rows", [1, 7, 32, 33, 64, 95, 96, 500])
+def test_slab_merge_equals_plain(rows, reverse):
+    x_over_phi, gamma = _slab_inputs()
+    xo, g = torch.as_tensor(x_over_phi), torch.as_tensor(gamma)
+    mn, arg = slab_merge(xo, g, rows, reverse)
+    pmn, parg = port_ref.vds_argmin(xo, g)
+    assert torch.equal(mn, pmn) and torch.equal(arg, parg)
+    assert int(arg[7]) == 31 and int(arg[8]) == 0
+    assert int(arg[3]) == 0 and float(mn[3]) == pytest.approx(3e38)
+
+
+@pytest.mark.parametrize("rows", [5, 32, 96])
+def test_slab_merge_matches_pallas(rows):
+    x_over_phi, gamma = _slab_inputs()
+    want = pallas_vds_argmin(x_over_phi, gamma, interpret=True)
+    got = slab_merge(torch.as_tensor(x_over_phi), torch.as_tensor(gamma),
+                     rows)
+    _check(got, *want)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+
+
+@pytest.mark.parametrize("n,k,sms,want", [
+    (20000, 256, 132, dict(tiles=2, slabs=264, rows=76)),
+    (20000, 1024, 132, dict(tiles=8, slabs=66, rows=304)),
+    (96, 24, 132, dict(tiles=1, slabs=2, rows=48)),
+    (1, 1, 132, dict(tiles=1, slabs=1, rows=1)),
+    (63, 130, 132, dict(tiles=2, slabs=1, rows=63))])
+def test_vds_grid(n, k, sms, want):
+    from repro_torch.kernels.psdsf_vds.kernel import grid
+    got = grid(n, k, sms)
+    assert got == want
+    # every slab holds a row; the slabs cover the users
+    assert (got["slabs"] - 1) * got["rows"] < n <= got["slabs"] * got["rows"]
