@@ -36,7 +36,28 @@ Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
    to 1e-9 and against the plain-driven bucketed solve, and prints the
    layout build's host time and the dense-vs-bucketed walls;
 6. profiles 32 Jacobi rounds of each layout for the device-time breakdown;
-7. holds the attention kernels against their plain versions at
+7. drives the churn loop on the pin, counts set to 0 again: a
+   ``ChurnSimulator`` (``layout="auto"``, which must resolve to the buckets;
+   Jacobi rounds, bisect fill, 32 rounds at tol 1e-6, float32) stepped to
+   the t = 0 equilibrium and then through ``poisson_churn_events`` (horizon
+   12, 40 arrivals and 40 departures a tick, degrade rate 0.25, seed 2);
+   checks that the bucketed kernel launched 5 x the records' rounds and the
+   VDS kernel once a record, prints the ticks' solve times, rounds, events
+   and walls, holds the run against the same stream driven with the plain
+   versions and against a run on the dense layout (the dense kernel), and
+   profiles one more tick for the device-time breakdown;
+8. drives the tick layer on the pin: ``DistributedPSDSF`` (float32, bisect
+   fill, ``layout="auto"``) for one full tick, a departure and a tick over
+   the departed user's servers, then ``min_vds`` (one VDS launch), held
+   against the same calls on the CPU;
+9. drives ``psdsf_resolve_batched`` over four scenarios of the pin, each
+   with one server degraded to 0.5 and its restricted sweep over that
+   server and the servers its users are eligible on, warm from the float64
+   fixed point of step 4 (bucketed, Jacobi, bisect): the bucketed kernel
+   must launch 5 x the rounds, and each scenario must equal its own
+   unbatched warm-started solve (the same two phases through the bucketed
+   core) to 1e-9 with equal round counts;
+10. holds the attention kernels against their plain versions at
    qwen3_1_7b's widths (16 query and 8 kv heads, head_dim 128, bfloat16):
    ``flash_attention`` at S 1,024, a ragged S 1,000, 512 and 128 (each call
    must take its Hopper body: TMA and wgmma), ``decode_attention`` over 8
@@ -46,7 +67,7 @@ Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
    calls, in turns (kernel, SDPA, SDPA, kernel); then times the Hopper
    flash body at both of its block sizes (64 and 128 query rows) at S 128
    to 1,024 beside the one its wrapper picks;
-8. drives the serving path with every launch count set to 0: a
+11. drives the serving path with every launch count set to 0: a
    ``ServingEngine`` on the full qwen3_1_7b config in bfloat16 (params from
    the port's seeded init on the card), 8 slots of 2,048 rows, 16 requests
    from two tenants (gold weight 2, free weight 1) with prompts of 128-1,024
@@ -54,23 +75,23 @@ Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
    logits and that every prefill launched ``flash_attention`` (its Hopper
    body) and every decode step ``decode_attention`` once per layer; then
    profiles a short serving window for the device's idle share;
-9. runs a 2-layer full-width model on the card with the kernels and again
+12. runs a 2-layer full-width model on the card with the kernels and again
    with the plain versions, on the same params and tokens, and holds the
    prefill and decode logits of the two runs together;
-10. holds ``ssd_scan`` against its plain version (float32 on the card) at
+13. holds ``ssd_scan`` against its plain version (float32 on the card) at
    mamba2_1_3b's prefill shape (B 1, S 1,024, 64 heads x 64, N 128, chunk
    128) in bfloat16, at a ragged S 1,000, at S 512 and in float32, called
    as the model calls it (``ops.ssd_chunked`` on slices of one conv
    output, y written through strides): y and the final state; times both
    (no single PyTorch call computes it);
-11. drives the Mamba-2 serving path the same way, counts set to 0 again:
+14. drives the Mamba-2 serving path the same way, counts set to 0 again:
    a ``ServingEngine`` on the full mamba2_1_3b config in bfloat16, 8
    slots, the same 16 requests' shape of traffic; checks completion,
    token ids, finite logits and one ``ssd_scan`` launch per layer and
    prefill; profiles a short window for the idle share; then holds a
    2-layer full-width model's logits with the kernel against the plain
    version's;
-12. prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and as its
+15. prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and as its
    last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the last line. Without a CUDA device,
@@ -82,6 +103,7 @@ configs), skips what needs the card, and never prints a result line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -104,6 +126,15 @@ PEAK_BF16_FLOPS = 989e12
 F64_ATOL = 1e-9            # float64 parity bound (tests/test_torch_*.py)
 F32_REL = 5e-6             # float32 bound, times max(1, |plain|)
 VDS_RTOL = 1e-6            # VDS minimum; argmins must be equal
+#: float32 paths on the card vs the same path with the plain versions, on
+#: the CPU or on another layout (churn: ~13 re-solves, ~400 Jacobi rounds
+#: of float32 fills; tick: one bisect fill a server): each event's kernel
+#: agrees with its plain version to a few float32 ulps (F32_REL holds it to
+#: 5e-6), and the damped sweep carries such a difference forward without
+#: amplifying it, so ~400 rounds of a few ulps (1.2e-7 each) stay under
+#: 1e-4 x max(1, max|x|); min_vds (a ratio of x) within 1e-4 relative;
+#: round counts, argmins and bottleneck servers equal
+PATH_F32_REL = 1e-4
 #: attention kernel (bfloat16 out) vs plain version in float32: the kernel
 #: rounds its float32 result to bfloat16 once (2^-9 relative) after summing
 #: in another order (flash on the tensor cores also rounds the softmax
@@ -818,6 +849,342 @@ class Smoke:
         for us, key, count in host[:5]:
             print(f"    {us / 1e3:9.3f} ms {count:6d}x  {key[:90]}")
 
+    # -- the allocator's consumers: churn loop, tick layer, batched resolve -
+    def churn_stream(self, layout, plain=False):
+        """The churn phase's stream on the pin: ``ChurnSimulator`` (Jacobi
+        rounds, bisect fill, 32 rounds at tol 1e-6, float32) stepped to the
+        t = 0 equilibrium, then through ``poisson_churn_events`` (seed 2)
+        one batch of simultaneous events at a time, each step timed with
+        its telemetry. ``plain`` drives it with the kernels' plain versions
+        (no launch). Returns (simulator, records, step walls in s)."""
+        import itertools
+        from repro_torch.sched import ChurnSimulator, poisson_churn_events
+        pin = self.pin
+        horizon, rate = (4, 3.0) if self.rehearse else (12, 40.0)
+        events = poisson_churn_events(
+            pin.num_users, pin.num_servers, horizon=horizon,
+            arrival_rate=rate, departure_rate=rate, degrade_rate=0.25,
+            seed=2)
+        batches = [(0.0, [])] + [(t, list(evs)) for t, evs in
+                                 itertools.groupby(events, lambda e: e.time)]
+        records, walls = [], []
+        with (self.plain_versions() if plain else contextlib.nullcontext()):
+            sim = ChurnSimulator(pin, layout=layout, fill="bisect",
+                                 round="jacobi", max_rounds=32, tol=1e-6,
+                                 device=self.device)
+            for t, evs in batches:
+                self.sync()
+                t0 = time.perf_counter()
+                records.append(sim.step(evs, t))
+                self.sync()
+                walls.append(time.perf_counter() - t0)
+        return sim, records, walls
+
+    @staticmethod
+    def plain_versions():
+        """Every allocator kernel's wrapper swapped for its plain version
+        where the ops modules call it, so a path runs with no launch."""
+        from repro_torch.kernels.psdsf_fill import ops as fill_ops
+        from repro_torch.kernels.psdsf_fill import ref as fill_ref
+        from repro_torch.kernels.psdsf_fill_bucketed import ops as b_ops
+        from repro_torch.kernels.psdsf_fill_bucketed import ref as b_ref
+        from repro_torch.kernels.psdsf_vds import ops as vds_ops
+        from repro_torch.kernels.psdsf_vds import ref as vds_ref
+        stack = contextlib.ExitStack()
+        for module, name, plain in (
+                (fill_ops, "fill_event_levels", fill_ref.fill_event_levels),
+                (b_ops, "fill_event_levels_bucketed",
+                 b_ref.fill_event_levels_bucketed),
+                (vds_ops, "vds_argmin", vds_ref.vds_argmin)):
+            stack.enter_context(mock.patch.object(module, name, plain))
+        return stack
+
+    def check_launches(self, launches, want, what):
+        """On the card: each kernel of ``want`` launched exactly that many
+        times on the path, every other kernel never (a rehearsal launches
+        nothing)."""
+        if self.rehearse:
+            return
+        for name, count in launches.items():
+            self.check(count == want.get(name, 0),
+                       f"{name} launched {count} times on the {what}, "
+                       f"expected {want.get(name, 0)}")
+
+    def compare_streams(self, got, want, what):
+        """Two runs of the churn stream: equal rounds and bottleneck servers
+        record by record, final x within PATH_F32_REL x max(1, max|x|),
+        every record's min_vds within PATH_F32_REL relative."""
+        import numpy as np
+        (sim_a, rec_a, _), (sim_b, rec_b, _) = got, want
+        self.check([r.rounds for r in rec_a] == [r.rounds for r in rec_b],
+                   f"{what}: round counts differ")
+        self.check([r.bottleneck_server for r in rec_a]
+                   == [r.bottleneck_server for r in rec_b],
+                   f"{what}: bottleneck servers differ")
+        scale = max(1.0, float(np.abs(sim_b.x).max()))
+        dx = float(np.abs(sim_a.x - sim_b.x).max())
+        vds = max(abs(a.min_vds - b.min_vds) / abs(b.min_vds)
+                  for a, b in zip(rec_a, rec_b))
+        print(f"  {what}: rounds and bottleneck servers equal over "
+              f"{len(rec_a)} records, max|dx|={dx:.3e} (bound "
+              f"{PATH_F32_REL * scale:.1e}), min_vds rel {vds:.2e} (bound "
+              f"{PATH_F32_REL:.0e})")
+        self.check(dx <= PATH_F32_REL * scale and vds <= PATH_F32_REL,
+                   f"{what}: x or min_vds out of bounds")
+
+    def churn_path(self):
+        """Drive the churn loop at the pin with every count set to 0 just
+        before it and read just after; check the launches against the
+        rounds, print the ticks, then hold the run against the same stream
+        driven with the plain versions and against a dense-layout run."""
+        import numpy as np
+        counters = wrappers()
+        reset_counts(counters)
+        run = self.churn_stream("auto")
+        launches = {name: fn.launches for name, fn in counters.items()}
+        sim, records, walls = run
+        rounds = [r.rounds for r in records]
+        print(f"  layout={sim.layout}, bucket_max={records[0].bucket_max}, "
+              f"{len(records)} records (t = 0 and {len(records) - 1} event "
+              f"ticks), rounds {rounds}, launches {launches}")
+        self.check(sim.layout == "bucketed", "churn layout='auto' resolved "
+                                             f"to {sim.layout}")
+        # R = 4 (RDM): five saturation events, one launch each, a round
+        self.check_launches(launches, {"psdsf_fill_bucketed": 5 * sum(rounds),
+                                       "psdsf_vds": len(records)},
+                            "churn path")
+        ticks = records[1:]
+        solve = np.array([r.solve_ms for r in ticks])
+        print(f"  event ticks: solve_ms median {np.median(solve):.1f} max "
+              f"{solve.max():.1f}; warm rounds median "
+              f"{np.median([r.rounds for r in ticks]):.0f} max "
+              f"{max(r.rounds for r in ticks)}; events a tick median "
+              f"{np.median([r.n_events for r in ticks]):.0f}; tick wall with "
+              f"telemetry median {np.median(walls[1:]) * 1e3:.1f} ms max "
+              f"{max(walls[1:]) * 1e3:.1f} ms; t = 0 solve "
+              f"{records[0].solve_ms:.1f} ms ({records[0].rounds} rounds)")
+        x = sim.x
+        self.check(bool(np.isfinite(x).all()) and float(x.min()) >= 0.0,
+                   "churn x not finite or negative")
+        caps = sim.allocation().problem.capacities      # degrade-scaled
+        over = float((np.einsum("nk,nr->kr", x, self.pin.demands)
+                      - caps).max())
+        print(f"  final allocation: max(usage - capacity) = {over:.3e}")
+        # float32 usage sums over a server's ~700 users
+        self.check(over <= PATH_F32_REL * caps.max(),
+                   "churn allocation infeasible")
+        self.check(all(np.isfinite(r.min_vds) for r in records),
+                   "churn min_vds not finite")
+        self.paths["churn"] = dict(
+            launches=launches, records=len(records), rounds=rounds,
+            events=[r.n_events for r in records],
+            solve_ms=[r.solve_ms for r in records],
+            tick_wall_ms=[w * 1e3 for w in walls],
+            min_vds=[r.min_vds for r in records],
+            bottleneck=[r.bottleneck_server for r in records])
+        self.compare_streams(run, self.churn_stream("auto", plain=True),
+                             "kernel-driven vs plain-driven churn")
+        reset_counts(counters)
+        dense = self.churn_stream("dense")
+        dense_launches = {name: fn.launches for name, fn in counters.items()}
+        d_rounds = [r.rounds for r in dense[1]]
+        print(f"  dense layout: launches {dense_launches}, tick wall median "
+              f"{np.median(dense[2][1:]) * 1e3:.1f} ms")
+        self.check_launches(dense_launches, {"psdsf_fill": 5 * sum(d_rounds),
+                                             "psdsf_vds": len(dense[1])},
+                            "dense churn path")
+        self.paths["churn_dense"] = dict(
+            launches=dense_launches, rounds=d_rounds,
+            tick_wall_ms=[w * 1e3 for w in dense[2]])
+        self.compare_streams(dense, run, "dense vs bucketed churn")
+        self.profile_churn_tick(sim)      # after the comparisons: it steps
+
+    def profile_churn_tick(self, sim):
+        """One more churn tick of ``sim`` (the events of the stream's seed
+        3, first tick) under torch.profiler: wall, device busy, each
+        allocator kernel's share, idle share, and the top host ops."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        from repro_torch.sched import poisson_churn_events
+        pin = self.pin
+        rate = 3.0 if self.rehearse else 40.0
+        events = poisson_churn_events(pin.num_users, pin.num_servers,
+                                      horizon=1, arrival_rate=rate,
+                                      departure_rate=rate, degrade_rate=1.0,
+                                      seed=3)
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        with profile(activities=acts):        # the first start is slow
+            pass
+        self.sync()
+        t0 = time.perf_counter()
+        with profile(activities=acts) as prof:
+            rec = sim.step(events, 100.0)
+            self.sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = [(float(e.self_device_time_total), e.key, e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(r[0] for r in rows) / 1e3
+        if busy_ms <= 0:
+            print("  profiled churn tick: the profiler saw no device time: "
+                  "not measured")
+            return
+        share = {name: sum(r[0] for r in rows if key in r[1]) / 1e3
+                 for name, key in (("psdsf_fill_bucketed",
+                                    "fill_bucketed_kernel"),
+                                   ("psdsf_vds", "vds_"))}
+        print(f"  profiled churn tick ({len(events)} events, {rec.rounds} "
+              f"rounds): wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+              f"({', '.join(f'{k} {v:.2f} ms' for k, v in share.items())}), "
+              f"idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}")
+        for us, key, count in sorted(rows, reverse=True)[:6]:
+            print(f"    {us / 1e3:9.3f} ms {count:6d}x  {key[:90]}")
+        host = sorted(((float(e.self_cpu_time_total), e.key, e.count)
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CPU), reverse=True)
+        for us, key, count in host[:6]:
+            print(f"    host {us / 1e3:9.3f} ms {count:6d}x  {key[:80]}")
+        self.paths["churn"]["profiled_tick"] = dict(
+            wall_ms=wall_ms, busy_ms=busy_ms, kernels_ms=share,
+            idle=max(0.0, 1 - busy_ms / wall_ms), rounds=rec.rounds)
+
+    def tick_path(self):
+        """Drive ``DistributedPSDSF`` (float32, bisect fill, layout auto) at
+        the pin: one full tick, a departure and a tick over that user's
+        servers, then ``min_vds`` (one ``psdsf_vds`` launch); hold x and the
+        telemetry to the same calls on the CPU."""
+        import numpy as np
+        from repro_torch.core.dynamic import DistributedPSDSF
+        pin = self.pin
+        user = 0
+        servers = np.nonzero(self.pin_gamma[user] > 0)[0]
+
+        def drive(device):
+            sim = DistributedPSDSF(pin, engine="torch", precision="fast",
+                                   fill="bisect", layout="auto",
+                                   device=device)
+            walls = []
+            for call in (lambda: sim.tick(),
+                         lambda: sim.set_active(user, False),
+                         lambda: sim.tick(servers=servers)):
+                t0 = time.perf_counter()
+                call()
+                walls.append(time.perf_counter() - t0)
+            return sim, sim.min_vds(), walls
+
+        counters = wrappers()
+        reset_counts(counters)
+        sim, (mn, arg), walls = drive(self.device)
+        launches = {name: fn.launches for name, fn in counters.items()}
+        print(f"  layout={sim.layout}, bucket_max={sim.bucket_max}: full "
+              f"tick {walls[0]:.3f} s, tick over user {user}'s "
+              f"{len(servers)} servers {walls[2]:.3f} s, launches {launches}")
+        self.check_launches(launches, {"psdsf_vds": 1}, "tick path")
+        self.check(not sim.x[user].any(), "the departed user kept tasks")
+        cpu, (mn_c, arg_c), walls_c = drive("cpu")
+        scale = max(1.0, float(np.abs(cpu.x).max()))
+        dx = float(np.abs(sim.x - cpu.x).max())
+        rel = float((np.abs(mn - mn_c) / np.abs(mn_c)).max())
+        # an argmin may differ only between users whose normalized VDS lie
+        # within the bound: the card's pick, valued on the CPU's x, must
+        # attain the CPU's minimum to PATH_F32_REL
+        cols = np.arange(pin.num_servers)
+        xo = cpu.x.sum(axis=1) / pin.weights
+        picked = xo[arg] / self.pin_gamma[arg, cols]
+        moved = int((arg != arg_c).sum())
+        ties_ok = bool(np.all(picked <= mn_c * (1 + PATH_F32_REL))
+                       and cpu.active[arg].all())
+        print(f"  card vs CPU: max|dx|={dx:.3e} (bound "
+              f"{PATH_F32_REL * scale:.1e}), min_vds rel {rel:.2e}, argmin "
+              f"differs on {moved} of {len(arg)} servers, each a tie within "
+              f"the bound: {ties_ok}; CPU full tick {walls_c[0]:.3f} s")
+        self.check(dx <= PATH_F32_REL * scale and rel <= PATH_F32_REL
+                   and ties_ok, "tick path on the card differs from the CPU")
+        self.paths["tick"] = dict(launches=launches, full_tick_s=walls[0],
+                                  partial_tick_s=walls[2],
+                                  cpu_full_tick_s=walls_c[0])
+
+    def batched_path(self):
+        """``psdsf_resolve_batched`` over four scenarios of the pin, each
+        with one server degraded to 0.5, from the float64 fixed point of
+        the main path (bucketed, Jacobi, bisect), counts set to 0 just
+        before and read just after; each scenario is held to its own
+        unbatched warm-started solve, the same two phases through the
+        bucketed core alone."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch.core.batched import (batch_problems,
+                                              psdsf_resolve_batched)
+        from repro_torch.core.psdsf_torch import _solve_core_bucketed_torch
+        from repro_torch.core.types import AllocationProblem
+        pin, lay = self.pin, self.pin_layout
+        k = pin.num_servers
+        degraded = [j * k // 4 for j in range(4)]
+        probs, rows = [], []
+        for s in degraded:
+            caps = pin.capacities.copy()
+            caps[s] *= 0.5
+            probs.append(AllocationProblem(pin.demands, caps, pin.weights,
+                                           pin.eligibility))
+            rows.append(np.unique(np.concatenate(
+                [[s], lay.servers_of(lay.bucket_users(s))])).astype(np.int32))
+        width = max(len(r) for r in rows)
+        srv = np.stack([np.pad(r, (0, width - len(r)), mode="edge")
+                        for r in rows])
+        bat = batch_problems(probs, dtype=np.float64, device=self.device)
+        arrays = [bat[key] for key in ("demands", "capacities", "weights",
+                                       "gamma")]
+        x0 = np.stack([self.x_dense] * len(probs))
+        idx = np.stack([lay.indices] * len(probs))
+        mask = np.stack([lay.mask] * len(probs))
+        kw = dict(max_rounds=16, tol=1e-6, fill="bisect", round="jacobi",
+                  layout="bucketed")
+        counters = wrappers()
+        reset_counts(counters)
+        self.sync()
+        t0 = time.perf_counter()
+        x, r_restr, r_full, resid = psdsf_resolve_batched(
+            *arrays, x0, srv, buckets=(idx, mask), device=self.device, **kw)
+        self.sync()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        total = int(r_restr.sum() + r_full.sum())
+        print(f"  B={len(probs)} scenarios (servers {degraded} at 0.5; "
+              f"{srv.shape[1]} servers a restricted sweep): {wall:.3f} s, "
+              f"restricted rounds {r_restr.tolist()}, full rounds "
+              f"{r_full.tolist()}, residual "
+              f"{[f'{float(v):.2e}' for v in resid]}, launches {launches}")
+        self.check_launches(launches, {"psdsf_fill_bucketed": 5 * total},
+                            "batched re-solve")
+        idx_t = torch.as_tensor(lay.indices, device=self.device)
+        mask_t = torch.as_tensor(lay.mask, device=self.device)
+        worst = 0.0
+        for j, row in enumerate(rows):
+            d, c, w, g = (a[j] for a in arrays)
+            x_init = torch.as_tensor(self.x_dense, device=self.device)
+            core = dict(fill="bisect", round_mode="jacobi")
+            out1 = _solve_core_bucketed_torch(
+                d, c, w, g, x_init, idx_t, mask_t, "rdm", 16, 1e-6,
+                servers=row, alpha0=0.3, **core)
+            out2 = _solve_core_bucketed_torch(
+                d, c, w, g, out1[0], idx_t, mask_t, "rdm", 16, 1e-6,
+                alpha0=0.02, **core)
+            diff = float((x[j] - out2[0]).abs().max())
+            worst = max(worst, diff)
+            self.check(out1[1] == int(r_restr[j]) and out2[1] == int(r_full[j])
+                       and diff <= F64_ATOL,
+                       f"scenario {j} differs from its unbatched solve")
+            self.check(bool(torch.isfinite(x[j]).all())
+                       and float(x[j].min()) >= 0.0,
+                       f"scenario {j} x not finite or negative")
+        print(f"  each scenario vs its unbatched warm-started solve: round "
+              f"counts equal, max|dx|={worst:.3e} (bound {F64_ATOL:.0e})")
+        self.paths["batched"] = dict(
+            launches=launches, wall_s=wall, restricted=r_restr.tolist(),
+            full=r_full.tolist(), servers_a_sweep=int(srv.shape[1]))
+
     # -- attention kernels and the serving path -----------------------------
     def llm_config(self, layers=None, arch="qwen3_1_7b"):
         """``arch`` at full width in bfloat16 (its smoke config in a
@@ -1476,6 +1843,10 @@ def main(argv=None) -> int:
         if not smoke.failed:
             smoke.phase("main path, sparse", smoke.sparse_path)
         smoke.phase("profile", smoke.profile)
+        smoke.phase("churn path", smoke.churn_path)
+        smoke.phase("tick path", smoke.tick_path)
+        if "main path" not in smoke.failed:
+            smoke.phase("batched re-solve", smoke.batched_path)
     smoke.phase("flash_attention vs plain", smoke.flash_vs_plain)
     smoke.phase("flash tile plans", smoke.flash_plans)
     smoke.phase("decode_attention vs plain", smoke.decode_vs_plain)

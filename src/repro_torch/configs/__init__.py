@@ -26,20 +26,21 @@ ARCH_IDS = (
 
 #: archs the port can run, and what each other arch waits for
 PORTED = ("qwen3_1_7b", "mamba2_1_3b")
+_MOE = "(ROADMAP.md queue 1 item 7, MoE)"
+_DENSE = "(ROADMAP.md queue 1 item 8, remaining dense configs)"
+_MROPE = "(ROADMAP.md queue 1 item 9, M-RoPE and the frontend stubs)"
 WAITS_FOR = {
-    "jamba_v0_1_52b": "models/moe (ROADMAP, modules still to port)",
-    "granite_moe_3b_a800m": "models/moe (ROADMAP queue 1 item 11)",
-    "grok_1_314b": "models/moe (ROADMAP queue 1 item 11)",
-    "qwen2_vl_72b": "apply_mrope and the vision frontend stub (ROADMAP "
-                    "queue 1 item 11)",
-    "musicgen_large": "the audio frontend stub and the GELU-MLP config "
-                      "(ROADMAP queue 1 item 11)",
-    "gemma_2b": "head_dim 256 in the attention kernels, which take head_dim "
-                "<= 128 (ROADMAP queue 1 item 11)",
-    "qwen2_5_32b": "its config and parity tests at qkv_bias=True (ROADMAP "
-                   "queue 1 item 11)",
-    "granite_3_8b": "its config and parity tests at untied embeddings "
-                    "(ROADMAP queue 1 item 11)",
+    "jamba_v0_1_52b": f"models/moe {_MOE}",
+    "granite_moe_3b_a800m": f"models/moe {_MOE}",
+    "grok_1_314b": f"models/moe {_MOE}",
+    "qwen2_vl_72b": f"apply_mrope and the vision frontend stub {_MROPE}",
+    "musicgen_large": f"the audio frontend stub and the GELU-MLP config "
+                      f"{_MROPE}",
+    "gemma_2b": f"head_dim 256 in the attention kernels, which take "
+                f"head_dim <= 128 {_DENSE}",
+    "qwen2_5_32b": f"its config and parity tests at qkv_bias=True {_DENSE}",
+    "granite_3_8b": f"its config and parity tests at untied embeddings "
+                    f"{_DENSE}",
 }
 
 # public --arch ids (dashes) -> module names

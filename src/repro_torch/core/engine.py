@@ -28,7 +28,8 @@ from .solveinfo import SolveInfo, fill_iter_budget, stranded_fraction
 from .types import Allocation, AllocationProblem
 
 PSDSF_MECHANISMS = ("psdsf-rdm", "psdsf-tdm")
-#: the reference's other registered mechanisms (ROADMAP.md queue 1 item 8)
+#: the reference's other registered mechanisms (ROADMAP.md queue 1 item 5,
+#: baselines)
 BASELINE_MECHANISMS = ("cdrf", "cdrfh", "drf", "tsf", "uniform")
 BACKENDS = ("torch", "numpy")
 
@@ -55,7 +56,7 @@ def solve(problem: AllocationProblem, mechanism: str = "psdsf-rdm",
     if mechanism in BASELINE_MECHANISMS:
         raise NotImplementedError(
             f"mechanism {mechanism!r} is not ported to repro_torch yet: "
-            f"ROADMAP.md queue 1 item 8 (baselines)")
+            f"ROADMAP.md queue 1 item 5 (baselines)")
     if mechanism not in PSDSF_MECHANISMS:
         raise ValueError(f"unknown allocator {mechanism!r}; registered: "
                          f"{', '.join(sorted(PSDSF_MECHANISMS + BASELINE_MECHANISMS))}")
@@ -64,7 +65,8 @@ def solve(problem: AllocationProblem, mechanism: str = "psdsf-rdm",
     if backend == "numpy":
         raise NotImplementedError(
             "backend='numpy' is not ported to repro_torch: the numpy "
-            "solvers stay in the reference (ROADMAP.md queue 1 item 3)")
+            "solvers stay in the reference (ROADMAP.md, north star: only code "
+            "written in JAX or Pallas is ported)")
     mode = "rdm" if mechanism == "psdsf-rdm" else "tdm"
     check_axes(mode=mode, placement=placement, fill=fill, round=round,
                layout=layout, accel=accel)

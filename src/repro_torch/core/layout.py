@@ -12,7 +12,8 @@ adjacency. ``resolve_layout`` maps the public ``layout="auto"`` knob to
 "dense" or "bucketed" by a density threshold, as in the reference.
 
 The reference's ``from_cluster`` builds from a ``sched.cluster.Cluster``,
-which the port does not have yet (ROADMAP.md queue 1 item 10).
+which the port does not have yet (ROADMAP.md queue 1 item 6, scheduler
+consumers).
 """
 from __future__ import annotations
 

@@ -51,7 +51,7 @@ _TOL = 1e-9
 #: values of the reference's axes that this slice does not port yet, with
 #: the ROADMAP.md item that will
 _NOT_PORTED = {
-    ("placement", "headroom"): "ROADMAP.md queue 1 item 6 (placement cores)",
+    ("placement", "headroom"): "ROADMAP.md queue 1 item 4 (placement mirrors)",
 }
 #: history depth of the Anderson mixer (``placement.ANDERSON_MEMORY`` in
 #: the reference)

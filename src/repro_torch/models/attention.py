@@ -34,15 +34,18 @@ def check_supported(cfg: ModelConfig):
     if cfg.rope_type not in ("rope", "none"):
         raise NotImplementedError(
             f"{cfg.name}: rope_type={cfg.rope_type!r} (M-RoPE) waits for "
-            f"qwen2_vl_72b (ROADMAP queue 1 item 11)")
+            f"qwen2_vl_72b (ROADMAP.md queue 1 item 9, M-RoPE and the "
+            f"frontend stubs)")
     if cfg.sliding_window:
         raise NotImplementedError(
             f"{cfg.name}: sliding-window attention is not in the port's "
-            f"kernels yet (ROADMAP queue 1 item 11)")
+            f"kernels yet (no config the repository ships sets it; ROADMAP.md "
+            f"queue 1 item 8, remaining dense configs)")
     if cfg.cache_dtype:
         raise NotImplementedError(
             f"{cfg.name}: a {cfg.cache_dtype} KV cache is not in the port's "
-            f"kernels yet (ROADMAP queue 1 item 11)")
+            f"kernels yet (no config the repository ships sets it; ROADMAP.md "
+            f"queue 1 item 8, remaining dense configs)")
 
 
 class Attention(torch.nn.Module):

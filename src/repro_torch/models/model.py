@@ -45,7 +45,8 @@ class Transformer(torch.nn.Module):
         if cfg.frontend != "none":
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.frontend} frontend waits for its "
-                f"config (ROADMAP queue 1 item 11)")
+                f"config (ROADMAP.md queue 1 item 9, M-RoPE and the frontend "
+                f"stubs)")
         self.cfg = cfg
         dtype = dtype_of(cfg.param_dtype)
         self.embed = torch.nn.Parameter(

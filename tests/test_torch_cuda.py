@@ -886,3 +886,115 @@ def test_ssd_bf16_model_layout_at_prefill_width(cuda, offset):
         cm.float(), chunk=128)
     _ssd_close(y.transpose(1, 2), want_y, SSD_TOL[torch.bfloat16], "y")
     _ssd_close(state, want_state, SSD_TOL[torch.float32], "final state")
+
+
+# -- the allocator's consumers: churn loop, tick layer, batched re-solve ----
+
+#: a float32 path on the card vs the same path on the CPU: each fill event
+#: agrees to a few float32 ulps, and the damped sweep carries that forward
+#: without amplifying it (chip_smoke.py's PATH_F32_REL)
+PATH_F32_REL = 1e-4
+
+
+def _churn_stream():
+    from repro_torch.sched import ChurnEvent
+    return [ChurnEvent(1.0, "departure", user=10),
+            ChurnEvent(2.0, "departure", user=20),
+            ChurnEvent(3.0, "arrival", user=1),
+            ChurnEvent(4.0, "degrade", server=2, scale=0.5),
+            ChurnEvent(5.0, "restore", server=2)]
+
+
+@pytest.mark.parametrize("layout", ["dense", "bucketed"])
+def test_churn_stream_on_card_matches_cpu(cuda, layout):
+    # an arrival outside the layout rebuilds it; every record launches the
+    # VDS kernel once and every Jacobi round one fill kernel an event
+    from repro_torch.sched import ChurnSimulator
+    prob, _ = sparse_cell_instance(num_users=300, num_servers=64,
+                                   density=0.05, cells=8, multi_frac=0.2,
+                                   seed=4)
+    active = np.ones(prob.num_users, dtype=bool)
+    active[:3] = False
+    counter = (bucketed_kernel.fill_event_levels_bucketed
+               if layout == "bucketed" else fill_kernel.fill_event_levels)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        sim = ChurnSimulator(prob, initial_active=active.copy(),
+                             layout=layout, fill="bisect", round="jacobi",
+                             max_rounds=24, tol=0.0, device=device)
+        before = (counter.launches, vds_kernel.vds_argmin.launches)
+        recs = [sim.step([], 0.0)] + sim.run(_churn_stream())
+        launched = (counter.launches - before[0],
+                    vds_kernel.vds_argmin.launches - before[1])
+        runs[device] = (sim, recs, launched)
+    (gpu, r_gpu, l_gpu), (cpu, r_cpu, l_cpu) = runs["cuda"], runs["cpu"]
+    assert l_gpu == (5 * sum(r.rounds for r in r_gpu), len(r_gpu))
+    assert l_cpu == (0, 0)
+    assert [r.rounds for r in r_gpu] == [r.rounds for r in r_cpu]
+    assert [r.bottleneck_server for r in r_gpu] \
+        == [r.bottleneck_server for r in r_cpu]
+    assert [r.layout_rebuilds for r in r_gpu] \
+        == [r.layout_rebuilds for r in r_cpu]
+    scale = max(1.0, float(np.abs(cpu.x).max()))
+    np.testing.assert_allclose(gpu.x, cpu.x, rtol=0,
+                               atol=PATH_F32_REL * scale)
+    for a, b in zip(r_gpu, r_cpu):
+        assert abs(a.min_vds - b.min_vds) <= PATH_F32_REL * abs(b.min_vds)
+
+
+@pytest.mark.parametrize("layout", ["dense", "bucketed"])
+def test_tick_on_card_matches_cpu(cuda, layout):
+    # float64 ticks: the card and the CPU sum in other orders only
+    from repro_torch.core.dynamic import DistributedPSDSF
+    prob, _, _ = _sparse_problem()
+    sims = [DistributedPSDSF(prob, precision="highest", fill="bisect",
+                             layout=layout, device=d) for d in ("cuda", "cpu")]
+    before = vds_kernel.vds_argmin.launches
+    out = []
+    for sim in sims:
+        sim.tick()
+        sim.set_active(5, False)
+        sim.tick(servers=np.nonzero(sim.gamma[5] > 0)[0])
+        sim.tick(shuffle=True)
+        out.append(sim.min_vds())
+    assert vds_kernel.vds_argmin.launches == before + 1
+    np.testing.assert_allclose(sims[0].x, sims[1].x, rtol=0, atol=1e-9)
+    np.testing.assert_allclose(out[0][0], out[1][0], rtol=1e-6)
+    # an argmin may differ only on a tie: the card's pick attains the
+    # CPU's minimum
+    arg = out[0][1]
+    xo = sims[1].x.sum(axis=1) / prob.weights
+    picked = xo[arg] / sims[1].gamma[arg, np.arange(len(arg))]
+    assert np.all(picked <= out[1][0] * (1 + 1e-6))
+
+
+def test_batched_resolve_on_card_matches_cpu(cuda):
+    from repro_torch.core.batched import batch_problems, psdsf_resolve_batched
+    from repro_torch.core.types import AllocationProblem
+    prob, g, lay = _sparse_problem()
+    probs = []
+    for s in (0, 5):
+        caps = prob.capacities.copy()
+        caps[s] *= 0.5
+        probs.append(AllocationProblem(prob.demands, caps, prob.weights,
+                                       prob.eligibility))
+    srv = np.array([[0, 1, 2, 2], [5, 6, 7, 8]], dtype=np.int32)
+    buckets = (np.stack([lay.indices] * 2), np.stack([lay.mask] * 2))
+    kw = dict(max_rounds=8, tol=0.0, fill="bisect", round="jacobi",
+              layout="bucketed", buckets=buckets)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        bat = batch_problems(probs, dtype=np.float64, device=device)
+        arrays = [bat[k] for k in ("demands", "capacities", "weights",
+                                   "gamma")]
+        before = bucketed_kernel.fill_event_levels_bucketed.launches
+        outs[device] = psdsf_resolve_batched(
+            *arrays, np.zeros((2,) + g.shape), srv, device=device, **kw)
+        launched = bucketed_kernel.fill_event_levels_bucketed.launches \
+            - before
+        rounds = int(outs[device][1].sum() + outs[device][2].sum())
+        assert launched == (5 * rounds if device == "cuda" else 0)
+    (x_g, rr_g, rf_g, _), (x_c, rr_c, rf_c, _) = outs["cuda"], outs["cpu"]
+    assert rr_g.tolist() == rr_c.tolist() and rf_g.tolist() == rf_c.tolist()
+    np.testing.assert_allclose(x_g.cpu().numpy(), x_c.numpy(), rtol=0,
+                               atol=1e-9)

@@ -38,7 +38,8 @@ def test_port_modules_listed():
                  "kernels.decode_attention.ops",
                  "kernels.decode_attention.ref", "configs.mamba2_1_3b",
                  "models.ssm", "kernels.ssd_scan.kernel",
-                 "kernels.ssd_scan.ops", "kernels.ssd_scan.ref"):
+                 "kernels.ssd_scan.ops", "kernels.ssd_scan.ref",
+                 "sched.churn", "core.dynamic", "core.batched"):
         assert f"repro_torch.{name}" in PORT_MODULES, name
 
 
@@ -86,8 +87,15 @@ def test_entry_points_default_to_cuda(no_cuda):
     from repro_torch.core.instances import fig1_instance
     from repro_torch.core.psdsf_torch import (psdsf_solve_torch,
                                               solve_psdsf_rdm_torch)
+    from repro_torch.core.dynamic import DistributedPSDSF
+    from repro_torch.core.batched import (batch_problems,
+                                          psdsf_resolve_batched,
+                                          psdsf_solve_batched)
+    from repro_torch.sched import ChurnSimulator
     prob = fig1_instance()
     g = gamma_matrix(prob)
+    stacked = [a[None] for a in (prob.demands, prob.capacities,
+                                 prob.weights, g)]
     calls = [
         lambda: resolve_device(),
         lambda: engine.solve(prob),
@@ -96,6 +104,12 @@ def test_entry_points_default_to_cuda(no_cuda):
         lambda: solve_psdsf_rdm_torch(prob),
         lambda: min_vds_guarded(np.ones((3, 2)), prob.weights, g,
                                 np.ones(3, bool)),
+        lambda: ChurnSimulator(prob),
+        lambda: DistributedPSDSF(prob),
+        lambda: psdsf_solve_batched(*stacked),
+        lambda: psdsf_resolve_batched(*stacked, np.zeros((1, 3, 2)),
+                                      np.zeros((1, 1), np.int32)),
+        lambda: batch_problems([prob]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
