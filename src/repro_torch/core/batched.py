@@ -8,8 +8,10 @@ through the port's sweep cores one after another (``_solve_core_torch`` /
 count, exactly as a converged problem's carry stops updating under the
 reference's vmapped while_loop. With ``fill="bisect", round="jacobi"``
 each round of each problem is one Hopper fill kernel call per saturation
-event. Padding from ``batch_problems`` is inert: padded users have weight 1
-and gamma 0, padded servers and resources zero capacity, so they fill to
+event. ``placement="headroom"`` follows each problem's solve with its
+repack-and-refill passes (``placement_torch._repack_refill_core_torch``,
+dense). Padding from ``batch_problems`` is inert: padded users have weight
+1 and gamma 0, padded servers and resources zero capacity, so they fill to
 exact zeros.
 """
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device, to_device
 from .gamma import gamma_matrix
+from .placement_torch import _repack_refill_core_torch
 from .psdsf_torch import (_check_buckets, _solve_core_bucketed_torch,
                           _solve_core_torch, _solve_dtype, check_axes)
 from .types import Allocation, AllocationProblem
@@ -79,12 +82,17 @@ def psdsf_solve_batched(demands, capacities, weights, gamma, *, x0=None,
     outs = []
     for j in range(g.shape[0]):
         if layout == "bucketed":
-            outs.append(_solve_core_bucketed_torch(
+            out = _solve_core_bucketed_torch(
                 d[j], c[j], w[j], g[j], x0[j], bkt[0][j], bkt[1][j], mode,
-                max_rounds, tol, **kw))
+                max_rounds, tol, **kw)
         else:
-            outs.append(_solve_core_torch(d[j], c[j], w[j], g[j], x0[j],
-                                          mode, max_rounds, tol, **kw))
+            out = _solve_core_torch(d[j], c[j], w[j], g[j], x0[j], mode,
+                                    max_rounds, tol, **kw)
+        if placement == "headroom":
+            out = _repack_refill_core_torch(
+                d[j], c[j], w[j], g[j], *out[:3], mode, max_rounds, tol,
+                fill=fill, round_mode=round) + tuple(out[3:])
+        outs.append(out)
     return _stack(outs)
 
 
@@ -108,8 +116,11 @@ def psdsf_resolve_batched(demands, capacities, weights, gamma, x0, servers, *,
 
     Returns (x, rounds_restricted, rounds_full, residual) as tensors, the
     residual the full sweeps'; ``accel="anderson"`` runs the mixer in both
-    phases and appends their summed (accel_hits, accel_rejects). The other
-    arguments are :func:`psdsf_solve_batched`'s.
+    phases and appends their summed (accel_hits, accel_rejects).
+    ``placement="headroom"`` appends the repack-and-refill passes after the
+    verification sweeps (full sweeps: the repack is global); a kept pass
+    replaces ``rounds_full`` and the residual. The other arguments are
+    :func:`psdsf_solve_batched`'s.
     """
     check_axes(mode=mode, placement=placement, fill=fill, round=round,
                layout=layout, accel=accel)
@@ -136,7 +147,12 @@ def psdsf_resolve_batched(demands, capacities, weights, gamma, x0, servers, *,
         # about the level where a cold solve's own schedule accepts
         out1 = core(x0[j], servers=srv[j], alpha0=0.3)
         out2 = core(out1[0], alpha0=0.02)
-        row = [out2[0], out1[1], out2[1], out2[2]]
+        x, r_full, resid = out2[:3]
+        if placement == "headroom":
+            x, r_full, resid = _repack_refill_core_torch(
+                d[j], c[j], w[j], g[j], x, r_full, resid, mode, max_rounds,
+                tol, fill=fill, round_mode=round)
+        row = [x, out1[1], r_full, resid]
         if accel == "anderson":
             row += [out1[3] + out2[3], out1[4] + out2[4]]
         rows.append(row)

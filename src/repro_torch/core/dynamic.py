@@ -17,10 +17,13 @@ Pallas kernel runs in it. ``min_vds_guarded``, the Eq. 16 telemetry of the
 tick and of the churn simulator, runs through the Hopper ``psdsf_vds``
 kernel for tensors on the card.
 
+``placement="headroom"``/``"bestfit"`` repack the state after each tick,
+as the reference does, through the port's host numpy copy of
+``placement.repack_pass`` (``placement_torch.repack_pass_np``).
+
 Not ported, and raising ``NotImplementedError`` with the ROADMAP item: the
-numpy oracle engine (the numpy solvers stay in the reference), the
-``headroom``/``bestfit`` repack after each tick (queue 1 item 4, placement
-mirrors) and ``routed_allocation`` (queue 1 item 5, baselines).
+numpy oracle engine (the numpy solvers stay in the reference) and
+``routed_allocation`` (queue 1 item 5, baselines: host lexmm router).
 """
 from __future__ import annotations
 
@@ -33,7 +36,9 @@ from ..device import DeviceLike, resolve_device, to_device
 from ..kernels.psdsf_vds.ops import min_vds
 from .gamma import gamma_matrix
 from .layout import BucketedLayout, resolve_layout
-from .psdsf_torch import ANDERSON_MEMORY, PLACEMENTS, _server_fill, check_axes
+from .placement_torch import repack_pass_np
+from .psdsf_torch import (ANDERSON_MEMORY, _server_fill, check_axes,
+                          check_placement)
 from .types import Allocation, AllocationProblem
 
 #: tick engines: ``torch`` runs; ``numpy`` (the reference's oracle) stays in
@@ -123,8 +128,9 @@ class DistributedPSDSF:
     ticks and ``set_active`` restart the history, and ``accel_hits`` /
     ``accel_rejects`` count the candidates. ``placement`` "level" and
     "lexmm" tick unchanged (the per-server fill is the level placement and
-    the per-server lexicographic optimum); "headroom"/"bestfit" repack
-    after each tick in the reference and are not ported.
+    the per-server lexicographic optimum); "headroom"/"bestfit" follow
+    every tick with one totals-preserving repack on the host (proportional
+    or best-fit), over the active users' gamma.
 
     ``self.x`` is the (N, K) float64 host state, as in the reference; each
     tick moves it to the device, runs the visit sequence there and copies
@@ -136,6 +142,7 @@ class DistributedPSDSF:
                  precision: str = "highest", placement: str = "level",
                  fill: str = "event", layout: str = "auto",
                  accel: str = "none", device: DeviceLike = None):
+        check_placement(placement)
         check_axes(mode=mode, fill=fill, layout=layout, accel=accel)
         if engine not in ENGINES:
             raise ValueError(
@@ -144,19 +151,11 @@ class DistributedPSDSF:
         if precision not in PRECISIONS:
             raise ValueError(
                 f"precision must be 'highest' or 'fast': {precision!r}")
-        if placement not in PLACEMENTS:
-            raise ValueError(f"placement must be one of {PLACEMENTS}: "
-                             f"{placement!r}")
         if engine == "numpy":
             raise NotImplementedError(
                 "engine='numpy' is not ported to repro_torch: the numpy "
                 "solvers stay in the reference (ROADMAP.md, north star: "
                 "only code written in JAX or Pallas is ported)")
-        if placement in ("headroom", "bestfit"):
-            raise NotImplementedError(
-                f"placement={placement!r} repacks after every tick through "
-                f"placement.repack_pass, not ported to repro_torch yet: "
-                f"ROADMAP.md queue 1 item 4 (placement mirrors)")
         self.device = resolve_device(device)
         self.gamma = gamma_matrix(problem)
         self.layout = resolve_layout(layout, support=self.gamma)
@@ -214,7 +213,9 @@ class DistributedPSDSF:
         in the listed order, or in an order drawn from the instance's numpy
         rng (``seed``) when ``shuffle``. Under ``accel="anderson"`` a
         synchronous full tick additionally mixes the tick-to-tick history;
-        partial or shuffled visits tick plainly and restart it."""
+        partial or shuffled visits tick plainly and restart it. Under
+        ``placement="headroom"``/``"bestfit"`` the tick ends with one
+        repack."""
         p = self.problem
         full = servers is None and not shuffle
         idx: Sequence[int] = list(range(p.num_servers) if servers is None
@@ -223,13 +224,14 @@ class DistributedPSDSF:
             self._rng.shuffle(idx)
         if self.accel == "anderson" and full:
             self._tick_anderson(idx)
-            return
-        if self.accel == "anderson":
-            # the mixing history models the synchronous full-tick map; an
-            # asynchronous visit changes that map: restart
-            self._hist_f = []
-            self._hist_g = []
-        self._tick_once(idx)
+        else:
+            if self.accel == "anderson":
+                # the mixing history models the synchronous full-tick map;
+                # an asynchronous visit changes that map: restart
+                self._hist_f = []
+                self._hist_g = []
+            self._tick_once(idx)
+        self._repack_after_tick()
 
     def _tick_once(self, idx: Sequence[int]) -> None:
         """One plain visit sequence (no mixing): the map the Anderson layer
@@ -290,21 +292,34 @@ class DistributedPSDSF:
             self._hist_f = [f]
             self._hist_g = [g.ravel()]
 
+    def _repack_after_tick(self) -> None:
+        """headroom/bestfit: one totals-preserving repack of the state over
+        the active users' gamma; level/lexmm ticks are left as they are."""
+        if self.placement not in ("headroom", "bestfit"):
+            return
+        p = self.problem
+        g = np.where(self.active[:, None], self.gamma, 0.0)
+        self.x = repack_pass_np(p.demands, p.capacities, self.x, g,
+                                mode=self.mode,
+                                greedy=self.placement == "bestfit")
+
     def routed_allocation(self, mechanism: str = "tsf") -> Allocation:
         """The reference's exact lexmm-routed allocation of a global-share
-        mechanism; it needs the baselines' level-rate matrices."""
+        mechanism, certified by host-side LP solves."""
         raise NotImplementedError(
             f"routed_allocation({mechanism!r}) is not ported to repro_torch "
-            f"yet: ROADMAP.md queue 1 item 5 (baselines)")
+            f"yet: ROADMAP.md queue 1 item 5 (baselines: host lexmm router)")
 
     # -- telemetry ----------------------------------------------------------
-    def min_vds(self):
+    def min_vds(self, interpret: bool = True):
         """Per-server (min normalized VDS (K,) float32, argmin user (K,)
         int32) over active users, as numpy arrays: Eq. 16 through
         :func:`min_vds_guarded`, one ``psdsf_vds`` kernel launch on the
         card. Servers where no active user is eligible report 3e38;
-        zero-weight users are excluded like inactive ones. The reference's
-        ``interpret`` argument has no counterpart: the device decides."""
+        zero-weight users are excluded like inactive ones. ``interpret``
+        (the reference's Pallas-interpreter switch) is accepted and
+        ignored: the device decides."""
+        del interpret
         mn, arg = min_vds_guarded(self.x, self.problem.weights, self.gamma,
                                   self.active, device=self.device)
         return mn.cpu().numpy(), arg.cpu().numpy()

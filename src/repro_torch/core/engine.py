@@ -13,25 +13,92 @@ host from the support of ``gamma_matrix(problem)`` (``layout.
 resolve_layout``), and a sparse instance runs the bucketed core on a
 ``BucketedLayout`` built from that support.
 
-Not ported yet, and raising ``NotImplementedError`` with the ROADMAP item:
-the baseline mechanisms, the numpy backend and ``placement="headroom"``.
+The baseline mechanisms run here too: ``cdrfh``, ``tsf`` and ``cdrf``
+through ``baselines_torch.solve_baseline_torch`` (the reference's
+``solve_baseline_jax``), and the closed forms ``drf`` (on the pooled
+relaxation) and ``uniform`` through :func:`_drf_torch` /
+:func:`_uniform_torch`, which accept only the default placement, fill,
+round, layout and accel, as the reference's ``_reject_placement`` does.
+
+Not ported, and raising ``NotImplementedError`` with the ROADMAP item: the
+numpy backend and ``placement="lexmm"`` for the global-share mechanisms
+(queue 1 item 5, baselines: host lexmm router).
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 from ..device import DeviceLike, resolve_device, to_device
+from .baselines_torch import (LEVEL_FILL_MECHANISMS, drf_pooled_allocation,
+                              solve_baseline_torch, uniform_share_allocation)
 from .gamma import gamma_matrix
-from .layout import BucketedLayout, resolve_layout
-from .psdsf_torch import check_axes, psdsf_solve_torch
+from .layout import LAYOUTS, BucketedLayout, resolve_layout
+from .psdsf_torch import (ACCEL_ENGINES, UnknownNameError, check_axes,
+                          check_placement, psdsf_solve_torch)
 from .solveinfo import SolveInfo, fill_iter_budget, stranded_fraction
 from .types import Allocation, AllocationProblem
 
 PSDSF_MECHANISMS = ("psdsf-rdm", "psdsf-tdm")
-#: the reference's other registered mechanisms (ROADMAP.md queue 1 item 5,
-#: baselines)
+#: the reference's other registered mechanisms: the level fills and the
+#: closed forms
 BASELINE_MECHANISMS = ("cdrf", "cdrfh", "drf", "tsf", "uniform")
 BACKENDS = ("torch", "numpy")
+
+
+def _reject_placement_torch(mechanism: str, placement: str, fill: str,
+                            round: str, layout: str, accel: str) -> None:
+    """Closed-form mechanisms have no placement freedom (drf solves a
+    pooled relaxation, uniform IS a fixed placement) and run no per-server
+    fill, sweep or outer iteration: only the default of each axis is
+    accepted, so a request cannot be silently ignored. The reference's
+    ``engine._reject_placement``, with its exception classes."""
+    check_placement(placement)
+    if placement != "level":
+        raise ValueError(
+            f"mechanism {mechanism!r} is closed-form and has no placement "
+            f"freedom; only placement='level' is accepted, got {placement!r}")
+    if fill != "event" or round != "gauss":
+        raise ValueError(
+            f"mechanism {mechanism!r} is closed-form and runs no per-server "
+            f"fill; only fill='event', round='gauss' are accepted, got "
+            f"fill={fill!r}, round={round!r}")
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}: {layout!r}")
+    if layout == "bucketed":
+        raise ValueError(
+            f"mechanism {mechanism!r} is closed-form and runs no sweep to "
+            f"bucket; only layout='dense'/'auto' are accepted")
+    if accel not in ACCEL_ENGINES:
+        raise ValueError(f"accel must be one of {ACCEL_ENGINES}: {accel!r}")
+    if accel != "none":
+        raise ValueError(
+            f"mechanism {mechanism!r} is closed-form and runs no outer "
+            f"iteration to accelerate; only accel='none' is accepted, got "
+            f"{accel!r}")
+
+
+def _drf_torch(problem: AllocationProblem, *, placement: str = "level",
+               fill: str = "event", round: str = "gauss",
+               layout: str = "auto", accel: str = "none",
+               device: DeviceLike = None) -> Tuple[Allocation, SolveInfo]:
+    """Classic DRF on the pooled cluster, a host closed form: the
+    ``Allocation`` lives on the pooled relaxation (x of shape (N, 1)).
+    Checks ``device`` like every entry point, though nothing runs there."""
+    resolve_device(device)
+    _reject_placement_torch("drf", placement, fill, round, layout, accel)
+    return drf_pooled_allocation(problem)
+
+
+def _uniform_torch(problem: AllocationProblem, *, placement: str = "level",
+                   fill: str = "event", round: str = "gauss",
+                   layout: str = "auto", accel: str = "none",
+                   device: DeviceLike = None
+                   ) -> Tuple[Allocation, SolveInfo]:
+    """The phi-proportional share of every server, a host closed form.
+    Checks ``device`` like every entry point, though nothing runs there."""
+    resolve_device(device)
+    _reject_placement_torch("uniform", placement, fill, round, layout, accel)
+    return uniform_share_allocation(problem)
 
 
 def solve(problem: AllocationProblem, mechanism: str = "psdsf-rdm",
@@ -51,22 +118,38 @@ def solve(problem: AllocationProblem, mechanism: str = "psdsf-rdm",
     ``layout`` ("auto"|"dense"|"bucketed") and ``accel``
     ("none"|"anderson") as in the reference; the returned ``SolveInfo``
     carries the resolved layout, the bucket width and the Anderson
-    counters.
+    counters. ``placement="headroom"`` follows the PS-DSF level solve with
+    its repack-and-refill passes (dense, their refills through the same
+    fill kernel).
+
+    ``mechanism`` "cdrfh"/"tsf"/"cdrf" solves the baseline level fill
+    (``placement`` "level" or "headroom", the routed global fill) and
+    "drf"/"uniform" the closed forms, which take only each axis's
+    default. An unknown mechanism or placement raises ``UnknownNameError``
+    (a ``KeyError`` and a ``ValueError``).
     """
-    if mechanism in BASELINE_MECHANISMS:
-        raise NotImplementedError(
-            f"mechanism {mechanism!r} is not ported to repro_torch yet: "
-            f"ROADMAP.md queue 1 item 5 (baselines)")
-    if mechanism not in PSDSF_MECHANISMS:
-        raise ValueError(f"unknown allocator {mechanism!r}; registered: "
-                         f"{', '.join(sorted(PSDSF_MECHANISMS + BASELINE_MECHANISMS))}")
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}: {backend!r}")
+    check_placement(placement)
+    if mechanism not in PSDSF_MECHANISMS + BASELINE_MECHANISMS:
+        raise UnknownNameError(
+            f"unknown allocator {mechanism!r}; registered: "
+            f"{', '.join(sorted(PSDSF_MECHANISMS + BASELINE_MECHANISMS))}")
     if backend == "numpy":
         raise NotImplementedError(
             "backend='numpy' is not ported to repro_torch: the numpy "
             "solvers stay in the reference (ROADMAP.md, north star: only code "
             "written in JAX or Pallas is ported)")
+    axes = dict(placement=placement, fill=fill, round=round, layout=layout,
+                accel=accel, device=device)
+    if mechanism == "drf":
+        return _drf_torch(problem, **axes)
+    if mechanism == "uniform":
+        return _uniform_torch(problem, **axes)
+    if mechanism in LEVEL_FILL_MECHANISMS:
+        return solve_baseline_torch(problem, mechanism, x0=x0,
+                                    max_rounds=max_rounds, tol=tol,
+                                    loose_tol=loose_tol, **axes)
     mode = "rdm" if mechanism == "psdsf-rdm" else "tdm"
     check_axes(mode=mode, placement=placement, fill=fill, round=round,
                layout=layout, accel=accel)

@@ -48,11 +48,6 @@ from .types import Allocation, AllocationProblem
 _BIG = 1e30
 _TOL = 1e-9
 
-#: values of the reference's axes that this slice does not port yet, with
-#: the ROADMAP.md item that will
-_NOT_PORTED = {
-    ("placement", "headroom"): "ROADMAP.md queue 1 item 4 (placement mirrors)",
-}
 #: history depth of the Anderson mixer (``placement.ANDERSON_MEMORY`` in
 #: the reference)
 ANDERSON_MEMORY = 5
@@ -62,15 +57,33 @@ ROUNDS = ("gauss", "jacobi")
 MODES = ("rdm", "tdm")
 
 
+class UnknownNameError(KeyError, ValueError):
+    """An unknown placement strategy or mechanism name. The reference's
+    registries raise ``KeyError`` for these; deriving from ``ValueError``
+    as well keeps the port's other axis checks' class. ``str()`` is the
+    message itself, not ``KeyError``'s quoted repr."""
+
+    def __str__(self) -> str:
+        return str(self.args[0]) if self.args else ""
+
+
+def check_placement(placement: str) -> None:
+    """``UnknownNameError`` for a placement strategy the reference does
+    not register (its ``get_placement`` raises ``KeyError``)."""
+    if placement not in PLACEMENTS:
+        raise UnknownNameError(
+            f"unknown placement strategy {placement!r}; registered: "
+            f"{', '.join(sorted(PLACEMENTS))}")
+
+
 def check_axes(*, mode: str = "rdm", placement: str = "level",
                fill: str = "event", round: str = "gauss",
                layout: str = "dense", accel: str = "none") -> None:
-    """Validate the engine axes: ``ValueError`` for every value the
-    reference rejects on its jitted path, ``NotImplementedError`` naming the
-    ROADMAP item for a value the reference takes but the port does not yet
-    run."""
+    """Validate the engine axes: ``UnknownNameError`` for an unknown
+    placement, ``ValueError`` for every other value the reference rejects
+    on its jitted path."""
+    check_placement(placement)
     for axis, value, allowed in (("mode", mode, MODES),
-                                 ("placement", placement, PLACEMENTS),
                                  ("fill", fill, FILL_ENGINES),
                                  ("round", round, ROUNDS),
                                  ("layout", layout, LAYOUTS),
@@ -80,11 +93,6 @@ def check_axes(*, mode: str = "rdm", placement: str = "level",
     if placement == "bestfit":
         raise ValueError("placement 'bestfit' has no device mirror (the "
                          "reference runs it on its numpy engine only)")
-    where = _NOT_PORTED.get(("placement", placement))
-    if where:
-        raise NotImplementedError(
-            f"placement={placement!r} is not ported to repro_torch yet: "
-            f"{where}")
 
 
 def _check_buckets(layout: str, buckets) -> None:
@@ -458,9 +466,14 @@ def _server_fill(mode, fill):
                                                      x_ext)
 
 
-def _residual_limit(gamma, tol):
-    scale = gamma.max() if gamma.numel() else torch.zeros(
-        (), dtype=gamma.dtype, device=gamma.device)
+def _residual_limit(gamma, tol, scale=None):
+    """tol x max(1, scale), ``scale`` defaulting to ``gamma.max()`` (the
+    baselines pass the per-server gamma scale: their level rates sum gamma
+    over servers)."""
+    if scale is None:
+        scale = gamma.max() if gamma.numel() else torch.zeros(
+            (), dtype=gamma.dtype, device=gamma.device)
+    scale = torch.as_tensor(scale, dtype=gamma.dtype, device=gamma.device)
     return tol * scale.clamp(min=1.0)
 
 
@@ -474,14 +487,16 @@ def _sweep(servers, k, dev):
 # ---------------------------------------------------------------------------
 
 def _solve_core_torch(demands, capacities, weights, gamma, x0, mode,
-                      max_rounds, tol, servers=None, alpha0=1.0,
+                      max_rounds, tol, servers=None, alpha0=1.0, scale=None,
                       fill="event", round_mode="gauss", accel="none",
                       cluster_fill=fill_cluster):
     """The damped sweep to a fixed point on the dense layout (port of
     ``psdsf_jax._solve_core``). All tensors share one dtype and device.
 
     ``servers`` (int tensor or sequence) restricts each round to those
-    servers. ``round_mode="jacobi"`` starts pre-damped (alpha <= 0.5).
+    servers. ``scale`` overrides the acceptance scale ``gamma.max()``
+    (the baselines pass their per-server gamma scale).
+    ``round_mode="jacobi"`` starts pre-damped (alpha <= 0.5).
     ``cluster_fill`` is the Jacobi bisect round's whole-cluster fill; the
     solve always uses ``ops.fill_cluster``, and only comparisons pass its
     plain twin. Returns (x (N, K), rounds, residual), the residual a 0-dim
@@ -489,7 +504,7 @@ def _solve_core_torch(demands, capacities, weights, gamma, x0, mode,
     """
     _check_core_axes(mode, fill, round_mode, accel)
     k = gamma.shape[1]
-    limit = _residual_limit(gamma, tol)
+    limit = _residual_limit(gamma, tol, scale)
     sweep = _sweep(servers, k, x0.device)
     fill_fn = _server_fill(mode, fill)
 
@@ -531,8 +546,8 @@ def _solve_core_torch(demands, capacities, weights, gamma, x0, mode,
 
 def _solve_core_bucketed_torch(demands, capacities, weights, gamma, x0, idx,
                                mask, mode, max_rounds, tol, servers=None,
-                               alpha0=1.0, fill="event", round_mode="gauss",
-                               accel="none",
+                               alpha0=1.0, scale=None, fill="event",
+                               round_mode="gauss", accel="none",
                                cluster_fill=fill_cluster_bucketed):
     """The damped sweep on sparse eligibility (port of
     ``psdsf_jax._solve_core_bucketed``).
@@ -544,7 +559,8 @@ def _solve_core_bucketed_torch(demands, capacities, weights, gamma, x0, idx,
     every round start (Gauss-Seidel then adds each server's delta). Padded
     slots carry gamma 0, so they fill to 0 and their deltas are exact
     zeros. The residual is the reference's: the max over the swept slots
-    (Jacobi) or the max |delta| (Gauss-Seidel). ``cluster_fill`` is the
+    (Jacobi) or the max |delta| (Gauss-Seidel); ``scale`` as in
+    :func:`_solve_core_torch`. ``cluster_fill`` is the
     Jacobi bisect round's whole-cluster fill (``fill_cluster_bucketed``;
     only comparisons pass its plain twin). Anderson mixes the packed
     (K, Bmax) state. Returns (x dense (N, K), rounds, residual), plus
@@ -554,7 +570,7 @@ def _solve_core_bucketed_torch(demands, capacities, weights, gamma, x0, idx,
     _check_core_axes(mode, fill, round_mode, accel)
     n, k = gamma.shape
     dt, dev = x0.dtype, x0.device
-    limit = _residual_limit(gamma, tol)
+    limit = _residual_limit(gamma, tol, scale)
     sweep = _sweep(servers, k, dev)
     fill_fn = _server_fill(mode, fill)
     idx = torch.as_tensor(idx, device=dev).long()
@@ -645,7 +661,12 @@ def psdsf_solve_torch(demands, capacities, weights, gamma, *, x0=None,
     of a host-built ``layout.BucketedLayout``, runs the bucketed core;
     ``"auto"`` is resolved by ``engine.solve``, not here.
     ``placement="lexmm"`` is the identity on the level solve, as in the
-    reference; the other axes are validated by :func:`check_axes`.
+    reference; ``placement="headroom"`` follows the level solve with up to
+    three repack-and-refill passes
+    (``placement_torch._repack_refill_core_torch``), dense whatever the
+    level solve's layout, their refills plain (the Anderson counters are
+    the level solve's); the other axes are validated by
+    :func:`check_axes`.
     """
     check_axes(mode=mode, placement=placement, fill=fill, round=round,
                layout=layout, accel=accel)
@@ -661,11 +682,19 @@ def psdsf_solve_torch(demands, capacities, weights, gamma, *, x0=None,
     kw = dict(fill=fill, round_mode=round, accel=accel)
     if layout == "bucketed":
         idx, mask = buckets
-        return _solve_core_bucketed_torch(
+        out = _solve_core_bucketed_torch(
             demands, capacities, weights, gamma, x0, to_device(idx, dev),
             to_device(mask, dev), mode, max_rounds, tol, **kw)
-    return _solve_core_torch(demands, capacities, weights, gamma, x0, mode,
-                             max_rounds, tol, **kw)
+    else:
+        out = _solve_core_torch(demands, capacities, weights, gamma, x0,
+                                mode, max_rounds, tol, **kw)
+    if placement == "headroom":
+        # placement_torch builds on this module's cores: imported here
+        from .placement_torch import _repack_refill_core_torch
+        out = _repack_refill_core_torch(
+            demands, capacities, weights, gamma, *out[:3], mode, max_rounds,
+            tol, fill=fill, round_mode=round) + tuple(out[3:])
+    return out
 
 
 def solve_psdsf_rdm_torch(problem: AllocationProblem, x0=None,

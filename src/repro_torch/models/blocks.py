@@ -23,7 +23,8 @@ def check_block(cfg: ModelConfig, mixer: str, mlp: str):
     """Raise ``NotImplementedError`` for a block the port lacks."""
     if mlp == "moe":
         raise NotImplementedError(
-            f"{cfg.name}: MoE MLPs wait for models/moe (ROADMAP, next slice)")
+            f"{cfg.name}: MoE MLPs are not ported to repro_torch yet: "
+            f"ROADMAP.md queue 1 item 7, MoE")
     if mixer not in ("attn", "mamba") or mlp not in ("dense", "none"):
         raise ValueError(f"{cfg.name}: unknown block {(mixer, mlp)}")
 

@@ -4,20 +4,22 @@ port of ``repro/sched/churn.py``.
 Users arrive and depart, servers degrade and recover, and the allocator
 re-equilibrates after every batch of simultaneous events, warm-started from
 the pre-event fixed point. Each re-solve runs on the device in float32, as
-the reference's jitted one does: ``_resolve_torch`` masks gamma and the
-warm start by activity and calls the port's sweep cores
-(``psdsf_torch._solve_core_torch`` / ``_solve_core_bucketed_torch``), so
-with ``fill="bisect", round="jacobi"`` every round is one Hopper fill
-kernel call per saturation event (``psdsf_fill`` on the dense layout,
-``psdsf_fill_bucketed`` on the bucketed one). The per-step telemetry, the
-per-server min normalized VDS of Eq. 16, goes through
-``core.dynamic.min_vds_guarded`` and so launches the ``psdsf_vds`` kernel
-once a step on the card.
+the reference's jitted one does: ``_resolve_torch`` builds the mechanism's
+level rates (gamma for PS-DSF, ``baselines_torch.level_rate_matrix_torch``
+for cdrfh/tsf/cdrf), masks them and the warm start by activity and calls
+the port's sweep cores (``psdsf_torch._solve_core_torch`` /
+``_solve_core_bucketed_torch``), so with ``fill="bisect",
+round="jacobi"`` every round is one Hopper fill kernel call per saturation
+event (``psdsf_fill`` on the dense layout, ``psdsf_fill_bucketed`` on the
+bucketed one). ``placement="headroom"`` follows a PS-DSF re-solve with its
+repack-and-refill passes and replaces a baseline's sweep by the routed
+global fill. The per-step telemetry, the per-server min normalized VDS of
+Eq. 16, goes through ``core.dynamic.min_vds_guarded`` and so launches the
+``psdsf_vds`` kernel once a step on the card.
 
-Not ported, and raising ``NotImplementedError`` with the ROADMAP item: the
-baseline mechanisms (cdrfh, tsf, cdrf; queue 1 item 5, baselines, which
-also brings their host-side lexmm router) and ``placement="headroom"``
-(queue 1 item 4, placement mirrors).
+Not ported, and raising ``NotImplementedError`` with the ROADMAP item:
+``placement="lexmm"`` for the baselines (queue 1 item 5, baselines: host
+lexmm router).
 """
 from __future__ import annotations
 
@@ -28,10 +30,13 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..core.baselines_torch import (LEXMM_NOT_PORTED, _routed,
+                                    level_rate_matrix_torch)
 from ..core.dynamic import min_vds_guarded
 from ..core.gamma import gamma_matrix_torch
 from ..core.engine import PSDSF_MECHANISMS
 from ..core.layout import BucketedLayout, resolve_layout
+from ..core.placement_torch import _repack_refill_core_torch
 from ..core.psdsf_torch import (_solve_core_bucketed_torch, _solve_core_torch,
                                 check_axes)
 from ..core.solveinfo import fill_iter_budget
@@ -92,44 +97,66 @@ class ChurnRecord:
 
 
 def _resolve_torch(demands, capacities, weights, eligibility, active,
-                   cap_scale, x0, *, mode, max_rounds, tol, fill, round,
-                   layout, buckets, accel):
+                   cap_scale, x0, *, mechanism, max_rounds, tol, placement,
+                   fill, round, layout, buckets, accel):
     """One re-solve (port of the jitted ``resolve`` of the reference's
-    ``_resolve_fn`` for PS-DSF at level placement): effective capacities ->
-    gamma masked by activity -> the warm-started sweep. The acceptance band
-    is the sweep's default, tol x max(1, gamma.max()) over the ACTIVE
-    users, the reference's ``scale=g.max()`` (for PS-DSF the level-rate
-    matrix is gamma itself). On the bucketed layout departed users' slots
-    go dark under ``mask & active[idx]``."""
+    ``_resolve_fn``): effective capacities -> the mechanism's level rates
+    (gamma for PS-DSF) masked by activity -> the warm-started sweep, with
+    the acceptance band on the ACTIVE users' per-server gamma scale
+    (``scale=g.max()``). On the bucketed layout departed users' slots go
+    dark under ``mask & active[idx]``. ``placement="headroom"`` follows a
+    PS-DSF sweep with the repack-and-refill passes and replaces a
+    baseline's sweep by the one-shot routed fill (no warm start: there is
+    no fixed point to warm)."""
     zero = torch.zeros((), dtype=demands.dtype, device=demands.device)
     caps_eff = capacities * cap_scale[:, None]
     g = torch.where(active[:, None],
                     gamma_matrix_torch(demands, caps_eff, eligibility), zero)
+    psdsf = mechanism in PSDSF_MECHANISMS
+    if psdsf:
+        lg, mode = g, mechanism.removeprefix("psdsf-")
+    else:
+        lg = torch.where(active[:, None], level_rate_matrix_torch(
+            demands, caps_eff, eligibility, mechanism), zero)
+        mode = "rdm"
+    if placement == "headroom" and not psdsf:
+        return _routed(demands, caps_eff, weights, lg, accel)
     x0 = torch.zeros_like(g) if x0 is None else x0
     x0 = torch.where(active[:, None], x0, zero)
-    kw = dict(fill=fill, round_mode=round, accel=accel)
+    kw = dict(scale=g.max(), fill=fill, round_mode=round, accel=accel)
     if layout == "bucketed":
         idx, mask = buckets
-        return _solve_core_bucketed_torch(
-            demands, caps_eff, weights, g, x0, idx, mask & active[idx], mode,
-            max_rounds, tol, **kw)
-    return _solve_core_torch(demands, caps_eff, weights, g, x0, mode,
-                             max_rounds, tol, **kw)
+        out = _solve_core_bucketed_torch(
+            demands, caps_eff, weights, lg, x0, idx, mask & active[idx],
+            mode, max_rounds, tol, **kw)
+    else:
+        out = _solve_core_torch(demands, caps_eff, weights, lg, x0, mode,
+                                max_rounds, tol, **kw)
+    if placement == "headroom":
+        out = _repack_refill_core_torch(
+            demands, caps_eff, weights, g, *out[:3], mode, max_rounds, tol,
+            fill=fill, round_mode=round) + tuple(out[3:])
+    return out
 
 
 class ChurnSimulator:
-    """Maintains the PS-DSF fixed point through an event stream, on
-    ``device`` (default ``cuda``).
+    """Maintains a sweep mechanism's fixed point through an event stream,
+    on ``device`` (default ``cuda``).
 
     ``problem`` holds the full user population; ``initial_active`` masks
     who is present at t=0 (arrivals flip users on). ``mechanism``
-    ("psdsf-rdm"/"psdsf-tdm"; ``mode`` "rdm"/"tdm" is the legacy alias)
-    picks the regime. Each step re-solves warm from the previous fixed
-    point (``warm_start``); ``compare_cold=True`` also runs it cold and
-    records the round-count gap. ``fill`` ("event"/"bisect"), ``round``
+    ("psdsf-rdm"/"psdsf-tdm", or the baselines "cdrfh"/"tsf"/"cdrf";
+    ``mode`` "rdm"/"tdm" is the legacy alias for PS-DSF) picks what is
+    maintained. Each step re-solves warm from the previous fixed point
+    (``warm_start``); ``compare_cold=True`` also runs it cold and records
+    the round-count gap. ``fill`` ("event"/"bisect"), ``round``
     ("gauss"/"jacobi") and ``accel`` ("none"/"anderson") pick the sweep's
-    fill, outer iteration and accelerator, as in the reference;
-    ``placement="lexmm"`` is the identity on the PS-DSF level tick.
+    fill, outer iteration and accelerator, as in the reference.
+    ``placement`` "level"; "lexmm", the identity on the PS-DSF level tick
+    (the baselines' host lexmm router is not ported); "headroom", which
+    follows a PS-DSF re-solve with repack-and-refill passes and routes a
+    baseline through the one-shot global fill (dense only: a bucketed
+    layout is rejected).
 
     ``layout`` ("dense"/"bucketed"/"auto") picks the sweep's data layout:
     buckets are built from the ACTIVE support at construction, departures
@@ -138,19 +165,21 @@ class ChurnSimulator:
     resolves by the density of the initial active support.
 
     ``telemetry`` computes each step's min normalized VDS. The reference's
-    ``interpret_vds`` argument (which picks the Pallas interpreter) has no
-    counterpart here: the device decides, the Hopper ``psdsf_vds`` kernel
-    on the card and its plain version on the CPU.
+    ``interpret_vds`` argument (which picks the Pallas interpreter) is
+    accepted and ignored: the device decides, the Hopper ``psdsf_vds``
+    kernel on the card and its plain version on the CPU.
     """
 
     def __init__(self, problem: AllocationProblem, mode: Optional[str] = None,
                  warm_start: bool = True, compare_cold: bool = False,
                  max_rounds: int = 256, tol: float = 1e-6,
                  initial_active: Optional[np.ndarray] = None,
-                 telemetry: bool = True, mechanism: Optional[str] = None,
-                 placement: str = "level", fill: str = "event",
-                 round: str = "gauss", layout: str = "auto",
-                 accel: str = "none", device: DeviceLike = None):
+                 telemetry: bool = True, interpret_vds: bool = True,
+                 mechanism: Optional[str] = None, placement: str = "level",
+                 fill: str = "event", round: str = "gauss",
+                 layout: str = "auto", accel: str = "none",
+                 device: DeviceLike = None):
+        del interpret_vds                  # the device decides
         if mode is not None and mechanism is not None:
             raise ValueError(
                 "pass either the legacy mode= alias or mechanism=, not both")
@@ -168,10 +197,17 @@ class ChurnSimulator:
             if mechanism in PSDSF_MECHANISMS else "rdm"
         check_axes(mode=mode, placement=placement, fill=fill, round=round,
                    layout=layout, accel=accel)
-        if mechanism not in PSDSF_MECHANISMS:
+        psdsf = mechanism in PSDSF_MECHANISMS
+        routed = placement == "headroom" and not psdsf
+        if routed and layout == "bucketed":
+            raise ValueError(
+                "layout='bucketed' needs the per-server sweep; the routed "
+                "headroom fill for global-share mechanisms is one-shot "
+                "global: use layout='dense'")
+        if placement == "lexmm" and not psdsf:
             raise NotImplementedError(
-                f"mechanism {mechanism!r} is not ported to repro_torch yet: "
-                f"ROADMAP.md queue 1 item 5 (baselines)")
+                f"placement='lexmm' for mechanism {mechanism!r} is not "
+                f"ported to repro_torch yet: {LEXMM_NOT_PORTED}")
         self.device = dev = resolve_device(device)
         self.problem = problem
         self.mechanism = mechanism
@@ -201,7 +237,8 @@ class ChurnSimulator:
                                  for a in (problem.demands,
                                            problem.capacities,
                                            problem.eligibility))
-        self.layout = resolve_layout(
+        self._swept = not routed
+        self.layout = "dense" if routed else resolve_layout(
             layout, support=(problem.eligibility > 0) & self.active[:, None])
         self._blayout = None
         self.layout_rebuilds = 0
@@ -241,8 +278,9 @@ class ChurnSimulator:
             to_device(self.active, dev, torch.bool),
             to_device(self.cap_scale, dev, torch.float32),
             None if x0 is None else to_device(x0, dev, torch.float32),
-            mode=self.mode, max_rounds=self.max_rounds, tol=self.tol,
-            fill=self.fill, round=self.round, layout=self.layout,
+            mechanism=self.mechanism, max_rounds=self.max_rounds,
+            tol=self.tol, placement=self.placement, fill=self.fill,
+            round=self.round, layout=self.layout,
             buckets=(None if self._blayout is None
                      else (self._idx, self._mask)),
             accel=self.accel)
@@ -276,24 +314,31 @@ class ChurnSimulator:
         # and the tight-tol certificate
         g = self._gamma()
         mn, arg = (self._min_vds(g) if self.telemetry else (np.inf, -1))
-        budget = rounds * self.problem.num_servers * fill_iter_budget(
+        swept = self._swept         # the routed fill runs no per-server one
+        budget = (rounds * self.problem.num_servers * fill_iter_budget(
             self.problem.num_resources, self.mode, self.fill)
-        # tight-tol certification against the same active-gamma scale the
-        # sweep accepts on
-        active = to_device(self.active, self.device, torch.bool)
-        g_act = torch.where(active[:, None], g, torch.zeros_like(g))
-        tight = resid <= self.tol * max(
-            1.0, float(g_act.max()) if g_act.numel() else 0.0)
+            if swept else 0)
+        if swept:
+            # tight-tol certification against the same active-gamma scale
+            # the sweep accepts on
+            active = to_device(self.active, self.device, torch.bool)
+            g_act = torch.where(active[:, None], g, torch.zeros_like(g))
+            tight = resid <= self.tol * max(
+                1.0, float(g_act.max()) if g_act.numel() else 0.0)
+        else:
+            tight = resid == 0.0     # the routed fill is one-shot exact
         return ChurnRecord(
             time=time_now, n_events=len(events), rounds=rounds,
             cold_rounds=cold_rounds, residual=resid,
             active_users=int(self.active.sum()),
             total_tasks=float(self.x.sum()), solve_ms=solve_ms,
             min_vds=float(mn), bottleneck_server=int(arg),
-            fill_engine=self.fill, fill_iters=budget, layout=self.layout,
-            bucket_max=(0 if self._blayout is None
-                        else self._blayout.bucket_max),
-            layout_rebuilds=rebuilds, accel=self.accel,
+            fill_engine=self.fill if swept else "",
+            fill_iters=budget, layout=self.layout if swept else "dense",
+            bucket_max=(self._blayout.bucket_max if swept
+                        and self._blayout is not None else 0),
+            layout_rebuilds=rebuilds,
+            accel=self.accel if swept else "none",
             accel_hits=hits, accel_rejects=rejects,
             rounds_to_tol=rounds if tight else 0)
 

@@ -232,11 +232,74 @@ def test_batched_validation():
     srv = np.zeros((2, 1), dtype=np.int32)
     for fn, extra in ((batched.psdsf_solve_batched, ()),
                       (batched.psdsf_resolve_batched, (x0, srv))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(*args, *extra, placement="headroom", device="cpu")
+        # headroom runs (its parity cases are below)
+        out = fn(*args, *extra, placement="headroom", device="cpu")
+        assert out[0].shape == args[3].shape
         for kw in (dict(placement="bestfit"), dict(placement="nope"),
                    dict(fill="sorted"), dict(round="red"), dict(mode="xdm"),
                    dict(accel="newton"), dict(layout="auto"),
                    dict(layout="bucketed")):
             with pytest.raises(ValueError):
                 fn(*args, *extra, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("mode", ["rdm", "tdm"])
+@pytest.mark.parametrize("layout", ["dense", "bucketed"])
+def test_solve_batched_headroom_matches_jax_f64(x64, layout, mode):
+    # the level solve (on either layout), then each problem's dense
+    # repack-and-refill passes
+    probs = _sparse_pair()
+    ref_bat = psdsf_jax.batch_problems(probs, dtype=np.float64)
+    kw = dict(mode=mode, max_rounds=12, tol=0.0, fill="bisect",
+              round="jacobi", layout=layout, placement="headroom")
+    buckets = _padded_buckets(ref_bat["gamma"]) if layout == "bucketed" \
+        else None
+    want = psdsf_jax.psdsf_solve_batched(
+        *_arrays(ref_bat), buckets=None if buckets is None
+        else tuple(jnp.asarray(b) for b in buckets), **kw)
+    bat = batched.batch_problems([_port(p) for p in probs], dtype=np.float64,
+                                 device="cpu")
+    got = batched.psdsf_solve_batched(*_arrays(bat), buckets=buckets,
+                                      device="cpu", **kw)
+    _assert_rows_equal(got, want, int_cols=(1,))
+    level = batched.psdsf_solve_batched(
+        *_arrays(bat), buckets=buckets, device="cpu",
+        **dict(kw, placement="level"))
+    assert float((got[0] - level[0]).abs().max()) > 1e-6   # a pass was kept
+
+
+@pytest.mark.parametrize("layout", ["dense", "bucketed"])
+def test_resolve_batched_headroom_matches_jax_f64(x64, layout):
+    probs = _sparse_pair()
+    ref_bat = psdsf_jax.batch_problems(probs, dtype=np.float64)
+    srv = np.tile(np.arange(8, dtype=np.int32), (2, 1))
+    x0 = np.zeros(ref_bat["gamma"].shape)
+    kw = dict(max_rounds=6, tol=0.0, fill="bisect", round="jacobi",
+              layout=layout, placement="headroom")
+    buckets = _padded_buckets(ref_bat["gamma"]) if layout == "bucketed" \
+        else None
+    want = psdsf_jax.psdsf_resolve_batched(
+        *_arrays(ref_bat), jnp.asarray(x0), jnp.asarray(srv),
+        buckets=None if buckets is None else tuple(jnp.asarray(b)
+                                                   for b in buckets), **kw)
+    bat = batched.batch_problems([_port(p) for p in probs], dtype=np.float64,
+                                 device="cpu")
+    got = batched.psdsf_resolve_batched(*_arrays(bat), x0, srv,
+                                        buckets=buckets, device="cpu", **kw)
+    _assert_rows_equal(got, want, int_cols=(1, 2))
+
+
+def test_solve_batched_headroom_anderson_matches_jax_f64(x64):
+    # Anderson counters are the level solve's; the refills run plain
+    prob = _limit_cycle_instance()
+    probs = [prob, JaxProblem(prob.demands, 0.7 * prob.capacities,
+                              prob.weights, prob.eligibility)]
+    kw = dict(max_rounds=16, tol=0.0, accel="anderson", fill="bisect",
+              round="jacobi", placement="headroom")
+    want = psdsf_jax.psdsf_solve_batched(
+        *_arrays(psdsf_jax.batch_problems(probs, dtype=np.float64)), **kw)
+    bat = batched.batch_problems([_port(p) for p in probs], dtype=np.float64,
+                                 device="cpu")
+    got = batched.psdsf_solve_batched(*_arrays(bat), device="cpu", **kw)
+    assert len(got) == len(want) == 5
+    _assert_rows_equal(got, want, int_cols=(1, 3, 4))

@@ -998,3 +998,108 @@ def test_batched_resolve_on_card_matches_cpu(cuda):
     assert rr_g.tolist() == rr_c.tolist() and rf_g.tolist() == rf_c.tolist()
     np.testing.assert_allclose(x_g.cpu().numpy(), x_c.numpy(), rtol=0,
                                atol=1e-9)
+
+
+# -- headroom placement and the baselines ----------------------------------
+
+def _patch_plain(monkeypatch):
+    """Every allocator kernel's wrapper swapped for its plain version where
+    the ops modules call it (chip_smoke.py's ``plain_versions``)."""
+    from repro_torch.kernels.psdsf_fill import ops as fill_ops
+    from repro_torch.kernels.psdsf_fill_bucketed import ops as b_ops
+    from repro_torch.kernels.psdsf_vds import ops as vds_ops
+    monkeypatch.setattr(fill_ops, "fill_event_levels",
+                        fill_ref.fill_event_levels)
+    monkeypatch.setattr(b_ops, "fill_event_levels_bucketed",
+                        bucketed_ref.fill_event_levels_bucketed)
+    monkeypatch.setattr(vds_ops, "vds_argmin", vds_ref.vds_argmin)
+
+
+def _launches():
+    return (fill_kernel.fill_event_levels.launches,
+            bucketed_kernel.fill_event_levels_bucketed.launches,
+            vds_kernel.vds_argmin.launches)
+
+
+@pytest.mark.parametrize("mechanism", ["psdsf-rdm", "psdsf-tdm"])
+def test_headroom_solve_on_card_matches_plain(cuda, monkeypatch, mechanism):
+    # the level solve and every refill through psdsf_fill; the same solve
+    # with the plain versions patched in launches nothing and agrees
+    prob, _, _ = _sparse_problem()
+    kw = dict(placement="headroom", fill="bisect", round="jacobi",
+              layout="dense", max_rounds=24, tol=0.0)
+    before = _launches()
+    alloc, info = engine.solve(prob, mechanism, device="cuda", **kw)
+    assert _launches()[0] > before[0] and _launches()[1:] == before[1:]
+    cpu, cpu_info = engine.solve(prob, mechanism, device="cpu", **kw)
+    _patch_plain(monkeypatch)
+    before = _launches()
+    plain, p_info = engine.solve(prob, mechanism, device="cuda", **kw)
+    assert _launches() == before
+    for other, o_info in ((plain, p_info), (cpu, cpu_info)):
+        np.testing.assert_allclose(alloc.x, other.x, rtol=0, atol=1e-9)
+        assert info.rounds == o_info.rounds
+    usage = np.einsum("nk,nr->kr", alloc.x, prob.demands)
+    assert (usage - prob.capacities).max() <= 1e-9 * prob.capacities.max()
+
+
+@pytest.mark.parametrize("layout", ["dense", "bucketed"])
+@pytest.mark.parametrize("mechanism", ["tsf", "cdrf", "cdrfh"])
+def test_baseline_solve_on_card_matches_plain(cuda, monkeypatch, mechanism,
+                                              layout):
+    prob, _, _ = _sparse_problem()
+    kw = dict(fill="bisect", round="jacobi", layout=layout, max_rounds=16,
+              tol=0.0)
+    which = 0 if layout == "dense" else 1
+    before = _launches()
+    alloc, info = engine.solve(prob, mechanism, device="cuda", **kw)
+    launched = [a - b for a, b in zip(_launches(), before)]
+    assert launched[which] == 5 * info.rounds and sum(launched) == \
+        launched[which]
+    _patch_plain(monkeypatch)
+    plain, p_info = engine.solve(prob, mechanism, device="cuda", **kw)
+    np.testing.assert_allclose(alloc.x, plain.x, rtol=0, atol=1e-9)
+    assert info.rounds == p_info.rounds and info.layout == layout
+
+
+@pytest.mark.parametrize("mechanism", ["tsf", "cdrf", "cdrfh"])
+def test_routed_fill_on_card_matches_cpu(cuda, mechanism):
+    prob, _, _ = _sparse_problem()
+    before = _launches()
+    a_gpu, i_gpu = engine.solve(prob, mechanism, placement="headroom",
+                                device="cuda")
+    assert _launches() == before                  # no kernel in it
+    a_cpu, i_cpu = engine.solve(prob, mechanism, placement="headroom",
+                                device="cpu")
+    np.testing.assert_allclose(a_gpu.x, a_cpu.x, rtol=0, atol=1e-9)
+    assert i_gpu.rounds == i_cpu.rounds
+
+
+def test_baseline_churn_on_card_matches_plain(cuda, monkeypatch):
+    # tsf in float32 on the buckets: one bucketed launch an event of every
+    # Jacobi round, one VDS launch a record; the plain-driven stream on the
+    # card agrees to PATH_F32_REL with equal rounds
+    from repro_torch.sched import ChurnSimulator
+    prob, _ = sparse_cell_instance(num_users=300, num_servers=64,
+                                   density=0.05, cells=8, multi_frac=0.2,
+                                   seed=4)
+    kw = dict(mechanism="tsf", layout="bucketed", fill="bisect",
+              round="jacobi", max_rounds=24, tol=0.0, device="cuda")
+    runs = []
+    for plain in (False, True):
+        if plain:
+            _patch_plain(monkeypatch)
+        sim = ChurnSimulator(prob, **kw)
+        before = _launches()
+        recs = [sim.step([], 0.0)] + sim.run(_churn_stream())
+        runs.append((sim, recs, [a - b for a, b in
+                                 zip(_launches(), before)]))
+    (sim, recs, launched), (p_sim, p_recs, p_launched) = runs
+    assert launched == [0, 5 * sum(r.rounds for r in recs), len(recs)]
+    assert p_launched == [0, 0, 0]
+    assert [r.rounds for r in recs] == [r.rounds for r in p_recs]
+    scale = max(1.0, float(np.abs(p_sim.x).max()))
+    np.testing.assert_allclose(sim.x, p_sim.x, rtol=0,
+                               atol=PATH_F32_REL * scale)
+    for a, b in zip(recs, p_recs):
+        assert abs(a.min_vds - b.min_vds) <= PATH_F32_REL * abs(b.min_vds)

@@ -174,8 +174,11 @@ def test_rejected_values_raise_value_error(kw):
                                 dict(placement="headroom"),
                                 dict(placement="bestfit")])
 def test_unported_values_raise_not_implemented(kw):
+    # what still raises: the numpy engine, and routed_allocation whatever
+    # the placement (headroom and bestfit tick: see the parity tests)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dynamic.DistributedPSDSF(_port(fig2_instance()), device="cpu", **kw)
+        dynamic.DistributedPSDSF(_port(fig2_instance()), device="cpu",
+                                 **kw).routed_allocation("tsf")
 
 
 def test_routed_allocation_raises_not_implemented():
@@ -191,3 +194,78 @@ def test_lexmm_ticks_like_level():
     for sim in (level, lexmm):
         sim.tick()
     np.testing.assert_array_equal(lexmm.x, level.x)
+
+
+@pytest.mark.parametrize("layout", ["dense", "bucketed"])
+@pytest.mark.parametrize("mode", ["rdm", "tdm"])
+@pytest.mark.parametrize("placement", ["headroom", "bestfit"])
+def test_repacking_ticks_match_numpy_oracle(placement, mode, layout):
+    # every tick ends with the host repack over the active users' gamma
+    # (the repack splits by headroom, and a saturated server's headroom is
+    # rounding noise of its capacity: the bound is the float64 one, 1e-9)
+    ref, port = _pair(_cell(), dict(engine="numpy", precision="highest"),
+                      placement=placement, layout=layout, mode=mode, seed=3)
+    _drive(ref)
+    _drive(port)
+    np.testing.assert_allclose(port.x, ref.x, rtol=0, atol=1e-9)
+    assert not port.x[7].any()
+
+
+@pytest.mark.parametrize("placement", ["headroom", "bestfit"])
+def test_repacking_ticks_fast_match_jax_engine(placement):
+    # R2: the reference's jax tick runs only at precision="fast"
+    ref, port = _pair(_cell(), dict(engine="jax", precision="fast"),
+                      placement=placement, fill="bisect", seed=5)
+    _drive(ref)
+    _drive(port)
+    scale = max(1.0, float(np.abs(ref.x).max()))
+    np.testing.assert_allclose(port.x, ref.x, rtol=0, atol=F32_REL * scale)
+
+
+def test_repacking_anderson_ticks_match_numpy_oracle():
+    ref, port = _pair(fig2_instance(), dict(engine="numpy",
+                                            precision="highest"),
+                      accel="anderson", placement="headroom")
+    for _ in range(12):
+        ref.tick()
+        port.tick()
+    assert (port.accel_hits, port.accel_rejects) == (ref.accel_hits,
+                                                     ref.accel_rejects)
+    np.testing.assert_allclose(port.x, ref.x, rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("placement", ["headroom", "bestfit"])
+def test_empty_tick_repacks_like_the_reference(placement):
+    # a tick over no server is the repack alone: from a state that piles
+    # each user's tasks on its first eligible server, it moves tasks, keeps
+    # every total and equals the reference's bit for bit
+    ref, port = _pair(_cell(), dict(engine="numpy", precision="highest"),
+                      placement=placement, layout="dense")
+    g = ref.gamma
+    first = np.argmax(g > 0, axis=1)
+    x0 = np.zeros(g.shape)
+    x0[np.arange(g.shape[0]), first] = 0.05 * g[np.arange(g.shape[0]), first]
+    for sim in (ref, port):
+        sim.x = x0.copy()
+        sim.tick(servers=[])
+    np.testing.assert_array_equal(port.x, ref.x)
+    assert np.abs(port.x - x0).max() > 1e-3
+    np.testing.assert_allclose(port.x.sum(axis=1), x0.sum(axis=1), rtol=0,
+                               atol=1e-12)
+
+
+def test_unknown_placement_is_a_key_error():
+    with pytest.raises(KeyError):
+        jax_dynamic.DistributedPSDSF(fig2_instance(), placement="nope")
+    with pytest.raises(KeyError) as err:
+        dynamic.DistributedPSDSF(_port(fig2_instance()), device="cpu",
+                                 placement="nope")
+    assert isinstance(err.value, ValueError)
+
+
+def test_min_vds_interpret_is_accepted_and_ignored():
+    port = dynamic.DistributedPSDSF(_port(_cell()), device="cpu")
+    port.tick()
+    for a, b in zip(port.min_vds(interpret=True),
+                    port.min_vds(interpret=False)):
+        np.testing.assert_array_equal(a, b)

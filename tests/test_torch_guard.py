@@ -1,7 +1,10 @@
 """Boundary guards of the port: it imports neither ``jax`` nor anything of
 ``repro``; its entry points run on the card unless asked for the CPU; its
 CUDA wrappers import on any machine and reach ``nvcc``/``ctypes`` only for
-CUDA tensors."""
+CUDA tensors; and it defines nothing under a name the reference's contract
+lint declares as a sink (the lint grounds sinks by base name across the
+whole of ``src/``)."""
+import ast
 import os
 import subprocess
 import sys
@@ -39,7 +42,8 @@ def test_port_modules_listed():
                  "kernels.decode_attention.ref", "configs.mamba2_1_3b",
                  "models.ssm", "kernels.ssd_scan.kernel",
                  "kernels.ssd_scan.ops", "kernels.ssd_scan.ref",
-                 "sched.churn", "core.dynamic", "core.batched"):
+                 "sched.churn", "core.dynamic", "core.batched",
+                 "core.placement_torch", "core.baselines_torch"):
         assert f"repro_torch.{name}" in PORT_MODULES, name
 
 
@@ -92,11 +96,31 @@ def test_entry_points_default_to_cuda(no_cuda):
                                           psdsf_resolve_batched,
                                           psdsf_solve_batched)
     from repro_torch.sched import ChurnSimulator
+    from repro_torch.core.baselines_torch import (
+        baseline_solve_batched_torch, baseline_solve_torch,
+        batch_level_rates_torch, level_rate_matrix_np, solve_baseline_torch)
+    from repro_torch.core.engine import _drf_torch, _uniform_torch
     prob = fig1_instance()
     g = gamma_matrix(prob)
+    lg = level_rate_matrix_np(prob, "tsf")
     stacked = [a[None] for a in (prob.demands, prob.capacities,
                                  prob.weights, g)]
     calls = [
+        lambda: engine.solve(prob, placement="headroom"),
+        lambda: engine.solve(prob, "tsf"),
+        lambda: engine.solve(prob, "cdrfh", placement="headroom"),
+        lambda: engine.solve(prob, "drf"),
+        lambda: engine.solve(prob, "uniform"),
+        lambda: _drf_torch(prob),
+        lambda: _uniform_torch(prob),
+        lambda: solve_baseline_torch(prob, "cdrf"),
+        lambda: baseline_solve_torch(prob.demands, prob.capacities,
+                                     prob.weights, lg),
+        lambda: baseline_solve_batched_torch(*stacked[:3], lg[None]),
+        lambda: batch_level_rates_torch([prob], "tsf"),
+        lambda: ChurnSimulator(prob, mechanism="tsf"),
+        lambda: ChurnSimulator(prob, placement="headroom"),
+        lambda: DistributedPSDSF(prob, placement="headroom"),
         lambda: resolve_device(),
         lambda: engine.solve(prob),
         lambda: psdsf_solve_torch(prob.demands, prob.capacities,
@@ -281,3 +305,34 @@ def test_unported_configs_name_their_roadmap_item():
             continue
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_config(arch)
+
+
+def _sink_names():
+    """The base names the reference's lint resolves as sinks: the
+    registry's allocators and every ``sinks`` entry of an entry point's
+    axis specs."""
+    from repro.analysis import contracts
+    names = set(contracts._ALLOCATOR_SINKS)
+    for specs in contracts.ENTRY_POINTS.values():
+        for spec in specs.values():
+            if isinstance(spec, dict):
+                names.update(spec.get("sinks", ()))
+    return names
+
+
+def test_no_definition_takes_a_lint_sink_name():
+    sinks = _sink_names()
+    assert {"_drf", "_uniform", "solve_tsf", "solve_baseline_jax",
+            "_solve_psdsf_via_jax"} <= sinks
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files += sorted((ROOT / "tests").glob("test_torch_*.py"))
+    assert len(files) > 40
+    found = []
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                 ast.ClassDef)) and node.name in sinks:
+                found.append(f"{path.relative_to(ROOT)}:{node.lineno} "
+                             f"{node.name}")
+    assert not found, "lint sink names defined: " + ", ".join(found)

@@ -189,11 +189,15 @@ def test_rejected_values_raise_value_error(kw):
         engine.solve(instances.fig1_instance(), device="cpu", **kw)
 
 
-@pytest.mark.parametrize("kw", [dict(mechanism="tsf"), dict(mechanism="drf"),
-                                dict(mechanism="uniform"),
+@pytest.mark.parametrize("kw", [dict(mechanism="tsf", placement="lexmm"),
+                                dict(mechanism="cdrf", placement="lexmm"),
+                                dict(mechanism="cdrfh", placement="lexmm"),
                                 dict(backend="numpy"),
-                                dict(placement="headroom")])
+                                dict(mechanism="drf", backend="numpy")])
 def test_unported_values_raise_not_implemented(kw):
+    # what still raises: the baselines' host lexmm router and the numpy
+    # backend (the baselines, drf, uniform and headroom run: see
+    # tests/test_torch_baselines.py and tests/test_torch_placement.py)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         engine.solve(instances.fig1_instance(), device="cpu", **kw)
 
