@@ -79,7 +79,30 @@ Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
    within PATH_F32_REL, bottleneck servers tie-aware; a baseline's split
    across a user's servers is not pinned by its fixed point, so it is
    printed, not held); one more tick profiled;
-13. holds the attention kernels against their plain versions at
+13. drives ``placement="lexmm"`` on a 2,000 x 64 cut of the pin's generator
+   (the router's LPs run on the host): ``engine.solve`` for tsf, cdrfh and
+   cdrf (no kernel), each held to the one-shot cold router (per-user
+   totals within 1e-6, equal stages; the cold routes run in a pool of
+   three processes beside the warm solves) and checked feasible, with the
+   LP path that ran (scipy's direct HiGHS wrapper or public ``linprog``);
+   ``ChurnSimulator(cut, "tsf", placement="lexmm")`` over t = 0 and 4
+   ticks of a seeded stream, one ``psdsf_vds`` launch a record, held
+   against the plain-driven stream (router fields equal, per-user totals
+   and min_vds within PATH_F32_REL, bottleneck servers tie-aware); and
+   ``DistributedPSDSF(cut).routed_allocation("tsf")`` across a departure,
+   an arrival and no change (modes warm, incremental, fallback, verify);
+14. drives the scheduler layers on seeded fleets of 20,000 jobs on 256
+   pods and 20,000 tenants on 256 replica groups: ``schedule_detail``
+   (float64, Jacobi rounds of the bisect fill, ``SCHED_ROUNDS``) on the
+   dense layout, on the buckets and at ``layout="auto"``, 6 launches of
+   the layout's fill kernel a round, each held against its plain-driven
+   twin and dense against bucketed (1e-9, equal rounds);
+   ``admitted_rates`` the same way on the dense layout (4 launches a
+   round); ``DynamicDispatcher`` (float32, bisect) for three full ticks
+   with tenant departures, on the card and on the CPU, and its
+   ``min_vds`` against the plain version; one ``schedule_detail``
+   profiled for the idle share;
+15. holds the attention kernels against their plain versions at
    qwen3_1_7b's widths (16 query and 8 kv heads, head_dim 128, bfloat16):
    ``flash_attention`` at S 1,024, a ragged S 1,000, 512 and 128 (each call
    must take its Hopper body: TMA and wgmma), ``decode_attention`` over 8
@@ -89,7 +112,7 @@ Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
    calls, in turns (kernel, SDPA, SDPA, kernel); then times the Hopper
    flash body at both of its block sizes (64 and 128 query rows) at S 128
    to 1,024 beside the one its wrapper picks;
-14. drives the serving path with every launch count set to 0: a
+16. drives the serving path with every launch count set to 0: a
    ``ServingEngine`` on the full qwen3_1_7b config in bfloat16 (params from
    the port's seeded init on the card), 8 slots of 2,048 rows, 16 requests
    from two tenants (gold weight 2, free weight 1) with prompts of 128-1,024
@@ -97,23 +120,23 @@ Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
    logits and that every prefill launched ``flash_attention`` (its Hopper
    body) and every decode step ``decode_attention`` once per layer; then
    profiles a short serving window for the device's idle share;
-15. runs a 2-layer full-width model on the card with the kernels and again
+17. runs a 2-layer full-width model on the card with the kernels and again
    with the plain versions, on the same params and tokens, and holds the
    prefill and decode logits of the two runs together;
-16. holds ``ssd_scan`` against its plain version (float32 on the card) at
+18. holds ``ssd_scan`` against its plain version (float32 on the card) at
    mamba2_1_3b's prefill shape (B 1, S 1,024, 64 heads x 64, N 128, chunk
    128) in bfloat16, at a ragged S 1,000, at S 512 and in float32, called
    as the model calls it (``ops.ssd_chunked`` on slices of one conv
    output, y written through strides): y and the final state; times both
    (no single PyTorch call computes it);
-17. drives the Mamba-2 serving path the same way, counts set to 0 again:
+19. drives the Mamba-2 serving path the same way, counts set to 0 again:
    a ``ServingEngine`` on the full mamba2_1_3b config in bfloat16, 8
    slots, the same 16 requests' shape of traffic; checks completion,
    token ids, finite logits and one ``ssd_scan`` launch per layer and
    prefill; profiles a short window for the idle share; then holds a
    2-layer full-width model's logits with the kernel against the plain
    version's;
-18. prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and as its
+20. prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and as its
    last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the last line. Without a CUDA device,
@@ -181,6 +204,28 @@ KERNELS = ("psdsf_fill", "psdsf_fill_bucketed", "psdsf_vds",
 
 #: per-body launch counts beside ``.launches`` (flash_attention's two)
 BODY_COUNTS = ("hopper_launches", "cuda_core_launches")
+
+
+#: Jacobi rounds of the scheduler phase's solves (``schedule_detail`` and
+#: ``admitted_rates`` keep ``ensure_converged`` on: a budget the fleet
+#: does not converge in raises, and is raised here, never caught)
+SCHED_ROUNDS = 32
+
+
+def cold_route_totals(src, demands, capacities, weights, eligibility,
+                      mechanism):
+    """Process-pool worker of the lexmm phase: the one-shot cold router's
+    per-user totals, stages and wall (s) on the given problem."""
+    if src not in sys.path:
+        sys.path.insert(0, src)
+    from repro_torch.core.baselines_torch import level_rate_matrix_np
+    from repro_torch.core.flowrouter import lexmm_route_cold_np
+    from repro_torch.core.types import AllocationProblem
+    prob = AllocationProblem(demands, capacities, weights, eligibility)
+    t0 = time.perf_counter()
+    x, stages = lexmm_route_cold_np(prob,
+                                    level_rate_matrix_np(prob, mechanism))
+    return x.sum(axis=1), stages, time.perf_counter() - t0
 
 
 def reset_counts(counters):
@@ -1561,6 +1606,414 @@ class Smoke:
             tick_wall_ms=[w * 1e3 for w in walls], max_dx=dx,
             max_dtotal=dtot, bottleneck_moved=moved, profiled_tick=prof)
 
+    # -- the host lexmm router and the scheduler layers -----------------------
+    def lexmm_path(self):
+        """``placement="lexmm"`` on the cut, through its three entries:
+        (a) ``engine.solve`` for tsf, cdrfh and cdrf (host LPs, no kernel),
+        each held to the one-shot cold router (per-user totals, 1e-6 x
+        max(1, max total); the cold routes run in a process pool while
+        the rest of the phase runs) and checked feasible; (b)
+        ``ChurnSimulator(cut, "tsf", placement="lexmm")`` over t = 0 and 4
+        ticks of a seeded stream, counts set to 0 just before and read
+        just after (one ``psdsf_vds`` launch a record, nothing else), held
+        against the same stream with the plain versions patched in; (c)
+        ``DistributedPSDSF(cut).routed_allocation("tsf")`` across a
+        departure, an arrival and no change, with its router modes."""
+        import concurrent.futures
+        import multiprocessing
+        import numpy as np
+        import scipy
+        from repro_torch.core import engine
+        from repro_torch.core.baselines_torch import level_rate_matrix_np
+        from repro_torch.core.flowrouter import RouterState
+        from repro_torch.core.instances import sparse_cell_instance
+        # a cut of the pin's generator: a from-scratch cold route of the
+        # full pin does not end within a run's time (PERF.md section 4)
+        cut, _ = sparse_cell_instance(
+            num_users=200 if self.rehearse else 2000,
+            num_servers=16 if self.rehearse else 64)
+        lp_path = ("direct HiGHS wrapper"
+                   if RouterState(cut, level_rate_matrix_np(cut, "tsf"))
+                   ._direct is not None else "public linprog")
+        print(f"  cut {cut.num_users}x{cut.num_servers}, density "
+              f"{float((cut.eligibility > 0).mean()):.4f}; LP path "
+              f"{lp_path} (scipy {scipy.__version__})")
+        mechs = ("tsf", "cdrfh", "cdrf")
+        counters = wrappers()
+        solves = {}
+        spawn = multiprocessing.get_context("spawn")
+        with concurrent.futures.ProcessPoolExecutor(
+                len(mechs), mp_context=spawn) as pool:
+            colds = {m: pool.submit(cold_route_totals, str(ROOT / "src"),
+                                    cut.demands, cut.capacities, cut.weights,
+                                    cut.eligibility, m) for m in mechs}
+            reset_counts(counters)
+            for m in mechs:
+                self.sync()
+                t0 = time.perf_counter()
+                alloc, info = engine.solve(cut, m, placement="lexmm",
+                                           device=self.device)
+                self.sync()
+                solves[m] = (alloc, info, time.perf_counter() - t0)
+            launches = {name: fn.launches for name, fn in counters.items()}
+            self.check_launches(launches, {}, "lexmm solves")
+            churn = self.lexmm_churn(cut, counters)
+            routed = self.lexmm_routed(cut, solves["tsf"][0].x)
+            colds = {m: f.result() for m, f in colds.items()}
+        runs = {}
+        for m in mechs:
+            alloc, info, wall = solves[m]
+            tot_c, stages_c, cold_s = colds[m]
+            tot = alloc.x.sum(axis=1)
+            scale = max(1.0, float(np.abs(tot_c).max()))
+            d = float(np.abs(tot - tot_c).max())
+            over = self.check_feasible(cut, alloc.x, f"lexmm {m}", rel=1e-6)
+            print(f"  {m} lexmm: {wall:.3f} s wall, {info.rounds} stages "
+                  f"(cold {stages_c}, {cold_s:.1f} s), stranded "
+                  f"{info.stranded_frac:.5f}, vs cold per-user totals "
+                  f"max|d|={d:.3e} (bound {1e-6 * scale:.1e}), max(usage - "
+                  f"capacity) {over:.3e}")
+            self.check(info.placement == "lexmm" and info.converged
+                       and d <= 1e-6 * scale and info.rounds == stages_c,
+                       f"lexmm {m}: warm router disagrees with the cold one")
+            runs[m] = dict(wall_s=wall, stages=info.rounds,
+                           cold_s=cold_s, max_dtotal=d,
+                           stranded=info.stranded_frac)
+        self.paths["lexmm"] = dict(
+            launches={name: churn["launches"][name] + launches[name]
+                      for name in counters},
+            lp_path=lp_path, scipy=scipy.__version__, solves=runs,
+            churn=churn, routed=routed)
+
+    def lexmm_churn(self, cut, counters):
+        """The lexmm churn stream on the cut: t = 0 and 4 ticks of a
+        seeded stream through ``ChurnSimulator(cut, "tsf",
+        placement="lexmm")``, once with the kernels (counted) and once
+        with the plain versions; returns the run's record of it."""
+        import itertools
+        import numpy as np
+        from repro_torch.core.dynamic import min_vds_guarded
+        from repro_torch.sched import ChurnSimulator, poisson_churn_events
+        arr, dep = (0.5, 1.0) if self.rehearse else (0.5, 3.0)
+        events = poisson_churn_events(cut.num_users, cut.num_servers,
+                                      horizon=4, arrival_rate=arr,
+                                      departure_rate=dep, degrade_rate=0.25,
+                                      seed=2)
+        batches = [(0.0, [])] + [(t, list(evs)) for t, evs in
+                                 itertools.groupby(events, lambda e: e.time)]
+
+        def run(plain=False):
+            records, walls, mins = [], [], []
+            with (self.plain_versions() if plain
+                  else contextlib.nullcontext()):
+                sim = ChurnSimulator(cut, mechanism="tsf", placement="lexmm",
+                                     device=self.device)
+                for t, evs in batches:
+                    self.sync()
+                    t0 = time.perf_counter()
+                    records.append(sim.step(evs, t))
+                    self.sync()
+                    walls.append(time.perf_counter() - t0)
+                    if plain:      # per-server minima, for the tie check
+                        mn, _ = min_vds_guarded(sim.x, cut.weights,
+                                                sim._gamma(), sim.active,
+                                                device=self.device)
+                        mins.append(mn.cpu().numpy())
+            return sim, records, walls, mins
+
+        reset_counts(counters)
+        sim, records, walls, _ = run()
+        launches = {name: fn.launches for name, fn in counters.items()}
+        for rec, wall in zip(records, walls):
+            print(f"    t={rec.time:.0f}: {rec.n_events} events, "
+                  f"{rec.rounds} stages, lp_calls {rec.lp_calls}, warm_hits "
+                  f"{rec.warm_hits}, warm_fallbacks {rec.warm_fallbacks}, "
+                  f"mode {rec.router_mode}, solve_ms {rec.solve_ms:.1f}, "
+                  f"tick wall {wall * 1e3:.1f} ms")
+        print(f"  lexmm churn launches {launches}")
+        self.check_launches(launches, {"psdsf_vds": len(records)},
+                            "lexmm churn")
+        p_sim, p_records, _, p_mins = run(plain=True)
+        fields = ("rounds", "lp_calls", "warm_hits", "warm_fallbacks",
+                  "router_mode")
+        self.check(all(getattr(a, f) == getattr(b, f) for a, b in
+                       zip(records, p_records) for f in fields),
+                   "lexmm churn: router fields differ from the plain run")
+        tot, p_tot = sim.x.sum(axis=1), p_sim.x.sum(axis=1)
+        scale = max(1.0, float(np.abs(p_tot).max()))
+        dtot = float(np.abs(tot - p_tot).max())
+        vds = max(abs(a.min_vds - b.min_vds) / abs(b.min_vds)
+                  for a, b in zip(records, p_records))
+        moved = [j for j, (a, b) in enumerate(zip(records, p_records))
+                 if a.bottleneck_server != b.bottleneck_server]
+        # P7: the card's pick must attain the plain run's minimum
+        ties_ok = all(p_mins[j][records[j].bottleneck_server]
+                      <= p_records[j].min_vds * (1 + PATH_F32_REL)
+                      for j in moved)
+        print(f"  kernel-driven vs plain-driven lexmm churn: router fields "
+              f"equal, per-user totals max|d|={dtot:.3e} (bound "
+              f"{PATH_F32_REL * scale:.1e}), min_vds rel {vds:.2e}, "
+              f"bottleneck servers differ on {len(moved)} records, each a "
+              f"tie within the bound: {ties_ok}")
+        self.check(dtot <= PATH_F32_REL * scale and vds <= PATH_F32_REL
+                   and ties_ok, "lexmm churn: out of bounds")
+        return dict(launches=launches,
+                    stages=[r.rounds for r in records],
+                    lp_calls=[r.lp_calls for r in records],
+                    warm_hits=[r.warm_hits for r in records],
+                    modes=[r.router_mode for r in records],
+                    solve_ms=[r.solve_ms for r in records],
+                    tick_wall_ms=[w * 1e3 for w in walls],
+                    max_dtotal=dtot, bottleneck_moved=len(moved))
+
+    def lexmm_routed(self, cut, x_tsf):
+        """``DistributedPSDSF(cut).routed_allocation("tsf")``: all active,
+        after a departure, after the same user's return and with no
+        change; modes warm, incremental, fallback, verify, the first
+        equal to the lexmm solve ``x_tsf``."""
+        import numpy as np
+        from repro_torch.core.dynamic import DistributedPSDSF
+        dyn = DistributedPSDSF(cut, device=self.device)
+        user = int(np.argmax(x_tsf.sum(axis=1)))
+        modes, xs, walls = [], [], []
+        for change in (None, (user, False), (user, True), None):
+            if change is not None:
+                dyn.set_active(*change)
+            t0 = time.perf_counter()
+            xs.append(dyn.routed_allocation("tsf").x)
+            walls.append(time.perf_counter() - t0)
+            st = dyn.router_stats
+            modes.append(st.mode)
+            print(f"    routed_allocation after {change or 'no change'}: "
+                  f"mode {st.mode}, {st.stages} stages, lp_calls "
+                  f"{st.lp_calls}, warm_hits {st.warm_hits}, "
+                  f"{walls[-1]:.3f} s")
+        d_first = float(np.abs(xs[0] - x_tsf).max())
+        d_last = float(np.abs(xs[3].sum(axis=1) - xs[0].sum(axis=1)).max())
+        self.check(modes == ["warm", "incremental", "fallback", "verify"]
+                   and d_first <= F64_ATOL
+                   and d_last <= 1e-6 * max(1.0, float(xs[0].max())),
+                   f"routed_allocation: modes {modes}, |dx| {d_first:.2e} "
+                   f"/ {d_last:.2e}")
+        return dict(modes=modes, walls_s=walls)
+
+    def sched_fleets(self):
+        """The scheduler phase's seeded fleets, at the scale PERF.md
+        section 1 names (about 20,000 tenants on 256 servers; 800 on 32 in
+        a rehearsal): 256 ``TPUPod``s of 16 kinds (4 generations x 4 slice
+        sizes, HBM a chip by generation, DCN on some), two failed and
+        three degraded, and 20,000 ``TenantJob``s allowed on one or two
+        kinds, some with an HBM-per-chip floor or a DCN need; 256
+        ``ReplicaGroup``s with 4k-128k context windows and 20,000
+        ``Tenant``s."""
+        import numpy as np
+        from repro_torch.sched import (Cluster, ReplicaGroup, Tenant,
+                                       TenantJob, TPUPod)
+        rng = np.random.default_rng(23)
+        n_srv, n_usr = (32, 800) if self.rehearse else (256, 20000)
+        hbm = {"v4": 32.0, "v5e": 16.0, "v5p": 95.0, "v6e": 32.0}
+        kinds = [(g, c) for g in hbm for c in (16, 64, 128, 256)]
+        pods = []
+        for i in range(n_srv):
+            gen, chips = kinds[i % len(kinds)]
+            pods.append(TPUPod(
+                f"pod{i}", f"{gen}-{chips}", chips, hbm[gen],
+                float(chips * rng.uniform(2.0, 6.0)),
+                float(chips * rng.uniform(20.0, 60.0)),
+                float(rng.choice([0.0, 25.0, 100.0]))))
+        fleet = Cluster(pods)
+        for i in rng.choice(n_srv, 5, replace=False)[:2]:
+            fleet.mark_failed(f"pod{i}")
+        for i in rng.choice(n_srv, 3, replace=False):
+            fleet.degrade(f"pod{i}", float(rng.uniform(0.4, 0.9)))
+        names = [f"{g}-{c}" for g, c in kinds]
+        jobs = []
+        for j in range(n_usr):
+            chips = float(rng.choice([4.0, 8.0, 16.0]))
+            allow = tuple(rng.choice(names, 1 if rng.random() < 0.85 else 2,
+                                     replace=False))
+            dcn = bool(rng.random() < 0.3)
+            jobs.append(TenantJob(
+                f"job{j}", float(rng.uniform(0.5, 2.0)), chips,
+                chips * float(rng.uniform(4.0, 16.0)),
+                chips * float(rng.uniform(1.0, 4.0)),
+                chips * float(rng.uniform(5.0, 30.0)),
+                float(rng.uniform(1.0, 10.0)) if dcn else 0.0,
+                min_hbm_per_chip=float(rng.choice([0.0, 0.0, 24.0, 64.0])),
+                generations=allow, needs_dcn=dcn))
+        contexts = (4096, 8192, 32768, 131072)
+        groups = [ReplicaGroup(
+            f"group{i}", float(rng.choice([32, 64, 128, 256])),
+            float(rng.uniform(40.0, 640.0)), float(rng.uniform(2e4, 2e5)),
+            max_context=int(contexts[i % 4])) for i in range(n_srv)]
+        tenants = []
+        for t in range(n_usr):
+            ctx = int(rng.choice([2048, 4096, 8192, 32768, 131072],
+                                 p=[0.3, 0.3, 0.2, 0.15, 0.05]))
+            tenants.append(Tenant(
+                f"tenant{t}", float(rng.uniform(0.5, 2.0)), ctx,
+                ctx / 8192 * float(rng.uniform(0.2, 1.0)),
+                float(rng.uniform(256.0, 8192.0))))
+        return fleet, jobs, groups, tenants
+
+    def scheduler_path(self):
+        """The scheduler layers on the seeded fleets: ``schedule_detail``
+        (PS-DSF RDM, float64, Jacobi rounds of the bisect fill,
+        ``max_rounds`` ``SCHED_ROUNDS`` at tol 1e-6, ``ensure_converged``
+        on) on the dense layout and on the buckets, each with counts set to
+        0 just before and read just after ((R+1) launches of the layout's
+        fill kernel a round, R = 5) and held against its plain-driven
+        twin, dense against bucketed (1e-9, equal rounds), and once at
+        ``layout="auto"``; ``admitted_rates`` on the dispatch fleet the
+        same way on the dense layout (R = 3); ``DynamicDispatcher``
+        (float32, bisect) for full ticks and tenant churn on the card and
+        on the CPU, its ``min_vds`` (one ``psdsf_vds`` launch) against the
+        plain version; one ``schedule_detail`` profiled."""
+        import numpy as np
+        from repro_torch.core.layout import BucketedLayout
+        from repro_torch.sched import (DynamicDispatcher, admitted_rates,
+                                       dispatch_problem, schedule_detail)
+        fleet, jobs, groups, tenants = self.sched_fleets()
+        prob = fleet.problem(jobs)
+        lay = BucketedLayout.from_cluster(fleet, jobs)
+        print(f"  cluster {prob.num_users} jobs x {prob.num_servers} pods x "
+              f"{prob.num_resources} resources: eligibility density "
+              f"{lay.density:.4f}, bucket_max {lay.bucket_max}")
+        kw = dict(fill="bisect", round="jacobi", max_rounds=SCHED_ROUNDS,
+                  device=self.device)
+        kernel = {"dense": "psdsf_fill", "bucketed": "psdsf_fill_bucketed"}
+        counters = wrappers()
+        total = {name: 0 for name in counters}
+        runs = {}
+        for layout in ("dense", "bucketed", "auto"):
+            reset_counts(counters)
+            self.sync()
+            t0 = time.perf_counter()
+            alloc, info = schedule_detail(fleet, jobs, layout=layout, **kw)
+            self.sync()
+            wall = time.perf_counter() - t0
+            launches = {name: fn.launches for name, fn in counters.items()}
+            for name in counters:
+                total[name] += launches[name]
+            self.check_launches(
+                launches, {kernel[info.layout]: (prob.num_resources + 1)
+                           * info.rounds}, f"schedule {layout}")
+            over = self.check_feasible(prob, alloc.x, f"schedule {layout}")
+            print(f"  schedule_detail layout={layout} -> {info.layout}: "
+                  f"{wall:.3f} s wall, {info.rounds} rounds, residual "
+                  f"{info.residual:.3e} (converged {info.converged}, "
+                  f"approx {info.approx}), bucket_max {info.bucket_max}, "
+                  f"stranded {info.stranded_frac:.5f}, launches "
+                  f"{launches[kernel[info.layout]]}, max(usage - capacity) "
+                  f"{over:.3e}")
+            runs[layout] = (alloc, info, wall)
+            if layout == "auto":
+                continue
+            with self.plain_versions():
+                plain, p_info = schedule_detail(fleet, jobs, layout=layout,
+                                                **kw)
+            diff = float(np.abs(plain.x - alloc.x).max())
+            print(f"    vs plain-driven: max|dx|={diff:.3e}, rounds "
+                  f"{p_info.rounds}")
+            self.check(diff <= F64_ATOL and p_info.rounds == info.rounds,
+                       f"schedule {layout}: kernel and plain runs disagree")
+        (d_alloc, d_info, _), (b_alloc, b_info, _) = (runs["dense"],
+                                                      runs["bucketed"])
+        diff = float(np.abs(d_alloc.x - b_alloc.x).max())
+        print(f"  dense vs bucketed: max|dx|={diff:.3e}, rounds "
+              f"{d_info.rounds} / {b_info.rounds}")
+        self.check(diff <= F64_ATOL and d_info.rounds == b_info.rounds,
+                   "schedule: dense and bucketed disagree")
+        # admitted_rates on the dispatch fleet, dense
+        from repro_torch.core import engine
+        dprob = dispatch_problem(groups, tenants)
+        print(f"  dispatch {dprob.num_users} tenants x {dprob.num_servers} "
+              f"groups: eligibility density "
+              f"{float((dprob.eligibility > 0).mean()):.4f}")
+
+        reset_counts(counters)
+        self.sync()
+        t0 = time.perf_counter()
+        out = admitted_rates(groups, tenants, layout="dense", **kw)
+        self.sync()
+        r_wall = time.perf_counter() - t0
+        r_launches = {name: fn.launches for name, fn in counters.items()}
+        x_rates = np.array([list(out[t.name].values()) for t in tenants])
+        for name in counters:
+            total[name] += r_launches[name]
+        # the plain-driven twin: the solve admitted_rates makes, with the
+        # plain versions patched in (its info gives the rounds)
+        with self.plain_versions():
+            plain, p_info = engine.solve(dprob, layout="dense", **kw)
+        self.check_launches(r_launches, {"psdsf_fill": (dprob.num_resources
+                                                        + 1) * p_info.rounds},
+                            "admitted_rates")
+        self.check_feasible(dprob, x_rates, "admitted_rates")
+        diff = float(np.abs(plain.x - x_rates).max())
+        print(f"  admitted_rates: {r_wall:.3f} s wall (the solve and "
+              f"{x_rates.size} dict entries), {p_info.rounds} rounds, "
+              f"residual {p_info.residual:.3e}, launches "
+              f"{r_launches['psdsf_fill']}, vs plain-driven "
+              f"max|dx|={diff:.3e}")
+        self.check(diff <= F64_ATOL, "admitted_rates: kernel and plain "
+                                     "runs disagree")
+
+        # DynamicDispatcher: ticks on the card and on the CPU
+        churned = [t.name for t in tenants[:: max(1, len(tenants) // 8)]]
+
+        def dispatch(device):
+            disp = DynamicDispatcher(groups, tenants, precision="fast",
+                                     fill="bisect", device=device)
+            walls = []
+            for step in range(3):
+                if step == 2:
+                    for name in churned:
+                        disp.set_active(name, False)
+                t0 = time.perf_counter()
+                disp.tick()
+                walls.append(time.perf_counter() - t0)
+            return disp, walls
+
+        reset_counts(counters)
+        disp, walls = dispatch(self.device)
+        mn, arg = disp.sim.min_vds()
+        t_launches = {name: fn.launches for name, fn in counters.items()}
+        for name in counters:
+            total[name] += t_launches[name]
+        self.check_launches(t_launches, {"psdsf_vds": 1},
+                            "dispatcher ticks")
+        with self.plain_versions():
+            mn_p, arg_p = disp.sim.min_vds()
+        self.check(bool(np.array_equal(mn, mn_p)),
+                   "dispatcher min_vds: kernel and plain version differ")
+        cpu, c_walls = dispatch("cpu")
+        scale = max(1.0, float(np.abs(cpu.sim.x).max()))
+        dx = float(np.abs(disp.sim.x - cpu.sim.x).max())
+        print(f"  DynamicDispatcher layout={disp.sim.layout}: tick walls "
+              f"{[round(w, 3) for w in walls]} s on the card, "
+              f"{[round(w, 3) for w in c_walls]} s on the CPU ({len(churned)}"
+              f" tenants departed before the third); min_vds equal to its "
+              f"plain version; card vs CPU max|dx|={dx:.3e} (bound "
+              f"{PATH_F32_REL * scale:.1e})")
+        self.check(dx <= PATH_F32_REL * scale,
+                   "dispatcher: card and CPU ticks disagree")
+        self.check(not disp.sim.x[[t.name for t in tenants].index(
+            churned[0])].any(), "a departed tenant kept its quota")
+        prof = self.profile_window(
+            "schedule_detail, dense", lambda: schedule_detail(
+                fleet, jobs, layout="dense", **kw),
+            {"psdsf_fill": "fill_event_kernel"})
+        self.paths["scheduler"] = dict(
+            launches=total, density=lay.density, bucket_max=lay.bucket_max,
+            schedule={layout: dict(wall_s=w, rounds=i.rounds,
+                                   residual=i.residual, layout=i.layout)
+                      for layout, (_, i, w) in runs.items()},
+            admitted_rates=dict(wall_s=r_wall, rounds=p_info.rounds,
+                                residual=p_info.residual),
+            dispatcher=dict(layout=disp.sim.layout, tick_walls_s=walls,
+                            cpu_tick_walls_s=c_walls),
+            profiled_schedule=prof)
+
     # -- attention kernels and the serving path -----------------------------
     def llm_config(self, layers=None, arch="qwen3_1_7b"):
         """``arch`` at full width in bfloat16 (its smoke config in a
@@ -2226,6 +2679,8 @@ def main(argv=None) -> int:
         smoke.phase("headroom path", smoke.headroom_path)
         smoke.phase("baseline path", smoke.baseline_path)
         smoke.phase("baseline churn", smoke.baseline_churn)
+        smoke.phase("lexmm path", smoke.lexmm_path)
+        smoke.phase("scheduler path", smoke.scheduler_path)
     smoke.phase("flash_attention vs plain", smoke.flash_vs_plain)
     smoke.phase("flash tile plans", smoke.flash_plans)
     smoke.phase("decode_attention vs plain", smoke.decode_vs_plain)

@@ -17,9 +17,10 @@ mix, re-derived at each saturation event; plain torch, as the reference
 leaves it to jnp outside any kernel.
 
 DRF on the pooled cluster and the uniform split are host closed forms,
-copied here under names of their own. ``placement="lexmm"`` (host LP flow
-certificates) is not ported: ROADMAP.md queue 1 item 5 (baselines: host
-lexmm router).
+copied here under names of their own. ``placement="lexmm"`` runs the exact
+flow router on the host (``flowrouter.lexmm_route_np``, scipy LP
+certificates), as the reference's ``solve_baseline_jax`` does: only that
+Allocation-level entry takes it, and the array-level entries reject it.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device, to_device
+from .flowrouter import lexmm_route_np
 from .gamma import gamma_matrix, gamma_matrix_torch
 from .layout import BucketedLayout, resolve_layout
 from .psdsf_torch import (_BIG, _TOL, ACCEL_ENGINES, _check_buckets,
@@ -42,7 +44,6 @@ LEVEL_FILL_MECHANISMS = ("cdrfh", "tsf", "cdrf")
 #: midpoint corrector passes of the routed fill between saturation events
 #: (``placement.ROUTED_FILL_CORRECTORS``)
 ROUTED_FILL_CORRECTORS = 2
-LEXMM_NOT_PORTED = "ROADMAP.md queue 1 item 5 (baselines: host lexmm router)"
 
 
 def _unknown_mechanism(mechanism: str) -> ValueError:
@@ -354,16 +355,18 @@ def solve_baseline_torch(problem: AllocationProblem, mechanism: str,
                          ) -> Tuple[Allocation, SolveInfo]:
     """Solve ``problem`` under the baseline ``mechanism`` ("cdrfh", "tsf",
     "cdrf") on ``device`` (default ``cuda``); the port of
-    ``baselines_jax.solve_baseline_jax`` without its lexmm branch.
-    Returns the ``(Allocation, SolveInfo)`` pair with every field the
-    reference fills.
+    ``baselines_jax.solve_baseline_jax``. Returns the ``(Allocation,
+    SolveInfo)`` pair with every field the reference fills.
 
     ``layout`` resolves on the host from the level rates' support, as in
     ``engine.solve``; the routed ``placement="headroom"`` fill runs dense
     (an explicit ``"bucketed"`` is rejected), reports its events as rounds,
-    no fill engine and no fill iterations. ``placement="lexmm"`` raises
-    ``NotImplementedError`` (ROADMAP.md queue 1 item 5, baselines: host
-    lexmm router).
+    no fill engine and no fill iterations. ``placement="lexmm"`` runs the
+    exact flow router on the host (``flowrouter.lexmm_route_np``): dense
+    only, as in the reference, with its stages as rounds, a zero residual
+    and no fill engine; the router's LP counters stay at 0, as on the
+    reference's jitted backend. ``device`` is checked all the same, though
+    no LP runs there.
     """
     dev = resolve_device(device)
     g = gamma_matrix(problem)      # computed once: level rates AND scale
@@ -383,9 +386,12 @@ def solve_baseline_torch(problem: AllocationProblem, mechanism: str,
         _reject_routed_bucketed(placement, layout)
         resolved = "dense"
     if placement == "lexmm":
-        raise NotImplementedError(
-            f"placement='lexmm' for mechanism {mechanism!r} is not ported "
-            f"to repro_torch yet: {LEXMM_NOT_PORTED}")
+        x, stages = lexmm_route_np(problem, lg)
+        return (Allocation(problem, x),
+                SolveInfo(stages, True, 0.0, placement="lexmm",
+                          fill_engine="", accel=accel,
+                          stranded_frac=stranded_fraction(problem, x,
+                                                          gamma=g)))
     out = baseline_solve_torch(
         problem.demands, problem.capacities, problem.weights, lg, x0=x0,
         max_rounds=max_rounds, tol=tol, placement=placement, fill=fill,

@@ -21,9 +21,12 @@ kernel for tensors on the card.
 as the reference does, through the port's host numpy copy of
 ``placement.repack_pass`` (``placement_torch.repack_pass_np``).
 
-Not ported, and raising ``NotImplementedError`` with the ROADMAP item: the
-numpy oracle engine (the numpy solvers stay in the reference) and
-``routed_allocation`` (queue 1 item 5, baselines: host lexmm router).
+``routed_allocation`` reads a global-share mechanism's exact lexmm-routed
+quota beside the tick, through one persistent host ``flowrouter.
+RouterState`` a mechanism, as the reference does.
+
+Not ported, and raising ``NotImplementedError``: the numpy oracle engine
+(the numpy solvers stay in the reference).
 """
 from __future__ import annotations
 
@@ -34,6 +37,8 @@ import torch
 
 from ..device import DeviceLike, resolve_device, to_device
 from ..kernels.psdsf_vds.ops import min_vds
+from .baselines_torch import level_rate_matrix_np
+from .flowrouter import RouterState
 from .gamma import gamma_matrix
 from .layout import BucketedLayout, resolve_layout
 from .placement_torch import repack_pass_np
@@ -172,6 +177,9 @@ class DistributedPSDSF:
         self.x = np.zeros((problem.num_users, problem.num_servers))
         self.active = np.ones(problem.num_users, dtype=bool)
         self._rng = np.random.default_rng(seed)
+        self._router = None          # persistent lexmm router (comparator)
+        self._router_mech: Optional[str] = None
+        self.router_stats = None     # RouterStats of the last routed call
         dt = torch.float64 if precision == "highest" else torch.float32
         dev = self.device
         self._dtype = dt
@@ -304,11 +312,23 @@ class DistributedPSDSF:
                                 greedy=self.placement == "bestfit")
 
     def routed_allocation(self, mechanism: str = "tsf") -> Allocation:
-        """The reference's exact lexmm-routed allocation of a global-share
-        mechanism, certified by host-side LP solves."""
-        raise NotImplementedError(
-            f"routed_allocation({mechanism!r}) is not ported to repro_torch "
-            f"yet: ROADMAP.md queue 1 item 5 (baselines: host lexmm router)")
+        """Exact lexmm-routed allocation of a *global-share* mechanism
+        ("cdrfh", "tsf", "cdrf") under the current activity mask, certified
+        by host-side LP solves (``flowrouter``).
+
+        One persistent warm ``RouterState`` a mechanism takes the
+        ``set_active`` churn as an activity delta: an unchanged mask
+        re-verifies the cached stage trace (one LP per stage), departures
+        re-solve only the unfrozen suffix, arrivals fall back to a full
+        matrix-warm solve flagged in ``self.router_stats.warm_fallbacks``.
+        """
+        if self._router is None or self._router_mech != mechanism:
+            lg = level_rate_matrix_np(self.problem, mechanism)
+            self._router = RouterState(self.problem, lg)
+            self._router_mech = mechanism
+        x, stats = self._router.resolve(active=self.active)
+        self.router_stats = stats
+        return Allocation(self.problem, x)
 
     # -- telemetry ----------------------------------------------------------
     def min_vds(self, interpret: bool = True):

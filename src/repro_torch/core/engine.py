@@ -20,9 +20,17 @@ relaxation) and ``uniform`` through :func:`_drf_torch` /
 :func:`_uniform_torch`, which accept only the default placement, fill,
 round, layout and accel, as the reference's ``_reject_placement`` does.
 
-Not ported, and raising ``NotImplementedError`` with the ROADMAP item: the
-numpy backend and ``placement="lexmm"`` for the global-share mechanisms
-(queue 1 item 5, baselines: host lexmm router).
+``placement="lexmm"`` is the identity on the level solve for PS-DSF and,
+for the global-share mechanisms, the exact flow router on the host
+(``flowrouter.lexmm_route_np``, scipy LP certificates), as on the
+reference's jitted backend.
+
+``ensure_converged`` is the shared acceptance check the scheduling layers
+(``sched.cluster``, ``sched.serving``) call on a solve's ``SolveInfo``;
+it raises ``ConvergenceError``.
+
+Not ported, and raising ``NotImplementedError``: the numpy backend (the
+numpy solvers stay in the reference).
 """
 from __future__ import annotations
 
@@ -43,6 +51,24 @@ PSDSF_MECHANISMS = ("psdsf-rdm", "psdsf-tdm")
 #: closed forms
 BASELINE_MECHANISMS = ("cdrf", "cdrfh", "drf", "tsf", "uniform")
 BACKENDS = ("torch", "numpy")
+
+
+class ConvergenceError(RuntimeError):
+    """A solve ended outside even the loose acceptance tolerance."""
+
+
+def ensure_converged(info: SolveInfo, what: str = "allocator") -> SolveInfo:
+    """Shared acceptance check for scheduling layers.
+
+    Accepts tight or loose (``approx``) convergence — the same level the jax
+    engine certifies at — and raises ``ConvergenceError`` (never a stripped
+    ``assert``) otherwise, with the residual in the message.
+    """
+    if not info.converged:
+        raise ConvergenceError(
+            f"{what}: residual {info.residual:.3e} after {info.rounds} "
+            f"rounds exceeds the loose acceptance tolerance")
+    return info
 
 
 def _reject_placement_torch(mechanism: str, placement: str, fill: str,
@@ -125,7 +151,8 @@ def solve(problem: AllocationProblem, mechanism: str = "psdsf-rdm",
     ``mechanism`` "cdrfh"/"tsf"/"cdrf" solves the baseline level fill
     (``placement`` "level" or "headroom", the routed global fill) and
     "drf"/"uniform" the closed forms, which take only each axis's
-    default. An unknown mechanism or placement raises ``UnknownNameError``
+    default. A baseline at ``placement="lexmm"`` runs the host flow router
+    (dense only; the info's rounds are its stages). An unknown mechanism or placement raises ``UnknownNameError``
     (a ``KeyError`` and a ``ValueError``).
     """
     if backend not in BACKENDS:

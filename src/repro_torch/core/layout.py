@@ -10,15 +10,13 @@ user ids with ``mask`` False and per-server gathers and scatter-adds never
 collide. ``user_ptr``/``user_servers`` is the transposed user -> servers
 adjacency. ``resolve_layout`` maps the public ``layout="auto"`` knob to
 "dense" or "bucketed" by a density threshold, as in the reference.
-
-The reference's ``from_cluster`` builds from a ``sched.cluster.Cluster``,
-which the port does not have yet (ROADMAP.md queue 1 item 6, scheduler
-consumers).
+``from_cluster`` builds the layout of a ``sched.cluster.Cluster``'s
+problem for a list of jobs.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -82,6 +80,12 @@ class BucketedLayout:
         (its support coincides with eligibility)."""
         supp = problem.eligibility if gamma is None else gamma
         return cls.from_support(np.asarray(supp) > 0)
+
+    @classmethod
+    def from_cluster(cls, cluster, jobs: Sequence) -> "BucketedLayout":
+        """Build from a ``sched.cluster.Cluster`` and its jobs: the layout
+        of ``cluster.problem(jobs)`` (generation/topology eligibility)."""
+        return cls.from_problem(cluster.problem(jobs))
 
     @property
     def num_servers(self) -> int:

@@ -17,9 +17,10 @@ global fill. The per-step telemetry, the per-server min normalized VDS of
 Eq. 16, goes through ``core.dynamic.min_vds_guarded`` and so launches the
 ``psdsf_vds`` kernel once a step on the card.
 
-Not ported, and raising ``NotImplementedError`` with the ROADMAP item:
-``placement="lexmm"`` for the baselines (queue 1 item 5, baselines: host
-lexmm router).
+``placement="lexmm"`` for the baselines re-solves on the host instead:
+the exact flow router's LP certificates (``core.flowrouter``) have no
+device mirror, so each step hands the event delta to one persistent
+``RouterState``, as the reference does (``_solve_lexmm_host``).
 """
 from __future__ import annotations
 
@@ -30,11 +31,12 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..core.baselines_torch import (LEXMM_NOT_PORTED, _routed,
+from ..core.baselines_torch import (_routed, level_rate_matrix_np,
                                     level_rate_matrix_torch)
 from ..core.dynamic import min_vds_guarded
-from ..core.gamma import gamma_matrix_torch
 from ..core.engine import PSDSF_MECHANISMS
+from ..core.flowrouter import RouterState
+from ..core.gamma import gamma_matrix_torch
 from ..core.layout import BucketedLayout, resolve_layout
 from ..core.placement_torch import _repack_refill_core_torch
 from ..core.psdsf_torch import (_solve_core_bucketed_torch, _solve_core_torch,
@@ -69,8 +71,8 @@ class ChurnEvent:
 @dataclasses.dataclass
 class ChurnRecord:
     """Telemetry for one re-solve step (the reference's fields; the lexmm
-    router's stay at their zero defaults, as on the reference's PS-DSF
-    ticks)."""
+    router's are filled on a baseline's lexmm steps from its
+    ``RouterStats`` and stay at their zero defaults otherwise)."""
     time: float
     n_events: int
     rounds: int              # rounds the (warm) re-solve took
@@ -153,10 +155,14 @@ class ChurnSimulator:
     ("gauss"/"jacobi") and ``accel`` ("none"/"anderson") pick the sweep's
     fill, outer iteration and accelerator, as in the reference.
     ``placement`` "level"; "lexmm", the identity on the PS-DSF level tick
-    (the baselines' host lexmm router is not ported); "headroom", which
-    follows a PS-DSF re-solve with repack-and-refill passes and routes a
-    baseline through the one-shot global fill (dense only: a bucketed
-    layout is rejected).
+    and, for a baseline, the exact flow router on the host: one persistent
+    ``RouterState`` built on the base capacities, re-parameterized to the
+    degrade-scaled ones each step, with the activity mask as its delta
+    (its ``RouterStats`` fill the record's ``lp_calls``, ``warm_hits``,
+    ``warm_fallbacks`` and ``router_mode``; ``rounds`` are its stages);
+    "headroom", which follows a PS-DSF re-solve with repack-and-refill
+    passes and routes a baseline through the one-shot global fill (dense
+    only: a bucketed layout is rejected).
 
     ``layout`` ("dense"/"bucketed"/"auto") picks the sweep's data layout:
     buckets are built from the ACTIVE support at construction, departures
@@ -204,10 +210,6 @@ class ChurnSimulator:
                 "layout='bucketed' needs the per-server sweep; the routed "
                 "headroom fill for global-share mechanisms is one-shot "
                 "global: use layout='dense'")
-        if placement == "lexmm" and not psdsf:
-            raise NotImplementedError(
-                f"placement='lexmm' for mechanism {mechanism!r} is not "
-                f"ported to repro_torch yet: {LEXMM_NOT_PORTED}")
         self.device = dev = resolve_device(device)
         self.problem = problem
         self.mechanism = mechanism
@@ -237,7 +239,8 @@ class ChurnSimulator:
                                  for a in (problem.demands,
                                            problem.capacities,
                                            problem.eligibility))
-        self._swept = not routed
+        self._lexmm = placement == "lexmm" and not psdsf
+        self._swept = not routed and not self._lexmm
         self.layout = "dense" if routed else resolve_layout(
             layout, support=(problem.eligibility > 0) & self.active[:, None])
         self._blayout = None
@@ -245,6 +248,11 @@ class ChurnSimulator:
         self._needs_rebuild = False
         if self.layout == "bucketed":
             self._build_buckets()
+        # persistent lexmm router (a baseline at placement="lexmm"): built
+        # lazily on the BASE capacities; degrade/restore re-scale its rhs
+        # in place, arrivals/departures flow in as activity deltas
+        self._lexmm_router = None
+        self._router_stats = None
 
     def _build_buckets(self) -> None:
         supp = (self.problem.eligibility > 0) & self.active[:, None]
@@ -272,6 +280,8 @@ class ChurnSimulator:
             self.cap_scale[ev.server] = 1.0
 
     def _solve(self, x0) -> tuple[np.ndarray, int, float, int, int]:
+        if self._lexmm:
+            return self._solve_lexmm_host()
         dev = self.device
         out = _resolve_torch(
             self._demands, self._caps, self._weights, self._elig,
@@ -290,6 +300,31 @@ class ChurnSimulator:
         return (x.to(torch.float64).cpu().numpy(), int(rounds), float(resid),
                 hits, rejects)
 
+    def _solve_lexmm_host(self) -> tuple[np.ndarray, int, float, int, int]:
+        """Exact flow-routed re-solve of a baseline: the event delta goes to
+        the persistent ``RouterState`` (departures re-verify the cached
+        stage trace and re-solve only the unfrozen suffix, unchanged steps
+        verify every stage with one LP each, arrivals and capacity changes
+        run a matrix-warm full solve flagged in ``warm_fallbacks``). A
+        changed eligibility support rebuilds the router."""
+        lg = level_rate_matrix_np(self._effective_problem(), self.mechanism)
+        router = self._lexmm_router
+        if router is not None:
+            try:
+                router.update(level_gamma=lg, capacity_scale=self.cap_scale)
+            except ValueError:       # eligibility support changed: rebuild
+                router = None
+        if router is None:
+            # built on the BASE capacities so degrade/restore compose as
+            # pure rhs re-scales against a fixed normalization
+            router = RouterState(self.problem, level_rate_matrix_np(
+                self.problem, self.mechanism))
+            router.update(level_gamma=lg, capacity_scale=self.cap_scale)
+            self._lexmm_router = router
+        x, stats = router.resolve(active=self.active)
+        self._router_stats = stats
+        return x, stats.stages, 0.0, 0, 0
+
     def step(self, events: Sequence[ChurnEvent], time_now: float
              ) -> ChurnRecord:
         """Apply simultaneous events, re-solve, record telemetry."""
@@ -302,10 +337,12 @@ class ChurnSimulator:
             self._build_buckets()
             self.layout_rebuilds += 1
             rebuilds = 1
+        self._router_stats = None
         t0 = _time.perf_counter()
         x, rounds, resid, hits, rejects = self._solve(
             self.x if self.warm_start else None)
         solve_ms = (_time.perf_counter() - t0) * 1e3
+        rs = self._router_stats          # lexmm steps only, else None
         cold_rounds = -1
         if self.compare_cold and self.warm_start:
             _, cold_rounds, *_ = self._solve(None)
@@ -314,7 +351,7 @@ class ChurnSimulator:
         # and the tight-tol certificate
         g = self._gamma()
         mn, arg = (self._min_vds(g) if self.telemetry else (np.inf, -1))
-        swept = self._swept         # the routed fill runs no per-server one
+        swept = self._swept   # routed and lexmm steps run no per-server fill
         budget = (rounds * self.problem.num_servers * fill_iter_budget(
             self.problem.num_resources, self.mode, self.fill)
             if swept else 0)
@@ -326,13 +363,17 @@ class ChurnSimulator:
             tight = resid <= self.tol * max(
                 1.0, float(g_act.max()) if g_act.numel() else 0.0)
         else:
-            tight = resid == 0.0     # the routed fill is one-shot exact
+            tight = resid == 0.0     # routed / lexmm steps are one-shot exact
         return ChurnRecord(
             time=time_now, n_events=len(events), rounds=rounds,
             cold_rounds=cold_rounds, residual=resid,
             active_users=int(self.active.sum()),
             total_tasks=float(self.x.sum()), solve_ms=solve_ms,
             min_vds=float(mn), bottleneck_server=int(arg),
+            lp_calls=0 if rs is None else rs.lp_calls,
+            warm_hits=0 if rs is None else rs.warm_hits,
+            warm_fallbacks=0 if rs is None else rs.warm_fallbacks,
+            router_mode="" if rs is None else rs.mode,
             fill_engine=self.fill if swept else "",
             fill_iters=budget, layout=self.layout if swept else "dense",
             bucket_max=(self._blayout.bucket_max if swept

@@ -208,11 +208,14 @@ def test_unknown_placement_is_rejected():
                                      layout="dense", fill="bisect",
                                      round="jacobi")])
 def test_unported_values_raise_not_implemented(kw):
-    # what still raises: the baselines' host lexmm router (the baselines
-    # and headroom run: see the parity tests below)
+    # nothing raises any more: the baselines' host lexmm router is ported,
+    # so these once-unported values build and step (their parity with the
+    # reference: tests/test_torch_lexmm.py)
     prob = _port(google_cluster_instance()[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        churn.ChurnSimulator(prob, device="cpu", **kw)
+    sim = churn.ChurnSimulator(prob, device="cpu", telemetry=False, **kw)
+    rec = sim.step([], 0.0)
+    assert rec.router_mode == "warm" and rec.lp_calls >= 2
+    assert rec.rounds >= 1 and rec.fill_engine == "" and rec.residual == 0.0
 
 
 def test_event_and_degrade_validation():

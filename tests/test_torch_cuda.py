@@ -1103,3 +1103,82 @@ def test_baseline_churn_on_card_matches_plain(cuda, monkeypatch):
                                atol=PATH_F32_REL * scale)
     for a, b in zip(recs, p_recs):
         assert abs(a.min_vds - b.min_vds) <= PATH_F32_REL * abs(b.min_vds)
+
+
+# -- the host lexmm router and the scheduler layers --------------------------
+
+def _card_fleet(seed=0, num_pods=24, num_jobs=200):
+    """A seeded fleet of pods over four generations and jobs with
+    allow-lists, HBM floors and DCN needs (a sparse eligibility)."""
+    from repro_torch.sched import Cluster, TenantJob, TPUPod
+    rng = np.random.default_rng(seed)
+    gens = ("v4", "v5e", "v5p", "v6e")
+    pods = [TPUPod(f"pod{i}", gens[i % 4], int(rng.choice([32, 64, 128])),
+                   float(rng.choice([16.0, 32.0, 95.0])),
+                   float(rng.uniform(64, 512)), float(rng.uniform(100, 800)),
+                   float(rng.choice([0.0, 25.0])))
+            for i in range(num_pods)]
+    jobs = [TenantJob(f"job{j}", float(rng.uniform(0.5, 2.0)),
+                      float(rng.choice([4, 8])), float(rng.uniform(20, 200)),
+                      float(rng.uniform(4, 16)), float(rng.uniform(10, 40)),
+                      float(rng.choice([0.0, 1.0])),
+                      min_hbm_per_chip=float(rng.choice([0.0, 20.0])),
+                      generations=(gens[j % 4],),
+                      needs_dcn=bool(rng.random() < 0.2))
+            for j in range(num_jobs)]
+    return Cluster(pods), jobs
+
+
+@pytest.mark.parametrize("layout", ["dense", "bucketed"])
+def test_schedule_detail_on_card_matches_plain(cuda, monkeypatch, layout):
+    # five resources: six launches of the layout's fill kernel a Jacobi
+    # round; the plain-driven solve on the card launches nothing and agrees
+    from repro_torch.sched import schedule_detail
+    fleet, jobs = _card_fleet()
+    kw = dict(fill="bisect", round="jacobi", layout=layout, max_rounds=24,
+              tol=0.0, device="cuda")
+    which = 0 if layout == "dense" else 1
+    before = _launches()
+    alloc, info = schedule_detail(fleet, jobs, **kw)
+    launched = [a - b for a, b in zip(_launches(), before)]
+    assert launched[which] == 6 * info.rounds == sum(launched)
+    assert info.layout == layout
+    _patch_plain(monkeypatch)
+    before = _launches()
+    plain, p_info = schedule_detail(fleet, jobs, **kw)
+    assert _launches() == before
+    np.testing.assert_allclose(alloc.x, plain.x, rtol=0, atol=1e-9)
+    assert info.rounds == p_info.rounds
+    cpu, _ = schedule_detail(fleet, jobs, **dict(kw, device="cpu"))
+    np.testing.assert_allclose(alloc.x, cpu.x, rtol=0, atol=1e-9)
+
+
+def test_lexmm_churn_vds_on_card_matches_plain(cuda, monkeypatch):
+    # the router runs on the host; each record's telemetry is one VDS
+    # launch on the card, held against the plain-driven stream
+    from repro_torch.sched import ChurnSimulator, poisson_churn_events
+    prob, _ = sparse_cell_instance(num_users=200, num_servers=16,
+                                   density=0.1, cells=4, seed=4)
+    events = poisson_churn_events(prob.num_users, prob.num_servers,
+                                  horizon=4, arrival_rate=3.0,
+                                  departure_rate=3.0, degrade_rate=0.5,
+                                  seed=2)
+    runs = []
+    for plain in (False, True):
+        if plain:
+            _patch_plain(monkeypatch)
+        sim = ChurnSimulator(prob, mechanism="tsf", placement="lexmm",
+                             device="cuda")
+        before = _launches()
+        recs = [sim.step([], 0.0)] + sim.run(events)
+        runs.append((sim, recs, [a - b for a, b in
+                                 zip(_launches(), before)]))
+    (sim, recs, launched), (p_sim, p_recs, p_launched) = runs
+    assert launched == [0, 0, len(recs)] and p_launched == [0, 0, 0]
+    for a, b in zip(recs, p_recs):
+        assert (a.rounds, a.lp_calls, a.warm_hits, a.warm_fallbacks,
+                a.router_mode) == (b.rounds, b.lp_calls, b.warm_hits,
+                                   b.warm_fallbacks, b.router_mode)
+        assert abs(a.min_vds - b.min_vds) <= PATH_F32_REL * abs(b.min_vds)
+    np.testing.assert_allclose(sim.x, p_sim.x, rtol=0, atol=1e-9)
+    assert {r.router_mode for r in recs} >= {"warm"}

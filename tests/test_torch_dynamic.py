@@ -174,17 +174,31 @@ def test_rejected_values_raise_value_error(kw):
                                 dict(placement="headroom"),
                                 dict(placement="bestfit")])
 def test_unported_values_raise_not_implemented(kw):
-    # what still raises: the numpy engine, and routed_allocation whatever
-    # the placement (headroom and bestfit tick: see the parity tests)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dynamic.DistributedPSDSF(_port(fig2_instance()), device="cpu",
-                                 **kw).routed_allocation("tsf")
+    # what still raises: the numpy engine; routed_allocation is ported and
+    # runs whatever the placement (headroom and bestfit tick: see the
+    # parity tests)
+    if kw.get("engine") == "numpy":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            dynamic.DistributedPSDSF(_port(fig2_instance()), device="cpu",
+                                     **kw)
+        return
+    sim = dynamic.DistributedPSDSF(_port(fig2_instance()), device="cpu",
+                                   **kw)
+    ref = jax_dynamic.DistributedPSDSF(fig2_instance(), **kw)
+    np.testing.assert_allclose(sim.routed_allocation("tsf").x,
+                               ref.routed_allocation("tsf").x, rtol=0,
+                               atol=F64_ATOL)
 
 
 def test_routed_allocation_raises_not_implemented():
+    # routed_allocation no longer raises: the host lexmm router is ported;
+    # it equals the reference's (across churn: tests/test_torch_lexmm.py)
     sim = dynamic.DistributedPSDSF(_port(fig2_instance()), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sim.routed_allocation("tsf")
+    ref = jax_dynamic.DistributedPSDSF(fig2_instance())
+    np.testing.assert_allclose(sim.routed_allocation("tsf").x,
+                               ref.routed_allocation("tsf").x, rtol=0,
+                               atol=F64_ATOL)
+    assert sim.router_stats.mode == ref.router_stats.mode == "warm"
 
 
 def test_lexmm_ticks_like_level():

@@ -43,7 +43,9 @@ def test_port_modules_listed():
                  "models.ssm", "kernels.ssd_scan.kernel",
                  "kernels.ssd_scan.ops", "kernels.ssd_scan.ref",
                  "sched.churn", "core.dynamic", "core.batched",
-                 "core.placement_torch", "core.baselines_torch"):
+                 "core.placement_torch", "core.baselines_torch",
+                 "core.trace", "core.flowrouter", "sched.cluster",
+                 "sched.serving"):
         assert f"repro_torch.{name}" in PORT_MODULES, name
 
 
@@ -100,6 +102,13 @@ def test_entry_points_default_to_cuda(no_cuda):
         baseline_solve_batched_torch, baseline_solve_torch,
         batch_level_rates_torch, level_rate_matrix_np, solve_baseline_torch)
     from repro_torch.core.engine import _drf_torch, _uniform_torch
+    from repro_torch.sched import (Cluster, DynamicDispatcher, ReplicaGroup,
+                                   Tenant, TenantJob, TPUPod,
+                                   admitted_rates, schedule, schedule_detail)
+    fleet = Cluster([TPUPod("a", "v5e", 64, 16, 128, 400, 25)])
+    jobs = [TenantJob("j", 1.0, 8, 100, 16, 50, 0)]
+    groups = [ReplicaGroup("g", 64, 256, 50_000, max_context=32768)]
+    tenants = [Tenant("t", 1.0, 4096, 0.5, 2048)]
     prob = fig1_instance()
     g = gamma_matrix(prob)
     lg = level_rate_matrix_np(prob, "tsf")
@@ -119,6 +128,17 @@ def test_entry_points_default_to_cuda(no_cuda):
         lambda: baseline_solve_batched_torch(*stacked[:3], lg[None]),
         lambda: batch_level_rates_torch([prob], "tsf"),
         lambda: ChurnSimulator(prob, mechanism="tsf"),
+        lambda: engine.solve(prob, "tsf", placement="lexmm"),
+        lambda: engine.solve(prob, "cdrf", placement="lexmm"),
+        lambda: solve_baseline_torch(prob, "cdrfh", placement="lexmm"),
+        lambda: ChurnSimulator(prob, mechanism="tsf", placement="lexmm"),
+        lambda: schedule(fleet, jobs),
+        lambda: schedule(fleet, jobs, "tsf", placement="lexmm"),
+        lambda: schedule_detail(fleet, jobs),
+        lambda: admitted_rates(groups, tenants),
+        lambda: admitted_rates(groups, tenants, "cdrf", placement="lexmm"),
+        lambda: DynamicDispatcher(groups, tenants),
+        lambda: DynamicDispatcher(groups, tenants, precision="fast"),
         lambda: ChurnSimulator(prob, placement="headroom"),
         lambda: DistributedPSDSF(prob, placement="headroom"),
         lambda: resolve_device(),
@@ -336,3 +356,44 @@ def test_no_definition_takes_a_lint_sink_name():
                 found.append(f"{path.relative_to(ROOT)}:{node.lineno} "
                              f"{node.name}")
     assert not found, "lint sink names defined: " + ", ".join(found)
+
+
+#: the scheduler layers' public names, which mirror the reference's on
+#: purpose (a user of either package calls the same names); the other
+#: module-level functions of the router and scheduler modules take names
+#: of their own
+MIRRORED_NAMES = {"schedule", "schedule_detail", "admitted_rates",
+                  "dispatch_problem", "job_from_artifact", "ensure_converged"}
+#: the modules the host router and the scheduler layers added to the port
+ROUTER_AND_SCHEDULER_MODULES = ("core/trace.py", "core/flowrouter.py",
+                                "sched/cluster.py", "sched/serving.py")
+
+
+def _module_functions(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    return {node.name for node in tree.body
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef))}
+
+
+def test_new_module_functions_take_names_of_their_own():
+    reference = set()
+    for path in (ROOT / "src" / "repro").rglob("*.py"):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        reference.update(node.name for node in ast.walk(tree)
+                         if isinstance(node, (ast.FunctionDef,
+                                              ast.AsyncFunctionDef)))
+    assert {"lexmm_route", "_level_rates", "schedule"} <= reference
+    port = ROOT / "src" / "repro_torch"
+    added = set()
+    for rel in ROUTER_AND_SCHEDULER_MODULES:
+        added |= _module_functions(port / rel)
+    # ensure_converged joined core/engine.py with this slice
+    assert {"ensure_converged", "solve"} <= _module_functions(
+        port / "core" / "engine.py")
+    added.add("ensure_converged")
+    assert {"lexmm_route_np", "lexmm_route_cold_np", "_level_rates_np",
+            "_solve_lp_np", "_highs_np", "_generation_allowed_np",
+            "_solve_placed_torch"} <= added
+    shared = sorted((added & reference) - MIRRORED_NAMES)
+    assert not shared, f"port functions named like the reference's: {shared}"
+    assert MIRRORED_NAMES <= added

@@ -195,11 +195,18 @@ def test_rejected_values_raise_value_error(kw):
                                 dict(backend="numpy"),
                                 dict(mechanism="drf", backend="numpy")])
 def test_unported_values_raise_not_implemented(kw):
-    # what still raises: the baselines' host lexmm router and the numpy
-    # backend (the baselines, drf, uniform and headroom run: see
-    # tests/test_torch_baselines.py and tests/test_torch_placement.py)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        engine.solve(instances.fig1_instance(), device="cpu", **kw)
+    # what still raises: the numpy backend (the baselines, drf, uniform,
+    # headroom and, since the host router is ported, the baselines' lexmm
+    # run: see tests/test_torch_baselines.py, tests/test_torch_placement.py
+    # and tests/test_torch_lexmm.py)
+    if kw.get("backend") == "numpy":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            engine.solve(instances.fig1_instance(), device="cpu", **kw)
+        return
+    alloc, info = engine.solve(instances.fig1_instance(), device="cpu",
+                               **kw)
+    assert info.placement == "lexmm" and info.converged
+    assert alloc.x.shape == (3, 2)
 
 
 def test_unknown_mode_raises():
