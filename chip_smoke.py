@@ -136,14 +136,39 @@ Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
    prefill; profiles a short window for the idle share; then holds a
    2-layer full-width model's logits with the kernel against the plain
    version's;
-20. prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and as its
+20. holds the attention kernels against their plain versions, and times
+   them in turns with SDPA, at the MoE models' widths (bfloat16):
+   granite_moe_3b_a800m's 24 query and 8 kv heads x 64, grok_1_314b's
+   48/8 x 128 (GQA groups of 6) and jamba_v0_1_52b's 32/8 x 128, the same
+   cases as step 15 (every flash call on the Hopper body);
+21. holds the MoE layer's gather routing against its dense GShard
+   baseline at granite's widths in float32 (a 1,024-token prefill and an
+   8-slot decode step with free slots): equal experts and kept slots,
+   outputs within 1e-4 x max(1, max|y|); then ``ssd_scan`` against its
+   plain version at jamba's prefill shape (B 1, S 1,024, 128 heads x 64, N
+   16, chunk 64) as in step 18;
+22. drives the serving path of each MoE model the same way, counts set to
+   0 again: granite_moe_3b_a800m whole (32 layers), jamba_v0_1_52b at one
+   8-layer group and grok_1_314b at 4 layers (full widths, bfloat16,
+   seeded init, the same 16 requests' shape of traffic); checks
+   completion, token ids, finite logits and the launches (a flash and a
+   decode launch per attention layer and prefill or step, an ``ssd_scan``
+   per Mamba layer and prefill); profiles a window for the idle share and
+   the MoE layers' share of the busy time; then runs a 2-layer granite, an
+   8-layer jamba and a 2-layer grok with the kernels and with the plain
+   versions, the plain run's routing forced to the kernels' run's experts
+   (a token whose own plain top-k differs must be a near tie: its k-th and
+   (k+1)-th probabilities within 2^-4 of the k-th, ``TIE_REL``; such
+   tokens at most 2^-4 of those routed), logits within 2^-5 x max|logit|;
+23. prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and as its
    last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the last line. Without a CUDA device,
 or without the repository's ``src/`` beside it, it fails at once. With
 ``--rehearse`` it runs every phase on the CPU at tiny sizes through the plain
-versions (the serving phases on the qwen3_1_7b and mamba2_1_3b smoke
-configs), skips what needs the card, and never prints a result line.
+versions (the serving phases on the smoke configs of qwen3_1_7b,
+mamba2_1_3b and the three MoE models), skips what needs the card, and never
+prints a result line.
 """
 from __future__ import annotations
 
@@ -197,9 +222,29 @@ LOGIT_REL = 2.0 ** -5
 #: tests' bound); a bfloat16 y is rounded once more (2^-9 relative), bound
 #: 2^-8; the final state is float32 in both runs (1e-4)
 SSD_REL = {"float32": 1e-4, "bfloat16": 2.0 ** -8}
+#: the MoE models' kernel-vs-plain runs: the plain run is routed to the
+#: experts the kernels' run chose; a token whose own plain top-k differs
+#: must be a near tie, its k-th and (k+1)-th plain probabilities within
+#: TIE_REL of the k-th, and such tokens at most TIE_REL of those routed.
+#: Bound 2^-4: one bfloat16 ulp (2^-8..2^-7 relative) on a third of a
+#: 2-layer granite's attention outputs moves its routers' probabilities by
+#: a median 1.1% and a 99th percentile 4.8% of the k-th (float32 routers
+#: over bfloat16 hidden states; emulated on a CPU), and on an H100 this
+#: phase saw tokens move at gaps up to 2.0e-2 (granite) and 2.9e-2 (jamba)
+TIE_REL = 2.0 ** -4
 
 KERNELS = ("psdsf_fill", "psdsf_fill_bucketed", "psdsf_vds",
            "flash_attention", "decode_attention", "ssd_scan")
+
+
+#: the MoE models: the attention kernels run at each one's widths
+MOE_ARCHS = ("granite_moe_3b_a800m", "grok_1_314b", "jamba_v0_1_52b")
+#: (arch, serving depth, kernel-vs-plain depth): granite whole (32 layers,
+#: 6.6 GB in bf16); jamba at one group of its 8-layer pattern (26.5 GB of
+#: 102.9) and grok at 4 layers (29.7 GB of 426.8), full widths, until a
+#: model can be sharded across cards
+MOE_SERVING = (("granite_moe_3b_a800m", None, 2), ("jamba_v0_1_52b", 8, 8),
+               ("grok_1_314b", 4, 2))
 
 
 #: per-body launch counts beside ``.launches`` (flash_attention's two)
@@ -2038,20 +2083,29 @@ class Smoke:
         self.check(err <= bound, f"{what} disagrees with plain")
         return err
 
-    def flash_vs_plain(self):
-        """At S 1,024, a ragged 1,000, 512 (the profiled window's prompts)
-        and 128 (the shortest prompt): each held against the plain version
-        and timed in turns with SDPA; each call must take the Hopper body."""
+    @staticmethod
+    def row_key(key, arch):
+        """A kernel row's key: qwen3_1_7b's and mamba2_1_3b's shapes keep
+        their plain keys (the kernels line's main rows), another arch's
+        take ``@arch``."""
+        return key if arch in ("qwen3_1_7b", "mamba2_1_3b") else \
+            f"{key}@{arch}"
+
+    def flash_vs_plain(self, arch="qwen3_1_7b"):
+        """At ``arch``'s attention widths, S 1,024, a ragged 1,000, 512 (the
+        profiled window's prompts) and 128 (the shortest prompt): each held
+        against the plain version and timed in turns with SDPA; each call
+        must take the Hopper body."""
         torch = self.torch
         import torch.nn.functional as F
         from repro_torch.kernels.flash_attention import kernel, ref
-        cfg = self.llm_config()
+        cfg = self.llm_config(arch=arch)
         hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         dtype = torch.bfloat16
         lengths = (128, 100, 64, 32) if self.rehearse else (1024, 1000, 512,
                                                              128)
-        keys = ("bfloat16", "bfloat16_ragged", "bfloat16_s512",
-                "bfloat16_s128")
+        keys = [self.row_key(key, arch) for key in (
+            "bfloat16", "bfloat16_ragged", "bfloat16_s512", "bfloat16_s128")]
         for key, s in zip(keys, lengths):
             q, k, v = self.attn_inputs([(1, s, hq, d), (1, s, hkv, d),
                                         (1, s, hkv, d)], dtype, seed=s)
@@ -2131,15 +2185,17 @@ class Smoke:
                   + f"; the wrapper picks BQ {chosen}")
         self.paths["flash_tile_plans"] = table
 
-    def decode_vs_plain(self):
-        """The serving shape (8 slots of a 2,048-row cache, one length per
-        slot: 1, the whole cache, past the cache, ragged), then one long
-        sequence (1 x 32,768 rows), where splitting the rows matters most."""
-        cfg = self.llm_config()
+    def decode_vs_plain(self, arch="qwen3_1_7b"):
+        """At ``arch``'s attention widths: the serving shape (8 slots of a
+        2,048-row cache, one length per slot: 1, the whole cache, past the
+        cache, ragged), then one long sequence (1 x 32,768 rows), where
+        splitting the rows matters most."""
+        cfg = self.llm_config(arch=arch)
         long_rows = 256 if self.rehearse else 32768
-        self.decode_case("bfloat16", cfg, 8, 64 if self.rehearse else 2048)
-        self.decode_case("bfloat16_long", cfg, 1, long_rows,
-                         lens=[long_rows - 3])
+        self.decode_case(self.row_key("bfloat16", arch), cfg, 8,
+                         64 if self.rehearse else 2048)
+        self.decode_case(self.row_key("bfloat16_long", arch), cfg, 1,
+                         long_rows, lens=[long_rows - 3])
 
     def decode_case(self, key, cfg, b, s_max, lens=None):
         torch = self.torch
@@ -2209,9 +2265,9 @@ class Smoke:
                 "decode_attention": attn * steps,
                 "ssd_scan": mamba * prefills}
 
-    def serving(self, arch="qwen3_1_7b", path="serving"):
-        """The serving path of ``arch``, counts set to 0 just before ``run``
-        and read just after."""
+    def serving(self, arch="qwen3_1_7b", path="serving", layers=None):
+        """The serving path of ``arch`` (cut to ``layers`` where given),
+        counts set to 0 just before ``run`` and read just after."""
         import gc
 
         import numpy as np
@@ -2219,7 +2275,7 @@ class Smoke:
         from repro_torch.models import model as tmodel
         from repro_torch.serve import ServingEngine
         from repro_torch.serve import engine as engine_mod
-        cfg = self.llm_config(arch=arch)
+        cfg = self.llm_config(layers, arch=arch)
         max_len, (lo, hi), max_new = ((64, (8, 40), 4) if self.rehearse
                                       else (2048, (128, 1024), 32))
         self.params_full = None           # an earlier model's params
@@ -2232,15 +2288,26 @@ class Smoke:
         n_params = sum(p.numel() for p in params.parameters())
         n_bytes = sum(p.numel() * p.element_size()
                       for p in params.parameters())
+        parts = []
         if cfg.has_mixer("attn"):
-            widths = (f"{cfg.num_heads}/{cfg.num_kv_heads} heads x "
-                      f"{cfg.head_dim}, d_ff {cfg.d_ff}")
-        else:
-            widths = (f"d_inner {cfg.d_inner}, {cfg.ssm_heads} SSM heads x "
-                      f"{cfg.ssm_headdim}, state {cfg.ssm_state}, chunk "
-                      f"{cfg.ssm_chunk}")
-        print(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model},"
-              f" {widths}, vocab {cfg.vocab_size} (padded "
+            parts.append(f"{cfg.num_heads}/{cfg.num_kv_heads} heads x "
+                         f"{cfg.head_dim}, d_ff {cfg.d_ff}")
+        if cfg.has_mixer("mamba"):
+            parts.append(f"d_inner {cfg.d_inner}, {cfg.ssm_heads} SSM heads "
+                         f"x {cfg.ssm_headdim}, state {cfg.ssm_state}, "
+                         f"chunk {cfg.ssm_chunk}")
+        if cfg.has_moe():
+            parts.append(f"MoE {cfg.moe_experts} experts top-"
+                         f"{cfg.moe_top_k} x d_ff {cfg.expert_d_ff} "
+                         f"({cfg.mlp_type}, {cfg.moe_impl}), "
+                         f"{sum(b[1] == 'moe' for b in cfg.block_pattern)} "
+                         f"of {len(cfg.block_pattern)} layers")
+        widths = "; ".join(parts)
+        full = self.llm_config(arch=arch)
+        cut = (f" (the config's {full.num_layers}: {full.param_count()} "
+               f"params)" if full.num_layers != cfg.num_layers else "")
+        print(f"  {cfg.name}: {cfg.num_layers} layers{cut}, d_model "
+              f"{cfg.d_model}, {widths}, vocab {cfg.vocab_size} (padded "
               f"{cfg.vocab_padded}), {cfg.dtype}: {n_params} params, "
               f"{n_bytes / 1e9:.3f} GB; seeded init "
               f"{time.perf_counter() - t0:.2f} s")
@@ -2248,7 +2315,7 @@ class Smoke:
         tmodel.forward_prefill(cfg, params, [[1] * 70], device=self.device)
         tmodel.forward_decode(cfg, params, tmodel.init_caches(
             cfg, 2, 80, device=self.device), [1, 2], 70, device=self.device)
-        self.params_full = params
+        self.params_full, self.cfg_full = params, cfg
 
         eng = ServingEngine(cfg, params=params, max_slots=8, max_len=max_len,
                             tenant_weights={"gold": 2.0, "free": 1.0},
@@ -2304,7 +2371,7 @@ class Smoke:
               + (f"; peak device memory {peak:.2f} GiB" if peak else ""))
         self.paths[path] = dict(
             launches=launches, flash_bodies=bodies, wall_s=wall,
-            requests=len(done),
+            requests=len(done), layers=cfg.num_layers, params=n_params,
             prefills=st["prefills"], prefill_tokens=st["prefill_tokens"],
             prefill_ms_per_request=st["prefill_s"] * 1e3 / st["prefills"],
             prefill_tokens_per_s=st["prefill_tokens"] / st["prefill_s"],
@@ -2331,14 +2398,23 @@ class Smoke:
                        f"flash_attention bodies {bodies}, expected every "
                        f"launch on the Hopper body")
 
-    def serving_profile(self, arch="qwen3_1_7b", path="serving"):
-        """Device busy and idle share over a short serving window: 8
-        requests of 512 prompt tokens, 8 new tokens each."""
+    def serving_profile(self, path="serving"):
+        """Device busy and idle share over a short serving window of the
+        model the last serving phase ran: 8 requests of 512 prompt tokens, 8
+        new tokens each. Each MoE layer runs inside a ``moe_layer`` profiler
+        range, whose device time (the kernels launched inside it) gives the
+        MoE layers' share of the busy time."""
         import numpy as np
         from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
+        from torch.profiler import ProfilerActivity, profile, record_function
+        from repro_torch.models import blocks as blocks_mod
         from repro_torch.serve import ServingEngine
-        cfg = self.llm_config(arch=arch)
+        cfg = self.cfg_full
+        moe_apply = blocks_mod.moe_apply_torch
+
+        def moe_ranged(*a, **k):
+            with record_function("moe_layer"):
+                return moe_apply(*a, **k)
         prompt = 24 if self.rehearse else 512
         acts = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
@@ -2352,15 +2428,22 @@ class Smoke:
             eng.submit("gold" if i % 3 else "free", [int(t) for t in rng.integers(
                 0, cfg.vocab_size, prompt)], max_new_tokens=8)
         self.sync()
-        with profile(activities=acts) as prof:
+        with profile(activities=acts) as prof, \
+                mock.patch.object(blocks_mod, "moe_apply_torch", moe_ranged):
             t0 = time.perf_counter()       # the run, not the trace's export
             eng.run(max_steps=64)
             self.sync()
             wall_ms = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+        # kernels only: the range's own span on the device timeline (a
+        # user annotation) is not device work
         rows = sorted(((float(e.self_device_time_total), e.key, e.count)
-                       for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA), reverse=True)
+                       for e in events if e.device_type == DeviceType.CUDA
+                       and e.key != "moe_layer"), reverse=True)
         busy_ms = sum(r[0] for r in rows) / 1e3
+        moe_ms = sum(float(e.device_time_total) for e in events
+                     if e.key == "moe_layer"
+                     and e.device_type == DeviceType.CPU) / 1e3
         st = eng.stats
         print(f"  profiled window: {st['prefills']} prefills x {prompt} "
               f"tokens, {st['decode_steps']} decode steps: wall "
@@ -2375,12 +2458,17 @@ class Smoke:
                                   ("ssd_scan", "ssd_"))}
         print(f"  device busy {busy_ms:.1f} ms, idle share "
               f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; "
-              + ", ".join(f"{name} {ms:.2f} ms" for name, ms in attn.items()))
+              + ", ".join(f"{name} {ms:.2f} ms" for name, ms in attn.items())
+              + ("" if not cfg.has_moe() else
+                 f"; MoE layers {moe_ms:.2f} ms, {moe_ms / busy_ms:.3f} of "
+                 f"busy" if moe_ms > 0 else "; MoE layers: not measured"))
         for us, key, count in rows[:10]:
             print(f"    {us / 1e3:9.3f} ms {count:6d}x  {key[:90]}")
         self.paths[path]["profile"] = dict(
             wall_ms=wall_ms, busy_ms=busy_ms,
-            idle_share=max(0.0, 1 - busy_ms / wall_ms), **attn)
+            idle_share=max(0.0, 1 - busy_ms / wall_ms), **attn,
+            prefill_ms=st["prefill_s"] * 1e3, decode_ms=st["decode_s"] * 1e3,
+            moe_ms=moe_ms if cfg.has_moe() else None)
 
     def serving_vs_plain(self):
         """A 2-layer full-width model, the kernels' run then the plain
@@ -2462,14 +2550,15 @@ class Smoke:
         return max(errs)
 
     # -- the SSD kernel and the Mamba-2 serving path -------------------------
-    def ssd_vs_plain(self):
+    def ssd_vs_plain(self, arch="mamba2_1_3b"):
         """``ssd_scan`` through ``ops.ssd_chunked``, the main path's call, in
-        the main path's layout: x, B and C slices of one (1, S, d_inner +
-        2 N) conv output, dt (1, S, H), y written through strides."""
+        the main path's layout at ``arch``'s widths: x, B and C slices of
+        one (1, S, d_inner + 2 N) conv output, dt (1, S, H), y written
+        through strides."""
         torch = self.torch
         import torch.nn.functional as F
         from repro_torch.kernels.ssd_scan import kernel, ops, ref
-        cfg = self.llm_config(arch="mamba2_1_3b")
+        cfg = self.llm_config(arch=arch)
         h, p, n, q = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state, \
             cfg.ssm_chunk
         di = h * p
@@ -2479,6 +2568,7 @@ class Smoke:
                               ("bfloat16_ragged", s_ragged, torch.bfloat16),
                               ("bfloat16_s512", s_half, torch.bfloat16),
                               ("float32", s_full, torch.float32)):
+            key = self.row_key(key, arch)
             g = torch.Generator(device=self.device).manual_seed(s)
 
             def randn(*shape):
@@ -2588,6 +2678,215 @@ class Smoke:
             self.check(plain_launches == kern_launches,
                        "the plain run launched a kernel")
 
+    # -- the MoE layer and the MoE models' serving paths ---------------------
+    def moe_layer(self, arch="granite_moe_3b_a800m"):
+        """The MoE layer alone at ``arch``'s widths in float32: the gather
+        routing (the config's) against the dense GShard baseline on the
+        same params and tokens, a prefill-sized call (1 x 1,024 tokens:
+        groups of 256) and a decode-sized one (8 slots, five of them free:
+        the same token-0 row). Both must route the same experts and keep
+        the same slots (nonzero buffer rows), and their outputs agree to
+        1e-4 x max(1, max|y|); both timed back to back."""
+        torch = self.torch
+        from repro_torch.models import moe as moe_mod
+        cfg = dataclasses.replace(self.llm_config(arch=arch),
+                                  dtype="float32", param_dtype="float32")
+        gen = torch.Generator(device=self.device).manual_seed(5)
+        layer = moe_mod.MoE(cfg, gen, torch.float32, self.device)
+        route, ffn = moe_mod._route_torch, moe_mod._expert_ffn_torch
+        seen = []
+
+        def route_rec(*a, **k):
+            out = route(*a, **k)
+            seen.append(("idx", out[1]))
+            return out
+
+        def ffn_rec(cfg_, p, xin):
+            seen.append(("kept", int((xin != 0).any(dim=-1).sum())))
+            return ffn(cfg_, p, xin)
+        table = {}
+        shapes = ((1, 64), (8, 1)) if self.rehearse else ((1, 1024), (8, 1))
+        for shape in shapes:
+            x = torch.randn(shape + (cfg.d_model,), generator=gen,
+                            device=self.device)
+            if shape == (8, 1):
+                x[3:] = x[3]
+            outs = {}
+            with mock.patch.object(moe_mod, "_route_torch", route_rec), \
+                    mock.patch.object(moe_mod, "_expert_ffn_torch", ffn_rec):
+                for impl, fn in (("gather", moe_mod.moe_apply_gather_torch),
+                                 ("dense", moe_mod.moe_apply_dense_torch)):
+                    seen.clear()
+                    y, aux = fn(cfg, layer, x)
+                    outs[impl] = (y, aux, dict(seen))
+            (yg, ag, sg), (yd, ad, sd) = outs["gather"], outs["dense"]
+            gsz, g, cap = moe_mod.moe_group_plan_torch(cfg, shape[0]
+                                                       * shape[1])
+            err = float((yg - yd).abs().max())
+            bound = 1e-4 * max(1.0, float(yd.abs().max()))
+            ms = {impl: self.time_ms(lambda f=fn: f(cfg, layer, x), 10)
+                  for impl, fn in (("gather", moe_mod.moe_apply_gather_torch),
+                                   ("dense", moe_mod.moe_apply_dense_torch))}
+            print(f"  {cfg.name} MoE {shape[0]}x{shape[1]} tokens (groups "
+                  f"{g} x {gsz}, cap {cap}): kept slots gather "
+                  f"{sg['kept']}, dense {sd['kept']} of "
+                  f"{shape[0] * shape[1] * cfg.moe_top_k} entries; "
+                  f"max|gather-dense|={err:.3e} (bound {bound:.3e}), aux "
+                  f"{float(ag):.6f} / {float(ad):.6f}; gather {ms['gather']:.3f}"
+                  f" ms, dense {ms['dense']:.3f} ms (back to back)")
+            self.check(torch.equal(sg["idx"], sd["idx"]),
+                       "gather and dense routed differently")
+            self.check(sg["kept"] == sd["kept"],
+                       "gather and dense kept different slots")
+            self.check(err <= bound and abs(float(ag) - float(ad)) <= 1e-6,
+                       "gather and dense MoE disagree")
+            table[f"{shape[0]}x{shape[1]}"] = dict(
+                groups=g, group=gsz, cap=cap, kept=sg["kept"],
+                max_abs_err=err, gather_ms=ms["gather"],
+                dense_ms=ms["dense"])
+        self.paths["moe_layer"] = table
+
+    def moe_vs_plain(self, arch, layers):
+        """A ``layers``-deep full-width ``arch``: the kernels' run, then the
+        plain versions' run on the same params and tokens, its routing
+        forced to the experts the kernels' run chose (a bfloat16 ulp in an
+        attention or SSD output can move a router's k-th and (k+1)-th
+        probabilities past each other). Rule (``TIE_REL``): every token
+        whose own plain top-k set differs from the forced one is a near
+        tie, its k-th and (k+1)-th plain probabilities within 2^-4 of the
+        k-th, and such tokens are at most 2^-4 of those routed; the logits
+        are then held to 2^-5 x max|logit|. Prints how far the two runs'
+        router probabilities part (per token, the largest difference over
+        the experts, relative to the k-th). Reuses the last serving
+        phase's params where that model has this depth."""
+        import gc
+
+        import numpy as np
+        torch = self.torch
+        from repro_torch.kernels.decode_attention import ref as decode_ref
+        from repro_torch.kernels.flash_attention import ref as flash_ref
+        from repro_torch.kernels.ssd_scan import ref as ssd_ref
+        from repro_torch.models import attention as attention_mod
+        from repro_torch.models import model as tmodel
+        from repro_torch.models import moe as moe_mod
+        from repro_torch.models import ssm as ssm_mod
+        cfg = self.llm_config(layers, arch=arch)
+        if getattr(self, "cfg_full", None) == cfg:
+            params = self.params_full
+        else:
+            self.params_full = self.cfg_full = None
+            gc.collect()
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
+            params = tmodel.init_params(cfg, 1, device=self.device)
+        s, max_len, steps = (20, 32, 4) if self.rehearse else (300, 512, 4)
+        rng = np.random.default_rng(2)
+        prompt = rng.integers(0, cfg.vocab_size, (2, s))
+        feed = rng.integers(0, cfg.vocab_size, (steps, 2))
+
+        def run():
+            logits, caches = tmodel.forward_prefill(cfg, params, prompt,
+                                                    device=self.device)
+            pool = tmodel.init_caches(cfg, 2, max_len, device=self.device)
+            for i, one in enumerate(caches):
+                if "k" in one:
+                    for key in ("k", "v"):
+                        pool[i][key][:, :s] = one[key]
+                else:
+                    pool[i] = one
+            out = [logits]
+            pos = torch.tensor([s, s + 7], dtype=torch.int32,
+                               device=self.device)
+            for tok in feed:
+                logits, pool = tmodel.forward_decode(
+                    cfg, params, pool, tok, pos, device=self.device)
+                out.append(logits)
+                pos += 1
+            self.sync()
+            return out
+
+        def plain_chunked(x, dt, a, b_mat, c_mat, *, chunk, init_state=None):
+            y, state = ssd_ref.ssd_scan(x.transpose(1, 2), dt.transpose(1, 2),
+                                        a, b_mat, c_mat, chunk=chunk,
+                                        init_state=init_state)
+            return y.transpose(1, 2), state
+
+        route = moe_mod._route_torch
+        chosen, kern_probs, parts = [], [], []
+        ties = dict(tokens=0, moved=0, max_gap=0.0)
+
+        def route_rec(cfg_, p, xt, expert_idx=None):
+            out = route(cfg_, p, xt)
+            chosen.append(out[1])
+            kern_probs.append(torch.softmax(xt.float() @ p.router, dim=-1))
+            return out
+
+        def route_forced(cfg_, p, xt, expert_idx=None):
+            forced = chosen[ties["calls"]]
+            ties["calls"] += 1
+            k = cfg_.moe_top_k
+            probs = torch.softmax(xt.float() @ p.router, dim=-1)
+            top, own = torch.sort(probs, dim=-1, descending=True,
+                                  stable=True)
+            moved = (own[..., :k].sort(dim=-1).values
+                     != forced.sort(dim=-1).values).any(dim=-1)
+            gap = (top[..., k - 1] - top[..., k]) / top[..., k - 1]
+            parts.append(((probs - kern_probs[ties["calls"] - 1]).abs()
+                          .amax(dim=-1) / top[..., k - 1]).flatten())
+            ties["tokens"] += moved.numel()
+            ties["moved"] += int(moved.sum())
+            if bool(moved.any()):
+                ties["max_gap"] = max(ties["max_gap"],
+                                      float(gap[moved].max()))
+            return route(cfg_, p, xt, expert_idx=forced)
+
+        def plain_decode(q, kc, vc, n):
+            return decode_ref.decode_attention(q[:, 0], kc, vc, n)[:, None]
+
+        counters = wrappers()
+        reset_counts(counters)
+        with mock.patch.object(moe_mod, "_route_torch", route_rec):
+            kern = run()
+        kern_launches = {n: fn.launches for n, fn in counters.items()}
+        ties["calls"] = 0
+        with mock.patch.object(attention_mod, "flash_attention",
+                               flash_ref.flash_attention), \
+                mock.patch.object(attention_mod, "decode_attention",
+                                  plain_decode), \
+                mock.patch.object(ssm_mod, "ssd_chunked", plain_chunked), \
+                mock.patch.object(moe_mod, "_route_torch", route_forced):
+            plain = run()
+        plain_launches = {n: fn.launches for n, fn in counters.items()}
+        part = torch.cat(parts).float()
+        spread = dict(median=float(part.median()),
+                      p99=float(part.quantile(0.99)), max=float(part.max()))
+        print(f"  {layers}-layer {cfg.name} {cfg.dtype}, prompt 2 x {s}, "
+              f"{steps} decode steps: launches with the kernels "
+              f"{kern_launches}; {len(chosen)} MoE calls, {ties['tokens']} "
+              f"routed tokens; the runs' router probabilities part by a "
+              f"median {spread['median']:.3e}, p99 {spread['p99']:.3e}, max "
+              f"{spread['max']:.3e} of the k-th; {ties['moved']} tokens "
+              f"whose own plain top-{cfg.moe_top_k} differs, largest k-th "
+              f"vs (k+1)-th gap among them {ties['max_gap']:.3e} of the "
+              f"k-th (rule: each <= 2^-4, and at most 2^-4 of the tokens)")
+        self.check(ties["calls"] == len(chosen),
+                   "the plain run made another number of MoE calls")
+        self.check(ties["max_gap"] <= TIE_REL
+                   and ties["moved"] <= TIE_REL * ties["tokens"],
+                   "routing moved beyond near ties")
+        self.paths[f"serving_{arch}_vs_plain"] = dict(
+            layers=layers, max_abs_err=self.compare_logits(cfg, kern, plain),
+            moe_calls=len(chosen), routed_tokens=ties["tokens"],
+            moved_tokens=ties["moved"], max_moved_gap=ties["max_gap"],
+            prob_spread=spread)
+        if not self.rehearse:
+            want = self.serving_launches(cfg, 1, steps)
+            self.check(all(kern_launches[name] == count
+                           for name, count in want.items()),
+                       f"kernel launches {kern_launches}, expected {want}")
+            self.check(plain_launches == kern_launches,
+                       "the plain run launched a kernel")
+
     def report(self):
         kernels = []
         for name, source, replaces, dtype in (
@@ -2634,6 +2933,11 @@ class Smoke:
                 if other and variant != dtype:
                     row.update({f"{prefix}_{key}": v
                                 for key, v in other.items()})
+            # the MoE models' widths ("<variant>@<arch>")
+            widths = {variant: other for (kname, variant), other
+                      in self.rows.items() if kname == name and "@" in variant}
+            if widths:
+                row["widths"] = widths
             kernels.append(row)
         print(json.dumps({"kernels": kernels, "main_paths": self.paths}))
 
@@ -2693,8 +2997,27 @@ def main(argv=None) -> int:
     smoke.phase("serving path, mamba2_1_3b", lambda: smoke.serving(*mamba))
     if "serving path, mamba2_1_3b" not in smoke.failed:
         smoke.phase("serving profile, mamba2_1_3b",
-                    lambda: smoke.serving_profile(*mamba))
+                    lambda: smoke.serving_profile(mamba[1]))
     smoke.phase("mamba2 serving, kernel vs plain", smoke.mamba_vs_plain)
+    # the MoE models: the attention kernels at their widths, the MoE layer
+    # alone, ssd_scan at jamba's chunk, then each model's serving path
+    for arch in MOE_ARCHS:
+        smoke.phase(f"flash_attention vs plain, {arch}",
+                    lambda a=arch: smoke.flash_vs_plain(a))
+        smoke.phase(f"decode_attention vs plain, {arch}",
+                    lambda a=arch: smoke.decode_vs_plain(a))
+    smoke.phase("moe layer, gather vs dense", smoke.moe_layer)
+    smoke.phase("ssd_scan vs plain, jamba_v0_1_52b",
+                lambda: smoke.ssd_vs_plain("jamba_v0_1_52b"))
+    for arch, layers, vs_layers in MOE_SERVING:
+        path = f"serving_{arch}"
+        smoke.phase(f"serving path, {arch}",
+                    lambda a=arch, n=layers, p=path: smoke.serving(a, p, n))
+        if f"serving path, {arch}" not in smoke.failed:
+            smoke.phase(f"serving profile, {arch}",
+                        lambda p=path: smoke.serving_profile(p))
+        smoke.phase(f"{arch} serving, kernel vs plain",
+                    lambda a=arch, n=vs_layers: smoke.moe_vs_plain(a, n))
     if smoke.failed:
         print(f"chip_smoke: FAILED phases: {smoke.failed}", file=sys.stderr)
         return 1

@@ -25,14 +25,11 @@ ARCH_IDS = (
 )
 
 #: archs the port can run, and what each other arch waits for
-PORTED = ("qwen3_1_7b", "mamba2_1_3b")
-_MOE = "(ROADMAP.md queue 1 item 7, MoE)"
+PORTED = ("qwen3_1_7b", "mamba2_1_3b", "granite_moe_3b_a800m",
+          "jamba_v0_1_52b", "grok_1_314b")
 _DENSE = "(ROADMAP.md queue 1 item 8, remaining dense configs)"
 _MROPE = "(ROADMAP.md queue 1 item 9, M-RoPE and the frontend stubs)"
 WAITS_FOR = {
-    "jamba_v0_1_52b": f"models/moe {_MOE}",
-    "granite_moe_3b_a800m": f"models/moe {_MOE}",
-    "grok_1_314b": f"models/moe {_MOE}",
     "qwen2_vl_72b": f"apply_mrope and the vision frontend stub {_MROPE}",
     "musicgen_large": f"the audio frontend stub and the GELU-MLP config "
                       f"{_MROPE}",

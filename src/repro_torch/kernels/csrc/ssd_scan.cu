@@ -872,6 +872,9 @@ int launch_f32(const float* x, const float* dt, const float* a,
     case 16:
       return launch_q<1>(x, dt, a, bm, cm, init, y, fstate, st, batch,
                                 nh, s, p, n, str);
+    case 64:
+      return launch_q<4>(x, dt, a, bm, cm, init, y, fstate, st, batch,
+                                nh, s, p, n, str);
     case 128:
       return launch_q<8>(x, dt, a, bm, cm, init, y, fstate, st, batch,
                                 nh, s, p, n, str);
@@ -886,7 +889,8 @@ int launch_bf16(const __nv_bfloat16* x, const float* dt, const float* a,
                 float* scratch, const long long* sd, int batch, int nh,
                 int s, int p, int n, int chunk, void* stream) {
   if (batch <= 0 || nh <= 0 || s < 0 || p <= 0 || n <= 0 || n > MAX_N ||
-      batch > 65535 || nh > 65535 || (chunk != 16 && chunk != 128))
+      batch > 65535 || nh > 65535 ||
+      (chunk != 16 && chunk != 64 && chunk != 128))
     return (int)cudaErrorInvalidValue;
   Ssd A{x, dt, a, bm, cm, init, y, fstate, nullptr, nullptr, nullptr,
         nullptr, sd[0], sd[1], sd[2], sd[3], sd[4], sd[5], sd[6], sd[7], sd[8],
@@ -910,8 +914,14 @@ int launch_bf16(const __nv_bfloat16* x, const float* dt, const float* a,
   A.entry = reinterpret_cast<__nv_bfloat16*>(A.delta + states);
   A.dec = A.delta + 2 * states;
   cudaStream_t str = static_cast<cudaStream_t>(stream);
-  return chunk == 16 ? launch_chunked<16>(A, batch, str)
-                     : launch_chunked<128>(A, batch, str);
+  switch (chunk) {
+    case 16:
+      return launch_chunked<16>(A, batch, str);
+    case 64:
+      return launch_chunked<64>(A, batch, str);
+    default:
+      return launch_chunked<128>(A, batch, str);
+  }
 }
 
 }  // namespace

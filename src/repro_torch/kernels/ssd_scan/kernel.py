@@ -19,9 +19,9 @@ import torch
 from .. import _build
 from . import ref
 
-#: chunk lengths the kernel takes (mamba2_1_3b's 128 and its smoke
-#: config's 16), and the widest state it holds
-CHUNKS = (16, 128)
+#: chunk lengths the kernel takes (mamba2_1_3b's 128, jamba_v0_1_52b's 64
+#: and both smoke configs' 16), and the widest state it holds
+CHUNKS = (16, 64, 128)
 MAX_STATE = 128
 _ENTRY = {torch.float32: "ssd_scan_f32", torch.bfloat16: "ssd_scan_bf16"}
 

@@ -5,6 +5,8 @@ Usage:
     python -m repro_torch.launch.serve --arch qwen3_1_7b --smoke --requests 12
     python -m repro_torch.launch.serve --smoke --device cpu
     python -m repro_torch.launch.serve --arch mamba2_1_3b --smoke --device cpu
+    python -m repro_torch.launch.serve --arch granite-moe-3b-a800m --smoke \
+        --device cpu
 """
 from __future__ import annotations
 

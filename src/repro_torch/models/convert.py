@@ -7,8 +7,11 @@ unstacked into per-layer tensors (layer ``g * len(pattern) + slot``); the
 norm ``scale`` leaves are zeros-based (applied as ``1 + scale``) in both
 packages and are carried as they are. Every leaf keeps its dtype: bfloat16
 leaves (numpy's ``ml_dtypes.bfloat16``) arrive as ``torch.bfloat16``, and
-the mamba mixer's ``A_log``, ``D`` and ``dt_bias`` stay float32 in a
-bfloat16 model, as ``init_mamba`` makes them.
+the mamba mixer's ``A_log``, ``D`` and ``dt_bias`` and the MoE
+``router`` (D, E) stay float32 in a bfloat16 model, as ``init_mamba`` and
+``init_moe`` make them. The MoE expert stacks (G, E, D, F) / (G, E, F, D)
+lose their groups axis like every other leaf and keep the expert axis:
+``layers.<i>.moe.wi_gate`` is (E, D, F).
 """
 from __future__ import annotations
 

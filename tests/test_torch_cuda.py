@@ -497,7 +497,10 @@ def test_flash_kernel_reads_strided_layout(cuda):
 
 @pytest.mark.parametrize("b,s_max,hq,hkv,d", [
     (8, 2048, 16, 8, 128), (3, 100, 4, 2, 16), (2, 64, 16, 1, 64),
-    (4, 300, 8, 8, 32)])
+    (4, 300, 8, 8, 32),
+    (8, 2048, 24, 8, 64),      # granite_moe_3b_a800m: groups of 3
+    (8, 2048, 48, 8, 128),     # grok_1_314b: groups of 6 (rep > 4)
+    (8, 2048, 32, 8, 128)])    # jamba_v0_1_52b: groups of 4
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_kernel_matches_plain(cuda, b, s_max, hq, hkv, d, dtype):
     q = _randn((b, hq, d), dtype, cuda, 5)
@@ -629,6 +632,71 @@ def test_serving_engine_on_card_matches_cpu(cuda):
     assert out["cuda"] == out["cpu"]
 
 
+@pytest.mark.parametrize("s", [1024, 1000, 128, 1])
+@pytest.mark.parametrize("hq,hkv,d", [(24, 8, 64), (48, 8, 128),
+                                      (32, 8, 128)])
+def test_flash_kernel_moe_widths_take_the_hopper_body(cuda, s, hq, hkv, d):
+    # granite (groups of 3, head_dim 64), grok (6) and jamba (4) in bf16:
+    # every call takes the Hopper (TMA + wgmma) body
+    q = _randn((1, s, hq, d), torch.bfloat16, cuda, 21)
+    k = _randn((1, s, hkv, d), torch.bfloat16, cuda, 22)
+    v = _randn((1, s, hkv, d), torch.bfloat16, cuda, 23)
+    before = flash_kernel.flash_attention.hopper_launches
+    got = flash_kernel.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_kernel.flash_attention.hopper_launches == before + 1
+    want = flash_ref.flash_attention(q.float(), k.float(), v.float())
+    torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("arch", ["granite_moe_3b_a800m", "grok_1_314b",
+                                  "jamba_v0_1_52b"])
+def test_moe_serving_engine_on_card_matches_cpu(cuda, arch):
+    # the MoE smoke configs in float32: the engine's tokens on the card
+    # (the attention kernels, jamba's ssd_scan, the MoE layer's gathers and
+    # batched products) equal those of the plain versions on the CPU
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import ServingEngine
+    cfg = get_smoke_config(arch)
+    params = init_params(cfg, 0, device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServingEngine(cfg, params=params.to(dev), max_slots=3,
+                            max_len=24, tenant_weights={"gold": 2.0},
+                            device=dev)
+        rng = np.random.default_rng(0)
+        for i in range(6):
+            eng.submit("gold" if i % 3 else "free",
+                       [int(t) for t in rng.integers(0, cfg.vocab_size, 9)],
+                       max_new_tokens=5)
+        out[dev] = [(r.rid, r.out_tokens) for r in eng.run(max_steps=40)]
+    assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.parametrize("t", [1024, 1000, 8])
+@pytest.mark.parametrize("arch", ["granite_moe_3b_a800m", "grok_1_314b"])
+def test_moe_gather_matches_dense_on_card(cuda, arch, t):
+    # the full widths in float32: the gather routing against the dense
+    # GShard baseline on the same params and tokens, at groups of 256, 8
+    # and one decode step's 8 tokens (grok's expert width of 32,768 cut to
+    # 4,096 to keep its float32 expert stacks small)
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config(arch, dtype="float32", param_dtype="float32")
+    if arch == "grok_1_314b":
+        cfg = dataclasses.replace(cfg, moe_d_ff=4096)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    layer = moe.MoE(cfg, gen, torch.float32, cuda)
+    x = torch.randn(1, t, cfg.d_model, generator=gen, device=cuda)
+    y_g, aux_g = moe.moe_apply_gather_torch(cfg, layer, x)
+    y_d, aux_d = moe.moe_apply_dense_torch(cfg, layer, x)
+    scale = max(1.0, float(y_d.abs().max()))
+    assert float((y_g - y_d).abs().max()) <= 1e-4 * scale
+    assert abs(float(aux_g) - float(aux_d)) <= 1e-6
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_kernel_bf16_tensor_core_and_fallback_paths(cuda, causal):
     # bf16 with head_dim 128 and 16-byte-aligned rows takes the tensor-core
@@ -684,7 +752,11 @@ def _ssd_close(got, want, tol, what):
     (1, 4, 5, 64, 128, 128, True),        # S < chunk
     (2, 3, 100, 16, 16, 16, True),        # the smoke widths, one P block
     (2, 3, 200, 40, 24, 128, True),       # P split 32 + 8, odd N
-    (1, 2, 77, 96, 32, 16, False)])       # P split in three
+    (1, 2, 77, 96, 32, 16, False),        # P split in three
+    (1, 128, 1024, 64, 16, 64, False),    # jamba_v0_1_52b's prefill shape
+    (1, 128, 1000, 64, 16, 64, False),    # ragged S
+    (2, 3, 100, 16, 16, 64, True),        # chunk 64 at the smoke widths
+    (1, 4, 40, 64, 8, 64, True)])         # S < chunk, N below one tile
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_kernel_matches_plain(cuda, b, h, s, p, n, chunk, init, dtype):
     x, dt, a, bm, cm, st0 = _ssd_inputs(b, h, s, p, n, dtype, cuda, s,

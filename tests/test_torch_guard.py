@@ -45,7 +45,8 @@ def test_port_modules_listed():
                  "sched.churn", "core.dynamic", "core.batched",
                  "core.placement_torch", "core.baselines_torch",
                  "core.trace", "core.flowrouter", "sched.cluster",
-                 "sched.serving"):
+                 "sched.serving", "models.moe", "configs.granite_moe_3b_a800m",
+                 "configs.jamba_v0_1_52b", "configs.grok_1_314b"):
         assert f"repro_torch.{name}" in PORT_MODULES, name
 
 
@@ -62,7 +63,8 @@ def test_port_imports_no_jax_and_no_repro():
         "assert abs(a.tasks_per_user - [3, 3, 6]).max() < 1e-6\n"
         "import contextlib, io\n"
         "from repro_torch.launch import serve\n"
-        "for arch in ('qwen3_1_7b', 'mamba2_1_3b'):\n"
+        "for arch in ('qwen3_1_7b', 'mamba2_1_3b',\n"
+        "             'granite-moe-3b-a800m'):\n"
         "    with contextlib.redirect_stdout(io.StringIO()):\n"
         "        done = serve.main(['--arch', arch, '--smoke', '--device',\n"
         "                           'cpu', '--requests', '3', '--max-new',\n"
@@ -273,7 +275,8 @@ def test_serving_entry_points_default_to_cuda(no_cuda):
     from repro_torch.models.model import (forward_decode, forward_prefill,
                                           init_caches, init_params)
     from repro_torch.serve import ServingEngine
-    for arch in ("qwen3_1_7b", "mamba2_1_3b"):
+    for arch in ("qwen3_1_7b", "mamba2_1_3b", "granite_moe_3b_a800m",
+                 "jamba_v0_1_52b", "grok_1_314b"):
         cfg = get_smoke_config(arch)
         params = init_params(cfg, device="cpu")
         caches = init_caches(cfg, 1, 8, device="cpu")
@@ -397,3 +400,18 @@ def test_new_module_functions_take_names_of_their_own():
     shared = sorted((added & reference) - MIRRORED_NAMES)
     assert not shared, f"port functions named like the reference's: {shared}"
     assert MIRRORED_NAMES <= added
+
+
+def test_moe_functions_take_names_of_their_own():
+    # models/moe.py mirrors the reference's moe.py function for function;
+    # each module-level function takes a name of its own (P2)
+    reference = _module_functions(ROOT / "src" / "repro" / "models" /
+                                  "moe.py")
+    assert {"_route", "_expert_ffn", "moe_apply", "moe_apply_gather"} <= \
+        reference
+    port = _module_functions(ROOT / "src" / "repro_torch" / "models" /
+                             "moe.py")
+    assert {"_route_torch", "_expert_ffn_torch", "moe_apply_torch",
+            "moe_apply_gather_torch", "moe_apply_dense_torch",
+            "moe_group_plan_torch"} <= port
+    assert not port & reference

@@ -56,7 +56,7 @@ def test_port_config_equals_reference():
     from repro.configs import get_config
     assert _port(get_config("qwen3-1.7b")) == torch_get_config("qwen3-1.7b")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_get_config("jamba_v0_1_52b")
+        torch_get_config("gemma_2b")
     with pytest.raises(KeyError):
         torch_get_config("no_such_arch")
 

@@ -46,6 +46,7 @@ def _t(arrays):
     (1, 2, 128, 32, 16, 32),
     (2, 4, 256, 64, 32, 64),
     (1, 1, 64, 16, 8, 64),     # single chunk
+    (1, 4, 256, 64, 16, 64),   # jamba_v0_1_52b's head width, state, chunk
 ])
 def test_plain_matches_pallas_kernel_and_recurrence(b, h, s, p, n, chunk):
     arrays = _inputs(b, h, s, p, n)
@@ -212,6 +213,7 @@ def test_split_holds_float32_operands():
     (2, 4, 256, 64, 32, 64),
     (1, 1, 64, 16, 8, 64),     # single chunk
     (1, 3, 256, 64, 128, 128),  # mamba2_1_3b's head width, state, chunk
+    (1, 4, 256, 64, 16, 64),   # jamba_v0_1_52b's head width, state, chunk
 ])
 def test_four_step_plan_matches_pallas_kernel_and_recurrence(b, h, s, p, n,
                                                              chunk):
@@ -250,7 +252,8 @@ def test_four_step_plan_matches_model_ssd_chunked(s, init):
                                rtol=MODEL_TOL, atol=MODEL_TOL)
 
 
-@pytest.mark.parametrize("s,chunk", [(37, 16), (5, 128), (300, 128)])
+@pytest.mark.parametrize("s,chunk", [(37, 16), (5, 128), (300, 128),
+                                     (100, 64), (33, 64)])
 def test_four_step_plan_ragged_matches_plain_and_sequential(s, chunk):
     # a ragged last chunk and an initial state: y and the final state
     # against the plain chunked version and the recurrence
@@ -273,3 +276,18 @@ def test_scratch_size_counts_the_four_buffers():
         8 * 128 * 128 + 2 * 8 * 64 * 64 * 128 + 64 * 8
     assert kernel.scratch_size(2, 3, 100, 16, 16, 16) == \
         2 * 7 * (16 * 16 + 2 * 3 * 16 * 16 + 3)
+
+
+def test_kernel_takes_every_ported_mamba_config():
+    # each ported config with Mamba layers prefills through the kernel: its
+    # chunk is one the kernel is compiled for, its state within MAX_STATE
+    from repro_torch.configs import PORTED, get_config
+    from repro_torch.configs import get_smoke_config as smoke
+    seen = set()
+    for arch in PORTED:
+        for cfg in (get_config(arch), smoke(arch)):
+            if cfg.has_mixer("mamba"):
+                assert cfg.ssm_chunk in kernel.CHUNKS, cfg.name
+                assert 0 < cfg.ssm_state <= kernel.MAX_STATE, cfg.name
+                seen.add((cfg.ssm_chunk, cfg.ssm_state))
+    assert {(128, 128), (64, 16)} <= seen
