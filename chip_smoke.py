@@ -160,15 +160,36 @@ Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
    (a token whose own plain top-k differs must be a near tie: its k-th and
    (k+1)-th probabilities within 2^-4 of the k-th, ``TIE_REL``; such
    tokens at most 2^-4 of those routed), logits within 2^-5 x max|logit|;
-23. prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and as its
+23. holds the attention kernels against their plain versions, and times
+   them in turns with SDPA, at the dense and frontend configs' widths
+   (bfloat16, step 15's cases): qwen2_5_32b 40/8 x 128 (groups of 5),
+   granite_3_8b 32/8 x 128, gemma_2b 8/1 x 256 (groups of 8; every flash
+   call on the CUDA-core body), qwen2_vl_72b 64/8 x 128, musicgen_large
+   32/32 x 64 (every other flash call on the Hopper body);
+24. drives the serving path of each the same way, counts set to 0 again
+   (full widths, bfloat16, seeded init, 8 slots of 2,048 rows):
+   gemma_2b, granite_3_8b and musicgen_large whole with step 16's 16
+   requests; qwen2_5_32b whole (64 layers, 65.5 GB) and qwen2_vl_72b at 32
+   of its 80 layers with 8 requests of 16 new tokens (prompts of
+   128-1,024), each after the last model is freed and the cache emptied;
+   checks completion, token ids, finite logits, one flash launch per layer
+   and prefill (on the body its head dim takes) and one decode launch per
+   layer and step, prints the peak device memory, profiles a window for
+   the idle share (4 requests of 512 tokens, 4 new tokens each), then
+   holds a 2-layer full-width model's logits with the
+   kernels against the plain versions' (2^-5 x max|logit|); for
+   qwen2_vl_72b and musicgen_large a 2-layer prefill whose first 64
+   positions come from ``extra_embeds`` (the vision stub's 8 x 8 patch grid
+   with 3-D M-RoPE ids, the audio stub's frames with 1-D positions), the
+   kernels' logits against the plain versions' by the same rule;
+25. prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and as its
    last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the last line. Without a CUDA device,
 or without the repository's ``src/`` beside it, it fails at once. With
 ``--rehearse`` it runs every phase on the CPU at tiny sizes through the plain
-versions (the serving phases on the smoke configs of qwen3_1_7b,
-mamba2_1_3b and the three MoE models), skips what needs the card, and never
-prints a result line.
+versions (the serving phases on the smoke configs of every arch), skips
+what needs the card, and never prints a result line.
 """
 from __future__ import annotations
 
@@ -245,6 +266,27 @@ MOE_ARCHS = ("granite_moe_3b_a800m", "grok_1_314b", "jamba_v0_1_52b")
 #: model can be sharded across cards
 MOE_SERVING = (("granite_moe_3b_a800m", None, 2), ("jamba_v0_1_52b", 8, 8),
                ("grok_1_314b", 4, 2))
+
+
+#: the dense and frontend configs: the attention kernels run at each
+#: one's widths (qwen2_5_32b 40/8 x 128, granite_3_8b 32/8 x 128, gemma_2b
+#: 8/1 x 256 on flash's CUDA-core body, qwen2_vl_72b 64/8 x 128,
+#: musicgen_large 32/32 x 64)
+DENSE_ARCHS = ("qwen2_5_32b", "granite_3_8b", "gemma_2b", "qwen2_vl_72b",
+               "musicgen_large")
+#: (arch, serving depth, requests, new tokens a request): gemma, granite and
+#: musicgen whole with the 16 requests of 32 tokens; qwen2_5_32b whole (64
+#: layers, 65.5 GB) and qwen2_vl_72b at 32 of its 80 layers (61.2 GB of
+#: 145.4, until a model can be sharded across cards) with 8 requests of 16,
+#: to bound the run's time; full widths
+DENSE_SERVING = (("gemma_2b", None, 16, 32), ("granite_3_8b", None, 16, 32),
+                 ("musicgen_large", None, 16, 32),
+                 ("qwen2_5_32b", None, 8, 16), ("qwen2_vl_72b", 32, 8, 16))
+#: their profiled serving windows: 4 requests of 512 prompt tokens, 4 new
+#: tokens each (the earlier models' windows are 8 and 8). The profiler's
+#: processing grows with the ops it records, layers x passes: 8 and 8 made
+#: these five profiles 182 s of a 719 s run on an NVIDIA H100 80GB HBM3
+DENSE_PROFILE_WINDOW = (4, 4)
 
 
 #: per-body launch counts beside ``.launches`` (flash_attention's two)
@@ -2095,7 +2137,8 @@ class Smoke:
         """At ``arch``'s attention widths, S 1,024, a ragged 1,000, 512 (the
         profiled window's prompts) and 128 (the shortest prompt): each held
         against the plain version and timed in turns with SDPA; each call
-        must take the Hopper body."""
+        must take the Hopper body (head dims 64 and 128) or, at gemma_2b's
+        head dim 256, the CUDA-core body."""
         torch = self.torch
         import torch.nn.functional as F
         from repro_torch.kernels.flash_attention import kernel, ref
@@ -2109,15 +2152,16 @@ class Smoke:
         for key, s in zip(keys, lengths):
             q, k, v = self.attn_inputs([(1, s, hq, d), (1, s, hkv, d),
                                         (1, s, hkv, d)], dtype, seed=s)
-            hopper = kernel.flash_attention.hopper_launches
+            body = self.flash_body(cfg)
+            before = getattr(kernel.flash_attention, body)
             got = kernel.flash_attention(q, k, v)
             plain32 = ref.flash_attention(q.float(), k.float(), v.float())
             self.sync()
             err = self.compare_attn(got, plain32, f"flash S={s}")
             if not self.rehearse:
-                self.check(kernel.flash_attention.hopper_launches
-                           == hopper + 1, f"flash S={s} missed the Hopper "
-                                          f"body")
+                self.check(getattr(kernel.flash_attention, body)
+                           == before + 1, f"flash S={s} missed its body, "
+                                          f"{body}")
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
             def sdpa():
@@ -2136,8 +2180,10 @@ class Smoke:
             t_ops = flops / PEAK_BF16_FLOPS
             bound_ms = max(t_bytes, t_ops) * 1e3
             bound_by = "bytes" if t_bytes > t_ops else "operations"
-            bq = kernel.block_rows(1, s, hq)
-            print(f"  flash (1, {s}, {hq}/{hkv}, {d}) bf16 causal, blocks "
+            bq = (kernel.block_rows(1, s, hq) if body == "hopper_launches"
+                  else 64)
+            print(f"  flash (1, {s}, {hq}/{hkv}, {d}) bf16 causal, "
+                  f"{body[:-9]} body, blocks "
                   f"of {bq} rows, kernel and SDPA in turns: kernel {ks[0]:.4f}, "
                   f"{ks[1]:.4f} ms, SDPA {ls[0]:.4f}, {ls[1]:.4f} ms (back "
                   f"to back: kernel {eager_ms:.4f}, SDPA "
@@ -2149,7 +2195,15 @@ class Smoke:
                 bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
                 library_ms=library_ms, library_eager_ms=library_eager_ms,
                 turns_ms=ks, library_turns_ms=ls, block_rows=bq,
-                shape=f"1x{s}x{hq}/{hkv}x{d}")
+                body=body[:-9], shape=f"1x{s}x{hq}/{hkv}x{d}")
+
+    @staticmethod
+    def flash_body(cfg):
+        """The flash body ``cfg``'s bfloat16 prefills take: its counter's
+        name on the wrapper."""
+        from repro_torch.kernels.flash_attention import kernel
+        return ("hopper_launches" if cfg.head_dim in kernel.HOPPER_HEAD_DIMS
+                else "cuda_core_launches")
 
     def flash_plans(self):
         """The Hopper flash body at both block sizes (query rows a block)
@@ -2265,11 +2319,11 @@ class Smoke:
                 "decode_attention": attn * steps,
                 "ssd_scan": mamba * prefills}
 
-    def serving(self, arch="qwen3_1_7b", path="serving", layers=None):
-        """The serving path of ``arch`` (cut to ``layers`` where given),
-        counts set to 0 just before ``run`` and read just after."""
-        import gc
-
+    def serving(self, arch="qwen3_1_7b", path="serving", layers=None,
+                requests=16, new_tokens=32):
+        """The serving path of ``arch`` (cut to ``layers`` where given):
+        ``requests`` requests of ``new_tokens`` new tokens each, counts set
+        to 0 just before ``run`` and read just after."""
         import numpy as np
         torch = self.torch
         from repro_torch.models import model as tmodel
@@ -2277,11 +2331,13 @@ class Smoke:
         from repro_torch.serve import engine as engine_mod
         cfg = self.llm_config(layers, arch=arch)
         max_len, (lo, hi), max_new = ((64, (8, 40), 4) if self.rehearse
-                                      else (2048, (128, 1024), 32))
-        self.params_full = None           # an earlier model's params
-        gc.collect()
+                                      else (2048, (128, 1024), new_tokens))
+        self.free_full_model()            # an earlier model's params
         if self.device.type == "cuda":
-            torch.cuda.empty_cache()
+            print(f"  device memory before the load: "
+                  f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+                  f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} "
+                  f"GiB reserved")
         t0 = time.perf_counter()
         params = tmodel.init_params(cfg, 0, device=self.device)
         self.sync()
@@ -2321,7 +2377,7 @@ class Smoke:
                             tenant_weights={"gold": 2.0, "free": 1.0},
                             device=self.device)
         rng = np.random.default_rng(0)
-        for i in range(16):
+        for i in range(requests):
             tenant = "gold" if i % 3 else "free"
             n = int(rng.integers(lo, hi + 1))
             eng.submit(tenant, [int(t) for t in rng.integers(
@@ -2344,7 +2400,7 @@ class Smoke:
             reset_counts(counters)
             self.sync()
             t0 = time.perf_counter()
-            done = eng.run(max_steps=16 * max_new + 64)
+            done = eng.run(max_steps=requests * max_new + 64)
             self.sync()
             wall = time.perf_counter() - t0
             launches = {name: fn.launches for name, fn in counters.items()}
@@ -2372,6 +2428,7 @@ class Smoke:
         self.paths[path] = dict(
             launches=launches, flash_bodies=bodies, wall_s=wall,
             requests=len(done), layers=cfg.num_layers, params=n_params,
+            new_tokens=max_new,
             prefills=st["prefills"], prefill_tokens=st["prefill_tokens"],
             prefill_ms_per_request=st["prefill_s"] * 1e3 / st["prefills"],
             prefill_tokens_per_s=st["prefill_tokens"] / st["prefill_s"],
@@ -2380,7 +2437,7 @@ class Smoke:
             decode_tokens_per_s=st["decode_tokens"] / st["decode_s"],
             tokens_per_tenant=per_tenant, peak_gib=peak)
 
-        self.check(len(done) == 16 and all(
+        self.check(len(done) == requests and all(
             r.done and len(r.out_tokens) == max_new for r in done),
             "not every request completed")
         self.check(all(0 <= t < cfg.vocab_size for r in done
@@ -2392,18 +2449,22 @@ class Smoke:
                 self.check(count == want.get(name, 0),
                            f"{name} launched {count} times on the serving "
                            f"path, expected {want.get(name, 0)}")
-            # every prefill's attention took the Hopper (TMA + wgmma) body
-            self.check(bodies == {"hopper_launches": want["flash_attention"],
-                                  "cuda_core_launches": 0},
+            # every prefill's attention took the Hopper (TMA + wgmma) body;
+            # gemma_2b's head dim 256 the CUDA-core body
+            body = self.flash_body(cfg)
+            want_bodies = dict.fromkeys(BODY_COUNTS, 0)
+            want_bodies[body] = want["flash_attention"]
+            self.check(bodies == want_bodies,
                        f"flash_attention bodies {bodies}, expected every "
-                       f"launch on the Hopper body")
+                       f"launch on the {body[:-9]} body")
 
-    def serving_profile(self, path="serving"):
+    def serving_profile(self, path="serving", requests=8, new_tokens=8):
         """Device busy and idle share over a short serving window of the
-        model the last serving phase ran: 8 requests of 512 prompt tokens, 8
-        new tokens each. Each MoE layer runs inside a ``moe_layer`` profiler
-        range, whose device time (the kernels launched inside it) gives the
-        MoE layers' share of the busy time."""
+        model the last serving phase ran: ``requests`` requests of 512
+        prompt tokens, ``new_tokens`` new tokens each. Each MoE layer runs
+        inside a ``moe_layer`` profiler range, whose device time (the
+        kernels launched inside it) gives the MoE layers' share of the busy
+        time."""
         import numpy as np
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile, record_function
@@ -2424,9 +2485,9 @@ class Smoke:
                             max_len=prompt + 16,
                             tenant_weights={"gold": 2.0, "free": 1.0},
                             device=self.device)
-        for i in range(8):
+        for i in range(requests):
             eng.submit("gold" if i % 3 else "free", [int(t) for t in rng.integers(
-                0, cfg.vocab_size, prompt)], max_new_tokens=8)
+                0, cfg.vocab_size, prompt)], max_new_tokens=new_tokens)
         self.sync()
         with profile(activities=acts) as prof, \
                 mock.patch.object(blocks_mod, "moe_apply_torch", moe_ranged):
@@ -2468,18 +2529,31 @@ class Smoke:
             wall_ms=wall_ms, busy_ms=busy_ms,
             idle_share=max(0.0, 1 - busy_ms / wall_ms), **attn,
             prefill_ms=st["prefill_s"] * 1e3, decode_ms=st["decode_s"] * 1e3,
+            prefills=st["prefills"], decode_steps=st["decode_steps"],
             moe_ms=moe_ms if cfg.has_moe() else None)
 
-    def serving_vs_plain(self):
-        """A 2-layer full-width model, the kernels' run then the plain
-        versions' run, on the same params and tokens."""
+    def free_full_model(self):
+        """Drop the last serving phase's model and return its memory to the
+        card before another model loads."""
+        import gc
+        self.params_full = self.cfg_full = None
+        gc.collect()
+        if self.device.type == "cuda":
+            self.torch.cuda.empty_cache()
+
+    def serving_vs_plain(self, arch="qwen3_1_7b"):
+        """A 2-layer full-width ``arch``, the kernels' run then the plain
+        versions' run, on the same params and tokens (the default
+        positions: (3, B, S) under M-RoPE)."""
         import numpy as np
         torch = self.torch
         from repro_torch.kernels.decode_attention import ref as decode_ref
         from repro_torch.kernels.flash_attention import ref as flash_ref
         from repro_torch.models import attention as attention_mod
         from repro_torch.models import model as tmodel
-        cfg = self.llm_config(layers=2)
+        cfg = self.llm_config(layers=2, arch=arch)
+        if arch != "qwen3_1_7b":
+            self.free_full_model()
         params = tmodel.init_params(cfg, 1, device=self.device)
         s, max_len, steps = (20, 32, 4) if self.rehearse else (300, 512, 4)
         rng = np.random.default_rng(2)
@@ -2517,11 +2591,90 @@ class Smoke:
         plain_launches = {n: fn.launches for n, fn in counters.items()}
         print(f"  2-layer {cfg.name} {cfg.dtype}, prompt 2 x {s}, {steps} "
               f"decode steps: launches with kernels {kern_launches}")
-        self.paths["serving_vs_plain"] = dict(
+        key = ("serving_vs_plain" if arch == "qwen3_1_7b"
+               else f"serving_{arch}_vs_plain")
+        self.paths[key] = dict(
             max_abs_err=self.compare_logits(cfg, kern, plain))
         if not self.rehearse:
             self.check(kern_launches["flash_attention"] == 2
                        and kern_launches["decode_attention"] == 2 * steps,
+                       f"kernel launches {kern_launches}")
+            self.check(plain_launches == kern_launches,
+                       "the plain run launched a kernel")
+
+    def frontend_stub(self, arch):
+        """A 2-layer full-width ``arch`` whose first 64 positions come from
+        precomputed embeddings (``forward_prefill``'s ``extra_embeds`` and
+        ``extra_mask``): qwen2_vl_72b's vision patches on an 8 x 8 grid with
+        3-D M-RoPE ids (t constant, h and w the grid) and the text after
+        them, every component counting on from the grid's largest id;
+        musicgen_large's audio frames with 1-D positions. The kernels' run,
+        then the plain versions' run, on the same params and inputs; their
+        logits held to 2^-5 x max|logit|."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch.kernels.flash_attention import ref as flash_ref
+        from repro_torch.models import attention as attention_mod
+        from repro_torch.models import model as tmodel
+        cfg = self.llm_config(layers=2, arch=arch)
+        self.free_full_model()
+        params = tmodel.init_params(cfg, 2, device=self.device)
+        (gh, gw), s, b = ((2, 4), 20, 2) if self.rehearse else ((8, 8), 300,
+                                                                 2)
+        n = gh * gw
+        rng = np.random.default_rng(3)
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)),
+                                 device=self.device)
+        # embeddings on the table's scale (std 1 / sqrt(d_model))
+        g = torch.Generator(device=self.device).manual_seed(4)
+        extra = (torch.randn(b, s, cfg.d_model, generator=g,
+                             device=self.device) * cfg.d_model ** -0.5
+                 ).to(params.embed.dtype)
+        mask = torch.zeros(b, s, dtype=torch.bool, device=self.device)
+        mask[:, :n] = True
+        text = torch.arange(s - n, device=self.device)
+        if cfg.rope_type == "mrope":
+            grid = torch.arange(n, device=self.device)
+            text = text + max(gh, gw)
+            comps = [torch.cat([torch.zeros_like(grid), text]),
+                     torch.cat([grid // gw, text]),
+                     torch.cat([grid % gw, text])]
+            pos = torch.stack(comps)[:, None].expand(3, b, s)
+        else:
+            pos = torch.arange(s, device=self.device).expand(b, s)
+
+        def run():
+            logits, _ = tmodel.forward_prefill(cfg, params, tokens, pos,
+                                               extra, mask,
+                                               device=self.device)
+            self.sync()
+            return [logits]
+
+        counters = wrappers()
+        reset_counts(counters)
+        kern = run()
+        kern_launches = {k: fn.launches for k, fn in counters.items()}
+        with mock.patch.object(attention_mod, "flash_attention",
+                               flash_ref.flash_attention):
+            plain = run()
+        plain_launches = {k: fn.launches for k, fn in counters.items()}
+        # the stub's embeddings reached the model: without them the logits
+        # move
+        without, _ = tmodel.forward_prefill(cfg, params, tokens, pos,
+                                            device=self.device)
+        moved = float((without - kern[0]).abs().max())
+        print(f"  2-layer {cfg.name} {cfg.dtype} ({cfg.frontend}), {b} x "
+              f"{s} positions, the first {n} from extra_embeds"
+              + (f" on a {gh} x {gw} grid, M-RoPE positions" if
+                 cfg.rope_type == "mrope" else ", 1-D positions")
+              + f"; launches with the kernels {kern_launches}; logits "
+              f"without the embeddings move by {moved:.3e}")
+        self.paths[f"frontend_stub_{arch}"] = dict(
+            max_abs_err=self.compare_logits(cfg, kern, plain),
+            stub_positions=n, positions=s, logits_moved=moved)
+        self.check(moved > 0, "the stub's embeddings changed nothing")
+        if not self.rehearse:
+            self.check(kern_launches["flash_attention"] == 2,
                        f"kernel launches {kern_launches}")
             self.check(plain_launches == kern_launches,
                        "the plain run launched a kernel")
@@ -2759,8 +2912,6 @@ class Smoke:
         router probabilities part (per token, the largest difference over
         the experts, relative to the k-th). Reuses the last serving
         phase's params where that model has this depth."""
-        import gc
-
         import numpy as np
         torch = self.torch
         from repro_torch.kernels.decode_attention import ref as decode_ref
@@ -2774,10 +2925,7 @@ class Smoke:
         if getattr(self, "cfg_full", None) == cfg:
             params = self.params_full
         else:
-            self.params_full = self.cfg_full = None
-            gc.collect()
-            if self.device.type == "cuda":
-                torch.cuda.empty_cache()
+            self.free_full_model()
             params = tmodel.init_params(cfg, 1, device=self.device)
         s, max_len, steps = (20, 32, 4) if self.rehearse else (300, 512, 4)
         rng = np.random.default_rng(2)
@@ -3018,6 +3166,28 @@ def main(argv=None) -> int:
                         lambda p=path: smoke.serving_profile(p))
         smoke.phase(f"{arch} serving, kernel vs plain",
                     lambda a=arch, n=vs_layers: smoke.moe_vs_plain(a, n))
+    # the dense and frontend configs: the attention kernels at their
+    # widths, then each model's serving path, its 2-layer kernel-vs-plain
+    # run and, for the stub frontends, a prefill through their embeddings
+    for arch in DENSE_ARCHS:
+        smoke.phase(f"flash_attention vs plain, {arch}",
+                    lambda a=arch: smoke.flash_vs_plain(a))
+        smoke.phase(f"decode_attention vs plain, {arch}",
+                    lambda a=arch: smoke.decode_vs_plain(a))
+    for arch, layers, requests, new_tokens in DENSE_SERVING:
+        path = f"serving_{arch}"
+        smoke.phase(f"serving path, {arch}",
+                    lambda a=arch, n=layers, p=path, r=requests,
+                    t=new_tokens: smoke.serving(a, p, n, r, t))
+        if f"serving path, {arch}" not in smoke.failed:
+            smoke.phase(f"serving profile, {arch}",
+                        lambda p=path: smoke.serving_profile(
+                            p, *DENSE_PROFILE_WINDOW))
+        smoke.phase(f"{arch} serving, kernel vs plain",
+                    lambda a=arch: smoke.serving_vs_plain(a))
+        if smoke.llm_config(arch=arch).frontend != "none":
+            smoke.phase(f"frontend stub, {arch}",
+                        lambda a=arch: smoke.frontend_stub(a))
     if smoke.failed:
         print(f"chip_smoke: FAILED phases: {smoke.failed}", file=sys.stderr)
         return 1

@@ -1,8 +1,9 @@
 """Architecture registry of the port: the reference's ids and aliases
 (``repro/configs/__init__.py``), with the configs whose blocks the port
 has. ``get_config``/``get_smoke_config`` return the same ``ModelConfig``
-values as the reference for a ported arch and raise ``NotImplementedError``,
-naming what it waits for in ROADMAP.md, for the others.
+values as the reference. Every arch is ported; an arch missing from
+``PORTED`` would raise ``NotImplementedError`` naming what it waits for in
+ROADMAP.md (``WAITS_FOR``).
 """
 from __future__ import annotations
 
@@ -24,21 +25,9 @@ ARCH_IDS = (
     "musicgen_large",
 )
 
-#: archs the port can run, and what each other arch waits for
-PORTED = ("qwen3_1_7b", "mamba2_1_3b", "granite_moe_3b_a800m",
-          "jamba_v0_1_52b", "grok_1_314b")
-_DENSE = "(ROADMAP.md queue 1 item 8, remaining dense configs)"
-_MROPE = "(ROADMAP.md queue 1 item 9, M-RoPE and the frontend stubs)"
-WAITS_FOR = {
-    "qwen2_vl_72b": f"apply_mrope and the vision frontend stub {_MROPE}",
-    "musicgen_large": f"the audio frontend stub and the GELU-MLP config "
-                      f"{_MROPE}",
-    "gemma_2b": f"head_dim 256 in the attention kernels, which take "
-                f"head_dim <= 128 {_DENSE}",
-    "qwen2_5_32b": f"its config and parity tests at qkv_bias=True {_DENSE}",
-    "granite_3_8b": f"its config and parity tests at untied embeddings "
-                    f"{_DENSE}",
-}
+#: archs the port can run (every one), and what each other arch waits for
+PORTED = ARCH_IDS
+WAITS_FOR: dict = {}
 
 # public --arch ids (dashes) -> module names
 ALIASES = {aid.replace("_", "-"): aid for aid in ARCH_IDS}

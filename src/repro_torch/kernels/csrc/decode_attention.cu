@@ -29,7 +29,10 @@
 // strides, 16 bytes a lane (8 bf16 or 4 float32 columns; 8 bytes for query
 // groups of 8 or more, for registers): LPR lanes cover one row, so a warp
 // reads 32 / LPR rows a load and keeps U loads of K and of V in flight per
-// lane. Each lane keeps the running max, sum and accumulator of its row
+// lane. A row wider than a warp's packs (head dim 256 in float32, or in
+// bf16 at groups past 4: 64 packs of 4 columns) gives each of the 32 lanes
+// NPK = 2 packs of it, 32 packs apart, so every load of the warp stays one
+// contiguous span of the row. Each lane keeps the running max, sum and accumulator of its row
 // group's rows for the Hq / Hkv query heads that share the kv head (scores
 // in log2 units, q prescaled by scale * log2 e, so each weight is one
 // exp2). The row groups of a warp merge by shuffles, the warps through
@@ -58,7 +61,7 @@ constexpr int NT = 128;           // threads of a split block
 constexpr int NWARP = NT / 32;
 constexpr int NT_MERGE = 256;     // threads of a merge block
 constexpr int MERGE_COLS = 32;    // output columns of a merge block
-constexpr int MAX_D = 128;
+constexpr int MAX_D = 256;
 constexpr int MAX_REP = 16;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -134,14 +137,18 @@ struct Shape {
 };
 
 // rows of kv head `blockIdx.y` of sequence `blockIdx.z` in chunk
-// `blockIdx.x`; REP: a power of two >= rep (registers are sized for it)
-template <typename T, int REP, int VEC>
+// `blockIdx.x`; REP: a power of two >= rep (registers are sized for it);
+// NPK: packs of a row a lane holds (1, or 2 when lpr = 32 lanes of VEC
+// columns do not cover D)
+template <typename T, int REP, int VEC, int NPK>
 __global__ void __launch_bounds__(NT) decode_split_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const int* __restrict__ kv_len,
     float* __restrict__ part, Shape sh, int vec) {
   using P = Pack<T, VEC>;
-  constexpr int U = REP <= 4 ? 4 : 2;       // row loads in flight per lane
+  constexpr int NV = NPK * VEC;             // columns a lane holds
+  // row loads in flight per lane: 4 packs of K and of V, 2 for wide groups
+  constexpr int U = (REP <= 4 ? 4 : 2) / NPK;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);   // [NWARP][rep][d + 2]
 
@@ -153,25 +160,33 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(
   if (r0 >= len) return;                     // nothing of this chunk is valid
   const int r1 = min(r0 + sh.chunk, len);
   const int rpw = 32 / lpr;                  // rows a warp reads per load
+  // pack p of this lane covers columns col + p * pstride .. + VEC - 1
   const int grp = lane / lpr, col = (lane % lpr) * VEC;
-  const bool act = col < d;
+  const int pstride = lpr * VEC;
+  bool act[NPK];
+#pragma unroll
+  for (int pk = 0; pk < NPK; ++pk) act[pk] = col + pk * pstride < d;
   const bool vload = vec != 0;
 
-  float qv[REP][VEC];
+  float qv[REP][NV];
 #pragma unroll
   for (int r = 0; r < REP; ++r)
 #pragma unroll
-    for (int i = 0; i < VEC; ++i)
-      qv[r][i] = r < rep && act
-          ? to_f(q[b * sh.qsb + (g * rep + r) * sh.qsh + col + i]) * sh.qscale
-          : 0.f;
-  float m[REP], l[REP], acc[REP][VEC];
+    for (int pk = 0; pk < NPK; ++pk)
+#pragma unroll
+      for (int i = 0; i < VEC; ++i)
+        qv[r][pk * VEC + i] =
+            r < rep && act[pk]
+                ? to_f(q[b * sh.qsb + (g * rep + r) * sh.qsh + col +
+                         pk * pstride + i]) * sh.qscale
+                : 0.f;
+  float m[REP], l[REP], acc[REP][NV];
 #pragma unroll
   for (int r = 0; r < REP; ++r) {
     m[r] = -INFINITY;
     l[r] = 0.f;
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[r][i] = 0.f;
+    for (int i = 0; i < NV; ++i) acc[r][i] = 0.f;
   }
 
   const T* kb = k + b * sh.ksb + g * sh.ksh + col;
@@ -179,16 +194,19 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(
   // warp-uniform loop: row base + u * rpw + grp is this lane's u-th row
   const int step = NWARP * U * rpw;
   for (int base = r0 + warp * U * rpw; base < r1; base += step) {
-    P kr[U], vr[U];
+    P kr[U][NPK], vr[U][NPK];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int j = base + u * rpw + grp;
-      if (j < r1 && act) {
-        kr[u].load(kb + (long long)j * sh.kss, vload);
-        vr[u].load(vb + (long long)j * sh.vss, vload);
-      } else {
-        kr[u].zero();
-        vr[u].zero();
+#pragma unroll
+      for (int pk = 0; pk < NPK; ++pk) {
+        if (j < r1 && act[pk]) {
+          kr[u][pk].load(kb + (long long)j * sh.kss + pk * pstride, vload);
+          vr[u][pk].load(vb + (long long)j * sh.vss + pk * pstride, vload);
+        } else {
+          kr[u][pk].zero();
+          vr[u][pk].zero();
+        }
       }
     }
 #pragma unroll
@@ -197,12 +215,15 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(
       float sc[U];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        float kx[VEC];
-        kr[u].unpack(kx);
         float part_dot = 0.f;
 #pragma unroll
-        for (int i = 0; i < VEC; ++i)
-          part_dot = fmaf(qv[r][i], kx[i], part_dot);
+        for (int pk = 0; pk < NPK; ++pk) {
+          float kx[VEC];
+          kr[u][pk].unpack(kx);
+#pragma unroll
+          for (int i = 0; i < VEC; ++i)
+            part_dot = fmaf(qv[r][pk * VEC + i], kx[i], part_dot);
+        }
         for (int off = lpr >> 1; off > 0; off >>= 1)
           part_dot += __shfl_xor_sync(0xffffffffu, part_dot, off);
         sc[u] = base + u * rpw + grp < r1 ? part_dot : -INFINITY;
@@ -213,21 +234,25 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(
       const float m_new = fmaxf(m[r], mx);
       if (m_new == -INFINITY) continue;      // no valid row for this group yet
       const float corr = exp2f(m[r] - m_new);
-      float lsum = 0.f, pv[VEC];
+      float lsum = 0.f, pv[NV];
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) pv[i] = 0.f;
+      for (int i = 0; i < NV; ++i) pv[i] = 0.f;
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const float p = exp2f(sc[u] - m_new);
-        float vx[VEC];
-        vr[u].unpack(vx);
         lsum += p;
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) pv[i] = fmaf(p, vx[i], pv[i]);
+        for (int pk = 0; pk < NPK; ++pk) {
+          float vx[VEC];
+          vr[u][pk].unpack(vx);
+#pragma unroll
+          for (int i = 0; i < VEC; ++i)
+            pv[pk * VEC + i] = fmaf(p, vx[i], pv[pk * VEC + i]);
+        }
       }
       l[r] = fmaf(l[r], corr, lsum);
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[r][i] = fmaf(acc[r][i], corr, pv[i]);
+      for (int i = 0; i < NV; ++i) acc[r][i] = fmaf(acc[r][i], corr, pv[i]);
       m[r] = m_new;
     }
   }
@@ -244,7 +269,7 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(
       const float fb = mm == -INFINITY ? 0.f : exp2f(mo - mm);
       l[r] = l[r] * fa + lo * fb;
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) {
+      for (int i = 0; i < NV; ++i) {
         const float ao = __shfl_xor_sync(0xffffffffu, acc[r][i], off);
         acc[r][i] = acc[r][i] * fa + ao * fb;
       }
@@ -260,9 +285,13 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(
       sw[r * (d + 2)] = m[r];
       sw[r * (d + 2) + 1] = l[r];
     }
-    if (grp == 0 && act)
+    if (grp == 0)
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) sw[r * (d + 2) + 2 + col + i] = acc[r][i];
+      for (int pk = 0; pk < NPK; ++pk)
+        if (act[pk])
+#pragma unroll
+          for (int i = 0; i < VEC; ++i)
+            sw[r * (d + 2) + 2 + col + pk * pstride + i] = acc[r][pk * VEC + i];
   }
   __syncthreads();
   const long long bg = (long long)b * gridDim.y + g;
@@ -346,12 +375,12 @@ size_t smem_bytes(int rep, int d) {
   return sizeof(float) * (size_t)(NWARP * rep * (d + 2));
 }
 
-template <typename T, int REP, int VEC>
+template <typename T, int REP, int VEC, int NPK>
 int launch_rep(const T* q, const T* k, const T* v, const int* kv_len, T* o,
                float* part, const Shape& sh, int batch, int hkv, int vec,
                cudaStream_t stream) {
   const size_t smem = smem_bytes(sh.rep, sh.d);
-  auto split = decode_split_kernel<T, REP, VEC>;
+  auto split = decode_split_kernel<T, REP, VEC, NPK>;
   cudaError_t err = cudaFuncSetAttribute(
       split, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -363,6 +392,20 @@ int launch_rep(const T* q, const T* k, const T* v, const int* kv_len, T* o,
   decode_merge_kernel<T><<<mgrid, NT_MERGE, 0, stream>>>(kv_len, part, o,
                                                          sh);
   return (int)cudaGetLastError();
+}
+
+// NPK: 2 where 32 lanes of VEC columns do not cover D (VEC 4 past D 128)
+template <typename T, int REP, int VEC>
+int launch_npk(const T* q, const T* k, const T* v, const int* kv_len, T* o,
+               float* part, const Shape& sh, int batch, int hkv, int vec,
+               cudaStream_t stream) {
+  if constexpr (32 * VEC < MAX_D) {
+    if (sh.lpr * VEC < sh.d)
+      return launch_rep<T, REP, VEC, 2>(q, k, v, kv_len, o, part, sh, batch,
+                                        hkv, vec, stream);
+  }
+  return launch_rep<T, REP, VEC, 1>(q, k, v, kv_len, o, part, sh, batch, hkv,
+                                    vec, stream);
 }
 
 // VEC: 16 bytes a lane, but 8 for bf16 query groups of 8 or more, whose
@@ -385,8 +428,8 @@ int launch(const T* q, const T* k, const T* v, const int* kv_len, T* o,
   sh.qscale = scale * LOG2E;
   const bool wide = sizeof(T) == 2 && rep > 4;
   const int vec_el = sizeof(T) == 4 ? 4 : (wide ? 4 : 8);
-  int lpr = 1;                               // lanes per row: a power of 2
-  while (lpr * vec_el < d) lpr <<= 1;
+  int lpr = 1;                 // lanes per row: a power of 2, at most 32
+  while (lpr < 32 && lpr * vec_el < d) lpr <<= 1;
   sh.lpr = lpr;
   // pack loads need every row start aligned to the pack
   const unsigned long long align = (unsigned long long)vec_el * sizeof(T);
@@ -398,7 +441,7 @@ int launch(const T* q, const T* k, const T* v, const int* kv_len, T* o,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   constexpr int V16 = 16 / sizeof(T);
 #define DECODE_CASE(RR, VV)                                                  \
-  return launch_rep<T, RR, VV>(q, k, v, kv_len, o, part, sh, batch, hkv,    \
+  return launch_npk<T, RR, VV>(q, k, v, kv_len, o, part, sh, batch, hkv,    \
                                vec, s)
   if (rep <= 1) DECODE_CASE(1, V16);
   if (rep <= 2) DECODE_CASE(2, V16);

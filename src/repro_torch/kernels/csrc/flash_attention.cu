@@ -41,7 +41,10 @@
 //   memory as float32; a thread computes a 4 x 4 block of scores per tile
 //   (rows 4 ty.., columns tx + 16 j), so the K rows read by the 16 column
 //   threads sit D + 1 words apart and hit 16 different banks. It is bound
-//   by the CUDA cores' issue rate and shared-memory loads.
+//   by the CUDA cores' issue rate and shared-memory loads. Head dims up to
+//   256 (gemma_2b's) take it: at D 256 the staged tiles are 214.5 KB of
+//   shared memory (one block an SM, under the H100's 227 KB opt-in, which
+//   the launch raises) and each thread holds 4 x 16 accumulators.
 // Both mask ragged S themselves (rows >= S are not written, columns >= S
 // score -inf), so nothing is padded.
 //
@@ -67,7 +70,7 @@ constexpr int BQ = 64;          // query rows per block
 constexpr int BK = 64;          // kv rows per tile
 constexpr int NT = 256;         // threads: 16 column x 16 row groups
 constexpr int PLD = BQ + 4;     // row length of the staged probabilities
-constexpr int MAX_D = 128;
+constexpr int MAX_D = 256;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -767,6 +770,14 @@ int launch(const T* q, const T* k, const T* v, T* o, const long long* st,
     FLASH_CASE(6)
     FLASH_CASE(7)
     FLASH_CASE(8)
+    FLASH_CASE(9)
+    FLASH_CASE(10)
+    FLASH_CASE(11)
+    FLASH_CASE(12)
+    FLASH_CASE(13)
+    FLASH_CASE(14)
+    FLASH_CASE(15)
+    FLASH_CASE(16)
   }
 #undef FLASH_CASE
   return (int)cudaErrorInvalidValue;

@@ -25,7 +25,7 @@ from . import ref
 
 #: head dims the kernel takes (multiples of 8 up to this), and the most
 #: query heads that may share one kv head
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 MAX_GROUP = 16
 _ENTRY = {torch.float32: "decode_attention_f32",
           torch.bfloat16: "decode_attention_bf16"}

@@ -10,10 +10,11 @@ does.
 It has two bodies, chosen from the inputs (:func:`takes_hopper_body`):
 bfloat16 with head dim 64 or 128 on rows TMA can address runs the Hopper
 body (TMA loads, ``wgmma`` products, kv tiles of ``KV_ROWS`` rows, blocks
-of :func:`block_rows` query rows);
-everything else runs the CUDA-core body. ``flash_attention.launches``
-counts every launch, ``flash_attention.hopper_launches`` and
-``flash_attention.cuda_core_launches`` each body's.
+of :func:`block_rows` query rows); everything else runs the CUDA-core
+body, gemma_2b's head dim 256 among them (the Hopper body at 256 is a
+later redesign). ``flash_attention.launches`` counts every launch,
+``flash_attention.hopper_launches`` and ``flash_attention.cuda_core_launches``
+each body's.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ from . import ref
 
 #: head dims the kernel takes (multiples of 8 up to this), and those of
 #: the Hopper body
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 HOPPER_HEAD_DIMS = (64, 128)
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}

@@ -7,6 +7,10 @@ Usage:
     python -m repro_torch.launch.serve --arch mamba2_1_3b --smoke --device cpu
     python -m repro_torch.launch.serve --arch granite-moe-3b-a800m --smoke \
         --device cpu
+    python -m repro_torch.launch.serve --arch gemma_2b --smoke --device cpu
+    (also qwen2.5-32b, granite-3-8b, qwen2-vl-72b and musicgen-large: every
+    arch of ``configs.ARCH_IDS``; the frontend stubs' models serve token
+    ids, as the reference's engine passes no precomputed embeddings)
 """
 from __future__ import annotations
 

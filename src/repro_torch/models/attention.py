@@ -6,9 +6,10 @@ Prefill goes through ``kernels/flash_attention`` and every decode step
 through ``kernels/decode_attention``: on the card those are the Hopper
 kernels (the reference's model computes attention with jnp in ``_attend``
 and never calls its Pallas kernels). ``_attend`` is ported as the plain
-path the tests hold the kernels' plain versions against. The training-only
-custom-vjp flash (``attention.py:149-254``), sliding windows, M-RoPE and a
-quantized cache wait for the slices that need them.
+path the tests hold the kernels' plain versions against. M-RoPE
+(``rope_type="mrope"``, qwen2_vl_72b) takes (3, B, S) positions. The
+training-only custom-vjp flash (``attention.py:149-254``), sliding windows
+and a quantized cache wait for the slices that need them.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch
 
 from ..kernels.decode_attention.ops import decode_attention
 from ..kernels.flash_attention.ops import flash_attention
-from .common import RMSNorm, apply_rope, dense_init
+from .common import RMSNorm, apply_mrope, apply_rope, dense_init
 from .config import ModelConfig
 
 NEG_INF = -1e30
@@ -31,21 +32,18 @@ def _param(t):
 def check_supported(cfg: ModelConfig):
     """Raise ``NotImplementedError`` for attention options the port has
     not ported yet."""
-    if cfg.rope_type not in ("rope", "none"):
-        raise NotImplementedError(
-            f"{cfg.name}: rope_type={cfg.rope_type!r} (M-RoPE) waits for "
-            f"qwen2_vl_72b (ROADMAP.md queue 1 item 9, M-RoPE and the "
-            f"frontend stubs)")
     if cfg.sliding_window:
         raise NotImplementedError(
             f"{cfg.name}: sliding-window attention is not in the port's "
             f"kernels yet (no config the repository ships sets it; ROADMAP.md "
-            f"queue 1 item 8, remaining dense configs)")
+            f"queue 1 item 13, options no shipped config sets: sliding "
+            f"window, quantized KV cache)")
     if cfg.cache_dtype:
         raise NotImplementedError(
             f"{cfg.name}: a {cfg.cache_dtype} KV cache is not in the port's "
             f"kernels yet (no config the repository ships sets it; ROADMAP.md "
-            f"queue 1 item 8, remaining dense configs)")
+            f"queue 1 item 13, options no shipped config sets: sliding "
+            f"window, quantized KV cache)")
 
 
 class Attention(torch.nn.Module):
@@ -89,8 +87,12 @@ def _project_qkv(cfg: ModelConfig, p: Attention, x, positions):
         q = p.q_norm(q)
         k = p.k_norm(k)
     if cfg.rope_type == "rope":
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        pos2d = positions if positions.dim() == 2 else positions[0]
+        q = apply_rope(q, pos2d, cfg.rope_theta)
+        k = apply_rope(k, pos2d, cfg.rope_theta)
+    elif cfg.rope_type == "mrope":
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
     return q, k, v
 
 
@@ -144,7 +146,10 @@ def attention_decode(cfg: ModelConfig, p: Attention, x, cache: dict, pos):
     kernel's length is ``min(pos + 1, S_max)`` — all on the device, no
     host sync. Returns (y, cache)."""
     b = x.shape[0]
-    q, k_new, v_new = _project_qkv(cfg, p, x, pos[:, None])
+    positions = pos[:, None]
+    if cfg.rope_type == "mrope":        # (3, B, 1): t == h == w
+        positions = positions[None].expand(3, b, 1)
+    q, k_new, v_new = _project_qkv(cfg, p, x, positions)
     s_max = cache["k"].shape[1]
     inside = (pos < s_max)[:, None, None]
     rows = torch.arange(b, device=x.device)

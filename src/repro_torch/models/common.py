@@ -1,5 +1,5 @@
-"""Shared layers: dtypes, initializers, RMSNorm, activations, RoPE — the
-port of ``repro/models/common.py``.
+"""Shared layers: dtypes, initializers, RMSNorm, activations, RoPE and
+M-RoPE — the port of ``repro/models/common.py``.
 
 The same mixed-precision policy as the reference: params are stored in
 ``cfg.param_dtype``, matmuls run in the params' dtype, reductions (norms,
@@ -96,6 +96,32 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     the head dim (not interleaved pairs), in float32."""
     freqs = rope_freqs(x.shape[-1], theta, device=x.device)      # (D/2,)
     angles = positions[..., None].float() * freqs                # (B, S, D/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections):
+    """Multimodal RoPE (Qwen2-VL, arXiv:2409.12191), as the reference's
+    ``apply_mrope``: x (B, S, H, D); positions (3, B, S) int, the
+    temporal, height and width ids. ``sections`` (summing to D/2) split the
+    half dim's frequency slots, and each slot rotates by its section's
+    component. The reference picks the component with a one-hot sum (the
+    other terms are x 0); a gather picks the same product, so the angles
+    are bit for bit the reference's, and with t == h == w ``apply_rope``'s.
+    """
+    d_half = x.shape[-1] // 2
+    if sum(sections) != d_half:
+        raise ValueError(f"mrope sections {tuple(sections)} do not sum to "
+                         f"head_dim / 2 = {d_half}")
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)      # (D/2,)
+    # (B, S, D/2): each frequency slot's component, section by section
+    pos = torch.cat([positions[c, :, :, None].expand(-1, -1, n)
+                     for c, n in enumerate(sections)], dim=-1).float()
+    angles = pos * freqs
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)

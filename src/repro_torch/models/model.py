@@ -3,8 +3,8 @@ of ``repro/models/model.py`` for serving.
 
 Entry points:
   init_params(cfg, seed, generator=None, device=None)  -> Transformer
-  forward_prefill(cfg, params, tokens, positions=None, device=None)
-                                                -> (last_logits, caches)
+  forward_prefill(cfg, params, tokens, positions=None, extra_embeds=None,
+                  extra_mask=None, device=None) -> (last_logits, caches)
   forward_decode(cfg, params, caches, token, pos, device=None)
                                                 -> (logits, caches)
   init_caches(cfg, batch, max_len, device=None) -> caches
@@ -13,7 +13,13 @@ Entry points:
 reference's pytree, see ``convert.py``); ``caches`` is a list with one dict
 per layer, by mixer: ``{"k", "v"}`` (B, S_max, Hkv, D) tensors for
 attention, ``{"conv": (B, ssm_conv - 1, d_inner + 2 N), "ssm": (B, H, P,
-N) float32}`` for mamba; ``forward_decode`` updates them in place. Each
+N) float32}`` for mamba; ``forward_decode`` updates them in place.
+Positions are (B, S), or (3, B, S) temporal/height/width ids under M-RoPE
+(``rope_type="mrope"``); by default every row counts from 0 and, under
+M-RoPE, t == h == w. The frontend stubs (``frontend="vision_stub"`` or
+``"audio_stub"``) take precomputed patch or frame embeddings through
+``forward_prefill``'s ``extra_embeds`` at the positions ``extra_mask``
+selects; ``forward_decode`` takes token ids only, as the reference's. Each
 entry point runs on the card unless ``device="cpu"`` is passed, and
 ``params`` must live there. Tied
 embeddings only share the table; padded vocab slots read -1e9.
@@ -42,11 +48,6 @@ class Transformer(torch.nn.Module):
             raise NotImplementedError(
                 f"{cfg.name}: the port runs params and activations in one "
                 f"dtype ({cfg.param_dtype} != {cfg.dtype})")
-        if cfg.frontend != "none":
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.frontend} frontend waits for its "
-                f"config (ROADMAP.md queue 1 item 9, M-RoPE and the frontend "
-                f"stubs)")
         self.cfg = cfg
         dtype = dtype_of(cfg.param_dtype)
         self.embed = torch.nn.Parameter(
@@ -84,8 +85,26 @@ def _check_params(params: Transformer, device: DeviceLike) -> torch.device:
     return params.embed.device
 
 
-def _embed(cfg: ModelConfig, params: Transformer, tokens):
-    return params.embed[tokens].to(dtype_of(cfg.dtype))
+def _default_positions(cfg: ModelConfig, tokens):
+    """(B, S) positions counting from 0; under M-RoPE (3, B, S), with t ==
+    h == w (text), as the reference's ``_default_positions``."""
+    pos = torch.arange(tokens.shape[1], device=tokens.device).expand(
+        tokens.shape)
+    if cfg.rope_type == "mrope":
+        pos = pos[None].expand((3,) + tuple(tokens.shape))
+    return pos
+
+
+def _embed(cfg: ModelConfig, params: Transformer, tokens, extra_embeds=None,
+           extra_mask=None):
+    """The table's rows for ``tokens``; with a frontend stub, the positions
+    ``extra_mask`` (B, S) selects take ``extra_embeds`` (B, S, D) cast to the
+    table's dtype instead; then the compute dtype."""
+    h = params.embed[tokens]
+    if cfg.frontend != "none" and extra_embeds is not None:
+        h = torch.where(extra_mask[..., None],
+                        extra_embeds.to(h.dtype), h)
+    return h.to(dtype_of(cfg.dtype))
 
 
 def _logits(cfg: ModelConfig, params: Transformer, h):
@@ -99,18 +118,24 @@ def _logits(cfg: ModelConfig, params: Transformer, h):
 
 @torch.no_grad()
 def forward_prefill(cfg: ModelConfig, params: Transformer, tokens,
-                    positions=None, device: DeviceLike = None):
-    """tokens: (B, S) ints. Returns (logits at the last position (B, V)
-    float32, caches: one dict per layer, {"k", "v"} (B, S, Hkv, D) for
-    attention, {"conv", "ssm"} for mamba)."""
+                    positions=None, extra_embeds=None, extra_mask=None,
+                    device: DeviceLike = None):
+    """tokens: (B, S) ints; positions (B, S), or (3, B, S) under M-RoPE
+    (default: ``_default_positions``); for a frontend stub, ``extra_embeds``
+    (B, S, D) and the bool ``extra_mask`` (B, S) of the positions they fill.
+    Returns (logits at the last position (B, V) float32, caches: one dict
+    per layer, {"k", "v"} (B, S, Hkv, D) for attention, {"conv", "ssm"}
+    for mamba)."""
     dev = _check_params(params, device)
     tokens = torch.as_tensor(tokens, device=dev).long()
     if positions is None:
-        positions = torch.arange(tokens.shape[1], device=dev).expand(
-            tokens.shape)
+        positions = _default_positions(cfg, tokens)
     else:
         positions = torch.as_tensor(positions, device=dev)
-    h = _embed(cfg, params, tokens)
+    if extra_embeds is not None:
+        extra_embeds = torch.as_tensor(extra_embeds, device=dev)
+        extra_mask = torch.as_tensor(extra_mask, device=dev).bool()
+    h = _embed(cfg, params, tokens, extra_embeds, extra_mask)
     caches = []
     for layer in params.layers:
         h, kv = layer.prefill(h, positions)

@@ -20,6 +20,12 @@ at the end instead (``repro/serve/engine.py:95-98``), so after a 1- or
 2-token prompt its next logits differ from its own model's; the port
 follows the model.
 
+Prefills take the model's default positions (under M-RoPE, qwen2_vl_72b,
+(3, 1, S) with t == h == w) and decode steps each slot's position, which
+the model broadcasts to the three M-RoPE components; as the reference's
+engine, it passes no frontend embeddings, so the stub frontends' models
+serve token ids.
+
 ``stats`` keeps host-clock totals of the prefills and decode steps; each
 ends in the host read of its argmax, so the clock covers the device work.
 """

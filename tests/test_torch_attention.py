@@ -56,6 +56,7 @@ FLASH_CASES = [
     (2, 128, 4, 4, 64, 64),      # MHA
     (1, 128, 4, 1, 128, 64),     # MQA, head dim 128
     (1, 64, 16, 8, 128, 64),     # qwen3_1_7b's heads and head dim
+    (1, 128, 8, 1, 256, 64),     # gemma_2b's: MQA at head dim 256
 ]
 
 
@@ -110,6 +111,7 @@ DECODE_CASES = [
     (3, 128, 8, 1, 64, 128),
     (2, 128, 16, 8, 128, 65),
     (1, 64, 4, 4, 32, 1),
+    (2, 64, 8, 1, 256, 37),      # gemma_2b's heads and head dim
 ]
 
 

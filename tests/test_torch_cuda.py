@@ -467,7 +467,9 @@ def _randn(shape, dtype, device, seed):
 
 @pytest.mark.parametrize("b,s,hq,hkv,d", [
     (1, 1024, 16, 8, 128), (1, 1000, 16, 8, 128), (2, 77, 4, 2, 16),
-    (1, 1, 4, 2, 16), (2, 130, 8, 1, 64), (1, 200, 6, 3, 40)])
+    (1, 1, 4, 2, 16), (2, 130, 8, 1, 64), (1, 200, 6, 3, 40),
+    (1, 1024, 8, 1, 256), (2, 77, 8, 1, 256),   # gemma_2b: MQA, head dim 256
+    (1, 65, 4, 2, 136)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_kernel_matches_plain(cuda, b, s, hq, hkv, d, dtype, causal):
@@ -500,7 +502,13 @@ def test_flash_kernel_reads_strided_layout(cuda):
     (4, 300, 8, 8, 32),
     (8, 2048, 24, 8, 64),      # granite_moe_3b_a800m: groups of 3
     (8, 2048, 48, 8, 128),     # grok_1_314b: groups of 6 (rep > 4)
-    (8, 2048, 32, 8, 128)])    # jamba_v0_1_52b: groups of 4
+    (8, 2048, 32, 8, 128),     # jamba_v0_1_52b, granite_3_8b: groups of 4
+    (8, 2048, 8, 1, 256),      # gemma_2b: groups of 8 at head dim 256
+    (8, 2048, 40, 8, 128),     # qwen2_5_32b: groups of 5
+    (8, 2048, 64, 8, 128),     # qwen2_vl_72b: groups of 8
+    (8, 2048, 32, 32, 64),     # musicgen_large: MHA
+    (3, 100, 16, 1, 256),      # the widest group at the widest head
+    (3, 100, 4, 2, 256), (2, 64, 4, 2, 136)])   # two packs a lane
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_kernel_matches_plain(cuda, b, s_max, hq, hkv, d, dtype):
     q = _randn((b, hq, d), dtype, cuda, 5)
@@ -1254,3 +1262,113 @@ def test_lexmm_churn_vds_on_card_matches_plain(cuda, monkeypatch):
         assert abs(a.min_vds - b.min_vds) <= PATH_F32_REL * abs(b.min_vds)
     np.testing.assert_allclose(sim.x, p_sim.x, rtol=0, atol=1e-9)
     assert {r.router_mode for r in recs} >= {"warm"}
+
+
+# -- head dim 256 (gemma_2b) and the five dense and frontend configs --------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_head_dim_256_takes_the_cuda_core_body(cuda, dtype):
+    # gemma_2b's 8 query heads on one kv head at head dim 256: the
+    # CUDA-core body (the Hopper body takes 64 and 128), causal, ragged S
+    q = _randn((1, 333, 8, 256), dtype, cuda, 31)
+    k = _randn((1, 333, 1, 256), dtype, cuda, 32)
+    v = _randn((1, 333, 1, 256), dtype, cuda, 33)
+    before = _flash_counts()
+    got = flash_kernel.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert _flash_counts() == (before[0] + 1, before[1], before[2] + 1)
+    want = flash_ref.flash_attention(q.float(), k.float(), v.float())
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+
+
+def test_attention_kernels_reject_past_their_limits(cuda):
+    # head dim 264 (past 256) and a group of 17 query heads (past 16)
+    # raise on the card; nothing falls back to the plain version
+    q = _randn((1, 16, 2, 264), torch.bfloat16, cuda, 0)
+    k = _randn((1, 16, 1, 264), torch.bfloat16, cuda, 0)
+    with pytest.raises(ValueError, match="up to 256"):
+        flash_kernel.flash_attention(q, k, k)
+    kv_len = torch.tensor([5], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="up to 256"):
+        decode_kernel.decode_attention(q[:, 0], k, k, kv_len)
+    q17 = _randn((1, 17, 64), torch.bfloat16, cuda, 0)
+    k1 = _randn((1, 16, 1, 64), torch.bfloat16, cuda, 0)
+    with pytest.raises(ValueError, match="at most 16"):
+        decode_kernel.decode_attention(q17, k1, k1, kv_len)
+
+
+def test_gemma_prefill_takes_the_cuda_core_body(cuda):
+    # one full-width gemma_2b layer in bf16: its prefill's flash launch
+    # runs the CUDA-core body, its decode step the decode kernel
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as tmodel
+    cfg = get_config("gemma_2b", num_layers=1)
+    params = tmodel.init_params(cfg, 0, device=cuda)
+    before = _flash_counts()
+    logits, caches = tmodel.forward_prefill(cfg, params, [[3] * 70],
+                                            device=cuda)
+    torch.cuda.synchronize()
+    assert _flash_counts() == (before[0] + 1, before[1], before[2] + 1)
+    assert caches[0]["k"].shape == (1, 70, 1, 256)
+    assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.parametrize("arch", ["qwen2_5_32b", "granite_3_8b", "gemma_2b",
+                                  "qwen2_vl_72b", "musicgen_large"])
+def test_dense_and_frontend_engines_on_card_match_cpu(cuda, arch):
+    # the smoke configs in float32 (qkv bias, untied embeddings, GeGLU at
+    # MQA, M-RoPE, the GELU MLP): the engine's tokens on the card through
+    # both attention kernels equal those of the plain versions on the CPU
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import ServingEngine
+    cfg = get_smoke_config(arch)
+    params = init_params(cfg, 0, device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServingEngine(cfg, params=params.to(dev), max_slots=3,
+                            max_len=24, tenant_weights={"gold": 2.0},
+                            device=dev)
+        rng = np.random.default_rng(0)
+        for i in range(6):
+            eng.submit("gold" if i % 3 else "free",
+                       [int(t) for t in rng.integers(0, cfg.vocab_size, 9)],
+                       max_new_tokens=5)
+        before = (flash_kernel.flash_attention.launches,
+                  decode_kernel.decode_attention.launches)
+        done = eng.run(max_steps=40)
+        launched = (flash_kernel.flash_attention.launches - before[0],
+                    decode_kernel.decode_attention.launches - before[1])
+        out[dev] = [(r.rid, r.out_tokens) for r in done]
+        assert launched == ((0, 0) if dev == "cpu" else
+                            (cfg.num_layers * len(done),
+                             cfg.num_layers * eng._steps))
+    assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.parametrize("arch", ["qwen2_vl_72b", "musicgen_large"])
+def test_frontend_stub_prefill_on_card_matches_cpu(cuda, arch):
+    # the first 6 positions from precomputed embeddings; qwen2_vl_72b's
+    # get 3-D M-RoPE positions over a 2 x 3 patch grid, the text after it
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import forward_prefill, init_params
+    cfg = get_smoke_config(arch)
+    params = init_params(cfg, 0, device="cpu")
+    g = torch.Generator().manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 11), generator=g)
+    extra = torch.randn(2, 11, cfg.d_model, generator=g)
+    mask = torch.zeros(2, 11, dtype=torch.bool)
+    mask[:, :6] = True
+    pos = torch.arange(11).expand(2, 11)
+    if cfg.rope_type == "mrope":
+        grid = torch.arange(6)
+        t = torch.cat([torch.zeros(6, dtype=torch.long), torch.arange(3, 8)])
+        h = torch.cat([grid // 3, torch.arange(3, 8)])
+        w = torch.cat([grid % 3, torch.arange(3, 8)])
+        pos = torch.stack([t, h, w])[:, None].expand(3, 2, 11)
+    want, _ = forward_prefill(cfg, params, tokens, pos, extra, mask,
+                              device="cpu")
+    got, _ = forward_prefill(cfg, params.to(cuda), tokens, pos, extra, mask,
+                             device=cuda)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

@@ -321,13 +321,20 @@ def test_attention_wrappers_take_plain_version_for_cpu_tensors(no_build):
 
 
 def test_unported_configs_name_their_roadmap_item():
-    from repro_torch.configs import ARCH_IDS, PORTED, get_config
+    # every arch is ported: each resolves, to the reference's config, and
+    # nothing waits for a ROADMAP item
+    import dataclasses
+
+    from repro.configs import ARCH_IDS as REF_ARCH_IDS
+    from repro.configs import get_config as ref_get_config
+    from repro_torch.configs import ARCH_IDS, PORTED, WAITS_FOR, get_config
+    from repro_torch.models.config import ModelConfig
+    assert ARCH_IDS == REF_ARCH_IDS
+    assert set(PORTED) == set(ARCH_IDS) and not WAITS_FOR
     for arch in ARCH_IDS:
-        if arch in PORTED:
-            assert get_config(arch).name == arch
-            continue
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config(arch)
+        assert get_config(arch).name == arch
+        assert get_config(arch) == ModelConfig(
+            **dataclasses.asdict(ref_get_config(arch)))
 
 
 def _sink_names():

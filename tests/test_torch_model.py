@@ -53,10 +53,12 @@ def _carried(cfg, seed=0):
 
 def test_port_config_equals_reference():
     assert _port(_smoke()) == torch_get_smoke_config("qwen3_1_7b")
-    from repro.configs import get_config
+    from repro.configs import ARCH_IDS, get_config
     assert _port(get_config("qwen3-1.7b")) == torch_get_config("qwen3-1.7b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_get_config("gemma_2b")
+    # every arch resolves, to the reference's config and smoke config
+    for arch in ARCH_IDS:
+        assert _port(get_config(arch)) == torch_get_config(arch)
+        assert _port(get_smoke_config(arch)) == torch_get_smoke_config(arch)
     with pytest.raises(KeyError):
         torch_get_config("no_such_arch")
 
