@@ -182,7 +182,32 @@ Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
    positions come from ``extra_embeds`` (the vision stub's 8 x 8 patch grid
    with 3-D M-RoPE ids, the audio stub's frames with 1-D positions), the
    kernels' logits against the plain versions' by the same rule;
-25. prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and as its
+25. holds the flash kernel's log-sum-exp output (``return_lse=True``, the
+   training path's forward) against its plain version at qwen3_1_7b's 16/8
+   x 128 and gemma_2b's 8/1 x 256, S 2,048, in bfloat16 and float32 (out
+   to the kernel bound of step 15, lse to 1e-3 absolute in bfloat16 and
+   1e-5 in float32), and times the lse call in turns with the serving call
+   (no lse) at qwen3's S 1,024;
+26. runs one training step's forward and backward of a 2-layer full-width
+   qwen3_1_7b and mamba2_1_3b in float32 (B 2, S 2,048; attention through
+   ``_FlashTrain``, the SSD through ``_SsdTrain``), then again with the
+   plain versions patched in: the loss and every gradient held together
+   to 1e-4 x max|.| (a kernel output with no ``grad_fn`` would drop a
+   gradient's share), each kernel launched twice a layer (the recompute);
+27. drives the training path with every launch count set to 0: one
+   ``build_train_step_torch`` step of full-width qwen3_1_7b (28 layers,
+   bfloat16 params, float32 moments, B 2 x S 2,048 in 2 microbatches,
+   ``remat="full"``, ``attn_flash_block`` 1,024), after a warm-up step;
+   checks a finite loss near ln(151,936), a finite positive grad_norm and
+   112 flash launches (28 layers x 2 microbatches x 2), every one on the
+   Hopper body with lse; prints the step wall, tokens/s and peak device
+   memory, profiles one more step for the idle share, flash's share of
+   the busy time and the device and host time of three ranges (each
+   microbatch's forward and backward, the plain-torch flash backward in
+   it, the AdamW update), and holds the first step's loss and grad_norm against
+   the same step from the same params with the plain flash (2^-6 and 2^-4
+   relative);
+28. prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and as its
    last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the last line. Without a CUDA device,
@@ -243,6 +268,25 @@ LOGIT_REL = 2.0 ** -5
 #: tests' bound); a bfloat16 y is rounded once more (2^-9 relative), bound
 #: 2^-8; the final state is float32 in both runs (1e-4)
 SSD_REL = {"float32": 1e-4, "bfloat16": 2.0 ** -8}
+#: flash's log-sum-exp output (float32 in every body) vs its plain
+#: version: the scores are products of the same inputs summed in float32,
+#: so lse is within a few float32 ulps of a row's ~5-10; bounds 1e-3
+#: absolute in bfloat16 (its exp2 domain and the Hopper body's tiles), 1e-5
+#: in float32
+LSE_ATOL = {"bfloat16": 1e-3, "float32": 1e-5}
+#: float32 flash output vs plain (tests/test_torch_cuda.py's ATTN_TOL):
+#: float32 sums in another order, times max(1, max|plain|)
+ATTN_F32_REL = 2e-5
+#: a float32 training step's loss and every gradient, kernels vs plain
+#: versions (models' float32 bound, ROADMAP "How every slice is held" 3),
+#: times max|.| of each
+TRAIN_F32_REL = 1e-4
+#: the full-width bfloat16 step, kernels vs plain flash from the same
+#: params: the two forwards differ where the attentions round to different
+#: bfloat16 neighbours (2^-8); 28 layers carry that into the loss (bound
+#: 2^-6 relative) and the gradients' norm (2^-4)
+TRAIN_BF16_LOSS_REL = 2.0 ** -6
+TRAIN_BF16_NORM_REL = 2.0 ** -4
 #: the MoE models' kernel-vs-plain runs: the plain run is routed to the
 #: experts the kernels' run chose; a token whose own plain top-k differs
 #: must be a near tie, its k-th and (k+1)-th plain probabilities within
@@ -290,7 +334,7 @@ DENSE_PROFILE_WINDOW = (4, 4)
 
 
 #: per-body launch counts beside ``.launches`` (flash_attention's two)
-BODY_COUNTS = ("hopper_launches", "cuda_core_launches")
+BODY_COUNTS = ("hopper_launches", "cuda_core_launches", "lse_launches")
 
 
 #: Jacobi rounds of the scheduler phase's solves (``schedule_detail`` and
@@ -3035,6 +3079,372 @@ class Smoke:
             self.check(plain_launches == kern_launches,
                        "the plain run launched a kernel")
 
+    # -- the training step ----------------------------------------------------
+    def flash_lse_vs_plain(self):
+        """The flash kernel with ``return_lse=True`` against its plain
+        version at qwen3_1_7b's and gemma_2b's widths, S 2,048, bfloat16
+        and float32; then the lse call and the serving call (no lse) at
+        qwen3's S 1,024 timed in turns (serving, lse, lse, serving)."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels.flash_attention import kernel, ref
+        s = 128 if self.rehearse else 2048
+        for arch in ("qwen3_1_7b", "gemma_2b"):
+            cfg = self.llm_config(arch=arch)
+            hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+            for label, dtype in (("bfloat16", torch.bfloat16),
+                                 ("float32", torch.float32)):
+                q, k, v = self.attn_inputs([(1, s, hq, d), (1, s, hkv, d),
+                                            (1, s, hkv, d)], dtype, seed=s)
+                before = {a: getattr(kernel.flash_attention, a)
+                          for a in BODY_COUNTS}
+                out, lse = kernel.flash_attention(q, k, v, return_lse=True)
+                plain_out, plain_lse = ref.flash_attention(
+                    q.float(), k.float(), v.float(), return_lse=True)
+                self.sync()
+                after = {a: getattr(kernel.flash_attention, a) - n
+                         for a, n in before.items()}
+                body = ("hopper" if dtype == torch.bfloat16
+                        and d in kernel.HOPPER_HEAD_DIMS else "cuda_core")
+                if not self.rehearse:
+                    self.check(after[f"{body}_launches"] == 1
+                               and after["lse_launches"] == 1,
+                               f"flash lse {arch} {label}: launches "
+                               f"{after}, expected the {body} body")
+                rel = ATTN_REL if label == "bfloat16" else ATTN_F32_REL
+                err = float((out.float() - plain_out).abs().max())
+                bound = rel * max(1.0, float(plain_out.abs().max()))
+                lse_err = float((lse - plain_lse).abs().max())
+                print(f"  flash lse (1, {s}, {hq}/{hkv}, {d}) {label}, "
+                      f"{body} body: out max|kernel-plain f32|={err:.3e} "
+                      f"(bound {bound:.3e}), lse {lse_err:.3e} (bound "
+                      f"{LSE_ATOL[label]:.0e}; lse in "
+                      f"[{float(plain_lse.min()):.3f}, "
+                      f"{float(plain_lse.max()):.3f}])")
+                self.check(err <= bound and lse_err <= LSE_ATOL[label],
+                           f"flash lse {arch} {label} disagrees with plain")
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+                def sdpa():
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=True)
+                ks, ls = self.interleaved(
+                    lambda: kernel.flash_attention(q, k, v, return_lse=True),
+                    sdpa, 10)
+                plain_ms = self.time_ms(lambda: ref.flash_attention(
+                    q, k, v, return_lse=True), 3)
+                el = 2 if dtype == torch.bfloat16 else 4
+                nbytes = (2 * hq + 2 * hkv) * s * d * el + hq * s * 4
+                flops = 4 * hq * d * s * (s + 1) // 2
+                t_bytes = nbytes / PEAK_BYTES_PER_S
+                t_ops = flops / (PEAK_BF16_FLOPS if dtype == torch.bfloat16
+                                 else PEAK_FLOPS["float32"])
+                bound_ms = max(t_bytes, t_ops) * 1e3
+                bound_by = "bytes" if t_bytes > t_ops else "operations"
+                print(f"    kernel {ks[0]:.4f}, {ks[1]:.4f} ms, SDPA (out "
+                      f"only) {ls[0]:.4f}, {ls[1]:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms (bound "
+                      f"by {bound_by})")
+                key = self.row_key(f"{label}_lse", arch)
+                self.rows[("flash_attention", key)] = dict(
+                    ms=sum(ks) / 2, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, max_abs_err=err,
+                    lse_max_abs_err=lse_err, library_ms=sum(ls) / 2,
+                    library_computes="out only (SDPA returns no lse)",
+                    turns_ms=ks, library_turns_ms=ls, body=body,
+                    shape=f"1x{s}x{hq}/{hkv}x{d}")
+        # the serving launch (lse null) against the lse launch, in turns
+        cfg = self.llm_config()
+        hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        s = 128 if self.rehearse else 1024
+        q, k, v = self.attn_inputs([(1, s, hq, d), (1, s, hkv, d),
+                                    (1, s, hkv, d)], torch.bfloat16, seed=s)
+        serve_ms, lse_ms = self.interleaved(
+            lambda: kernel.flash_attention(q, k, v),
+            lambda: kernel.flash_attention(q, k, v, return_lse=True), 20)
+        print(f"  flash (1, {s}, {hq}/{hkv}, {d}) bf16, serving call and lse "
+              f"call in turns: serving {serve_ms[0]:.4f}, {serve_ms[1]:.4f} "
+              f"ms; lse {lse_ms[0]:.4f}, {lse_ms[1]:.4f} ms")
+        self.paths["flash_lse_turns"] = dict(
+            shape=f"1x{s}x{hq}/{hkv}x{d}", serving_turns_ms=serve_ms,
+            lse_turns_ms=lse_ms)
+
+    def train_grads(self, cfg, params, batch):
+        """(loss, {name: gradient}) of one forward and backward."""
+        from repro_torch.models.model import forward_train_torch
+        for p in params.parameters():
+            p.grad = None
+        loss, _ = forward_train_torch(cfg, params, batch, device=self.device)
+        loss.backward()
+        self.sync()
+        grads = {n: p.grad for n, p in params.named_parameters()}
+        for p in params.parameters():
+            p.grad = None
+        return float(loss.detach()), grads
+
+    def train_vs_plain(self, arch):
+        """A 2-layer full-width ``arch`` in float32, B 2 x S 2,048: the
+        training forward and backward with the kernels, then with the
+        plain versions (flash's and ssd_scan's, patched where the model
+        calls them); the loss and every gradient held to 1e-4 x max|.|,
+        each kernel launched twice a layer (the recompute)."""
+        import numpy as np
+        from repro_torch.kernels.flash_attention import ref as flash_ref
+        from repro_torch.kernels.ssd_scan import ref as ssd_ref
+        from repro_torch.models import attention as attention_mod
+        from repro_torch.models import model as tmodel
+        from repro_torch.models import ssm as ssm_mod
+        self.free_full_model()
+        cfg = dataclasses.replace(self.llm_config(layers=2, arch=arch),
+                                  dtype="float32", param_dtype="float32")
+        b, s = (2, 64) if self.rehearse else (2, 2048)
+        if self.rehearse:
+            cfg = dataclasses.replace(cfg, attn_flash_block=16)
+        params = tmodel.init_params(cfg, 5, device=self.device)
+        params.requires_grad_(True)
+        rng = np.random.default_rng(3)
+        tokens = rng.integers(0, cfg.vocab_size, (b, s))
+        batch = {"tokens": tokens, "labels": np.roll(tokens, -1, axis=1)}
+
+        def plain_ssd(x, dt, a, b_mat, c_mat, *, chunk):
+            y, _ = ssd_ref.ssd_scan(x.transpose(1, 2), dt.transpose(1, 2),
+                                    a, b_mat, c_mat, chunk=chunk)
+            return y.transpose(1, 2)
+        counters = wrappers()
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        loss, grads = self.train_grads(cfg, params, batch)
+        kern_s = time.perf_counter() - t0
+        launches = {n: fn.launches for n, fn in counters.items()}
+        lse = counters["flash_attention"].lse_launches
+        with mock.patch.object(attention_mod, "flash_attention",
+                               flash_ref.flash_attention), \
+                mock.patch.object(ssm_mod, "ssd_chunked_train", plain_ssd):
+            t0 = time.perf_counter()
+            want_loss, want = self.train_grads(cfg, params, batch)
+            plain_s = time.perf_counter() - t0
+        plain_launches = {n: fn.launches for n, fn in counters.items()}
+        worst, worst_name = 0.0, None
+        for name, w in want.items():
+            err = float((grads[name] - w).abs().max())
+            ratio = err / max(float(w.abs().max()), 1e-30)
+            if ratio >= worst:
+                worst, worst_name = ratio, name
+        loss_rel = abs(loss - want_loss) / abs(want_loss)
+        print(f"  2-layer {cfg.name} float32, B {b} x S {s}: loss kernels "
+              f"{loss:.6f}, plain {want_loss:.6f} (rel {loss_rel:.2e}); "
+              f"worst gradient |kernels-plain| / max|plain| {worst:.2e} "
+              f"({worst_name}) over {len(want)} tensors (bound "
+              f"{TRAIN_F32_REL:.0e}); forward+backward {kern_s:.3f} s with "
+              f"kernels, {plain_s:.3f} s plain; launches {launches}, "
+              f"flash with lse {lse}")
+        self.paths[f"train_{arch}_vs_plain"] = dict(
+            loss=loss, plain_loss=want_loss, loss_rel=loss_rel,
+            grad_worst_rel=worst, grad_worst=worst_name, launches=launches,
+            lse_launches=lse, wall_s=kern_s, plain_wall_s=plain_s)
+        self.check(np.isfinite(loss) and loss_rel <= TRAIN_F32_REL
+                   and worst <= TRAIN_F32_REL,
+                   f"{arch} training gradients with the kernels disagree "
+                   f"with the plain versions'")
+        if not self.rehearse:
+            want_launches = {n: 0 for n in counters}
+            pattern = cfg.block_pattern
+            kinds = [pattern[i % len(pattern)][0]
+                     for i in range(cfg.num_layers)]
+            want_launches["flash_attention"] = 2 * kinds.count("attn")
+            want_launches["ssd_scan"] = 2 * kinds.count("mamba")
+            self.check(launches == want_launches
+                       and lse == want_launches["flash_attention"],
+                       f"training launches {launches} (lse {lse}), "
+                       f"expected {want_launches}")
+            self.check(plain_launches == launches,
+                       "the plain run launched a kernel")
+
+    def train_step(self):
+        """One ``build_train_step_torch`` step of full-width qwen3_1_7b
+        (bfloat16 params, float32 moments, B 2 x S 2,048 in 2
+        microbatches, remat="full", flash blocks of 1,024 rows): a warm-up
+        step, the step driven with every count set to 0, one profiled
+        step; then the first step again from the same seeded params with
+        the plain flash."""
+        import numpy as np
+        torch = self.torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile, record_function
+        from repro_torch.kernels.flash_attention import ref as flash_ref
+        from repro_torch.models import attention as attention_mod
+        from repro_torch.models import model as tmodel
+        from repro_torch.train import step as step_mod
+        from repro_torch.train import (OptimizerConfig,
+                                       build_train_step_torch,
+                                       make_train_state_torch)
+        self.free_full_model()
+        cfg = dataclasses.replace(self.llm_config(), remat="full",
+                                  attn_flash_block=16 if self.rehearse
+                                  else 1024)
+        b, s, micro = (2, 64, 2) if self.rehearse else (2, 2048, 2)
+        oc = OptimizerConfig()
+        rng = np.random.default_rng(4)
+        batches = []
+        for _ in range(3):
+            tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)),
+                                     device=self.device)
+            batches.append({"tokens": tokens,
+                            "labels": tokens.roll(-1, 1)})
+
+        def fresh_state():
+            params = tmodel.init_params(cfg, 0, device=self.device)
+            return make_train_state_torch(cfg, params, oc,
+                                          device=self.device)
+        step = build_train_step_torch(cfg, oc, micro, device=self.device)
+        state = fresh_state()
+        n_params = sum(p.numel() for p in state["params"].parameters())
+        if self.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        self.sync()
+        t0 = time.perf_counter()
+        state, first = step(state, batches[0])
+        self.sync()
+        first_s = time.perf_counter() - t0
+        first = {k: float(v) for k, v in first.items()}
+        counters = wrappers()
+        reset_counts(counters)
+        self.sync()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batches[1])
+        self.sync()
+        wall = time.perf_counter() - t0
+        launches = {n: fn.launches for n, fn in counters.items()}
+        bodies = {a: getattr(counters["flash_attention"], a)
+                  for a in BODY_COUNTS}
+        metrics = {k: float(v) for k, v in metrics.items()}
+        peak = (torch.cuda.max_memory_allocated() / 2**30
+                if self.device.type == "cuda" else None)
+        tokens_per_s = b * s / wall
+        print(f"  {cfg.name}: {cfg.num_layers} layers, {n_params} params "
+              f"{cfg.param_dtype}, moments {oc.state_dtype}; B {b} x S {s} "
+              f"in {micro} microbatches, remat {cfg.remat}, flash blocks "
+              f"{cfg.attn_flash_block}")
+        print(f"  step 1 (warm-up) {first_s * 1e3:.1f} ms: loss "
+              f"{first['loss']:.5f}, grad_norm {first['grad_norm']:.5f}; "
+              f"step 2 {wall * 1e3:.1f} ms ({tokens_per_s:.0f} tokens/s): "
+              f"loss {metrics['loss']:.5f}, grad_norm "
+              f"{metrics['grad_norm']:.5f}, lr {metrics['lr']:.3e}; "
+              f"launches {launches}; flash by body {bodies}"
+              + (f"; peak device memory {peak:.2f} GiB" if peak else ""))
+        ln_v = float(np.log(cfg.vocab_size))
+        self.paths["train_step"] = dict(
+            launches=launches, flash_bodies=bodies, wall_s=wall,
+            first_wall_s=first_s, tokens=b * s, tokens_per_s=tokens_per_s,
+            peak_gib=peak, layers=cfg.num_layers, params=n_params,
+            microbatches=micro, first=first, second=metrics)
+        for m in (first, metrics):
+            self.check(all(np.isfinite(v) for v in m.values())
+                       and m["grad_norm"] > 0
+                       and abs(m["loss"] - ln_v) < 1.0,
+                       f"training metrics {m}: expected finite, grad_norm "
+                       f"> 0, loss near ln V = {ln_v:.3f}")
+        if not self.rehearse:
+            n_flash = cfg.num_layers * micro * 2
+            want = dict.fromkeys(counters, 0)
+            want["flash_attention"] = n_flash
+            self.check(launches == want, f"training launches {launches}, "
+                                         f"expected {want}")
+            self.check(bodies == {"hopper_launches": n_flash,
+                                  "cuda_core_launches": 0,
+                                  "lse_launches": n_flash},
+                       f"flash bodies {bodies}: expected every launch on "
+                       f"the Hopper body with lse")
+
+        # one profiled step: idle share, flash's share of the busy time,
+        # and the device and host time of three profiler ranges: each
+        # microbatch's forward and backward ("forward_backward"), inside
+        # it _FlashTrain's plain-torch backward ("flash_backward"), and
+        # the AdamW update ("optimizer")
+        def ranged(name, fn):
+            def call(*a, **k):
+                with record_function(name):
+                    return fn(*a, **k)
+            return call
+        ranges = ("forward_backward", "flash_backward", "optimizer")
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        self.sync()
+        with profile(activities=acts) as prof, \
+                mock.patch.object(step_mod, "_backward", ranged(
+                    "forward_backward", step_mod._backward)), \
+                mock.patch.object(step_mod, "adamw_update_torch", ranged(
+                    "optimizer", step_mod.adamw_update_torch)), \
+                mock.patch.object(attention_mod._FlashTrain, "backward",
+                                  staticmethod(ranged(
+                                      "flash_backward",
+                                      attention_mod._FlashTrain.backward))):
+            t0 = time.perf_counter()
+            state, _ = step(state, batches[2])
+            self.sync()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+        # kernels only: a range's own span on the device timeline is not
+        # device work
+        rows = sorted(((float(e.self_device_time_total), e.key, e.count)
+                       for e in events if e.device_type == DeviceType.CUDA
+                       and e.key not in ranges), reverse=True)
+        busy_ms = sum(r[0] for r in rows) / 1e3
+        spans = {name: dict(
+            device_ms=sum(float(e.device_time_total) for e in events
+                          if e.key == name
+                          and e.device_type == DeviceType.CPU) / 1e3,
+            host_ms=sum(float(e.cpu_time_total) for e in events
+                        if e.key == name
+                        and e.device_type == DeviceType.CPU) / 1e3)
+            for name in ranges}
+        if busy_ms > 0:
+            flash_ms = sum(r[0] for r in rows if "flash_" in r[1]) / 1e3
+            print(f"  profiled step: wall {prof_ms:.1f} ms, device busy "
+                  f"{busy_ms:.1f} ms, idle share "
+                  f"{max(0.0, 1 - busy_ms / prof_ms):.3f}; flash kernels "
+                  f"{flash_ms:.2f} ms, {flash_ms / busy_ms:.4f} of busy")
+            print("  ranges (device ms, share of busy; host ms): " + ", ".join(
+                f"{name} {sp['device_ms']:.1f}, "
+                f"{sp['device_ms'] / busy_ms:.3f}; {sp['host_ms']:.1f}"
+                for name, sp in spans.items()))
+            for us, key, count in rows[:12]:
+                print(f"    {us / 1e3:9.3f} ms {count:6d}x  {key[:90]}")
+            self.paths["train_step"]["profile"] = dict(
+                wall_ms=prof_ms, busy_ms=busy_ms,
+                idle_share=max(0.0, 1 - busy_ms / prof_ms),
+                flash_ms=flash_ms, flash_share=flash_ms / busy_ms,
+                ranges=spans, top=[(key[:90], us / 1e3, count)
+                                   for us, key, count in rows[:12]])
+        else:
+            print("  profiler saw no device time: not measured")
+
+        # the first step again from the same params, with the plain flash
+        del state
+        self.free_full_model()
+        state = fresh_state()
+        with mock.patch.object(attention_mod, "flash_attention",
+                               flash_ref.flash_attention):
+            _, plain = step(state, batches[0])
+        plain = {k: float(v) for k, v in plain.items()}
+        del state
+        self.free_full_model()
+        loss_rel = abs(first["loss"] - plain["loss"]) / abs(plain["loss"])
+        norm_rel = (abs(first["grad_norm"] - plain["grad_norm"])
+                    / abs(plain["grad_norm"]))
+        print(f"  step 1 with the plain flash: loss {plain['loss']:.5f} "
+              f"(rel gap {loss_rel:.2e}, bound {TRAIN_BF16_LOSS_REL:.2e}), "
+              f"grad_norm {plain['grad_norm']:.5f} (rel gap {norm_rel:.2e}, "
+              f"bound {TRAIN_BF16_NORM_REL:.2e})")
+        self.paths["train_step"].update(plain_first=plain,
+                                        loss_rel_gap=loss_rel,
+                                        grad_norm_rel_gap=norm_rel)
+        self.check(loss_rel <= TRAIN_BF16_LOSS_REL
+                   and norm_rel <= TRAIN_BF16_NORM_REL,
+                   "the kernel-driven step and the plain-flash step "
+                   "disagree")
+
     def report(self):
         kernels = []
         for name, source, replaces, dtype in (
@@ -3073,6 +3483,8 @@ class Smoke:
             row.update({key: v for key, v in main.items() if key not in row})
             # the other shapes and dtypes the phases measured
             for variant, prefix in (("float32", "f32"),
+                                    ("bfloat16_lse", "lse"),
+                                    ("float32_lse", "f32_lse"),
                                     ("bfloat16_ragged", "ragged"),
                                     ("bfloat16_long", "long"),
                                     ("bfloat16_s512", "s512"),
@@ -3188,6 +3600,13 @@ def main(argv=None) -> int:
         if smoke.llm_config(arch=arch).frontend != "none":
             smoke.phase(f"frontend stub, {arch}",
                         lambda a=arch: smoke.frontend_stub(a))
+    # the training step: flash's lse output, the 2-layer float32 steps
+    # kernels vs plain, then one full-width qwen3_1_7b step
+    smoke.phase("flash_attention lse vs plain", smoke.flash_lse_vs_plain)
+    for arch in ("qwen3_1_7b", "mamba2_1_3b"):
+        smoke.phase(f"training, kernel vs plain, {arch}",
+                    lambda a=arch: smoke.train_vs_plain(a))
+    smoke.phase("training step", smoke.train_step)
     if smoke.failed:
         print(f"chip_smoke: FAILED phases: {smoke.failed}", file=sys.stderr)
         return 1

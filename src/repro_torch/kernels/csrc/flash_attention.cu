@@ -48,6 +48,17 @@
 // Both mask ragged S themselves (rows >= S are not written, columns >= S
 // score -inf), so nothing is padded.
 //
+// The log-sum-exp of each row's scaled scores, lse = m + log(l) in float32
+// (B, Hq, S), is written when the caller passes an lse pointer (the
+// training path's recompute backward reads it, as the reference's
+// _flash_fwd_scan returns it); serving passes null and nothing more is
+// written. Each body writes it once a row, from the row's running max and
+// sum after their last reduction: in the CUDA-core body the first of the
+// row's 16 threads, in the Hopper body the first lane of the row's quad
+// (its m is in the log2 domain there: lse = m ln 2 + log l). The Hopper
+// body is compiled with and without the store (its LSE parameter), so the
+// serving instance is the code it was before lse existed.
+//
 // Tile plan of the Hopper body: kv tiles of 128 rows a stage, and BQ query
 // rows a block, 64 per consumer warpgroup. The wrapper's block_rows() takes
 // 64-row blocks while all of them run at once, one an SM (B Hq ceil(S / 64)
@@ -98,9 +109,9 @@ size_t smem_bytes(int d) {
 template <typename T, int NC>
 __global__ void __launch_bounds__(NT) flash_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ o, Strides qs, Strides ks,
-    Strides vs, Strides os, int seq, int rep, int d, float scale,
-    int causal) {
+    const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+    Strides qs, Strides ks, Strides vs, Strides os, int seq, int rep, int d,
+    float scale, int causal) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int ld = d + 1;
@@ -221,6 +232,9 @@ __global__ void __launch_bounds__(NT) flash_kernel(
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= seq) continue;
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)b * gridDim.y + h) * seq + row] =
+          m[i] + logf(fmaxf(l[i], 1e-30f));
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
@@ -464,12 +478,13 @@ struct Tile {
   static constexpr int THREADS = 128 * (NWG + 1);
 };
 
-template <int D, int NWG>
+template <int D, int NWG, bool LSE>
 __global__ void __launch_bounds__(Tile<D, NWG>::THREADS, 1)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap,
-                       __nv_bfloat16* __restrict__ o, Strides os, int seq,
+                       __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, Strides os, int seq,
                        int rep, float scale_log2, int causal) {
   using T = Tile<D, NWG>;
   constexpr int BK = T::BK;  // (the CUDA-core body's BK is 64)
@@ -643,6 +658,22 @@ __global__ void __launch_bounds__(Tile<D, NWG>::THREADS, 1)
       l[j] += __shfl_xor_sync(0xffffffffu, l[j], 1);
       l[j] += __shfl_xor_sync(0xffffffffu, l[j], 2);
     }
+    // m and l are the same in the row's four lanes now: the first writes.
+    // A compile-time switch, so the serving instance (LSE false) keeps m
+    // dead after the last tile, as before lse existed: kept live, it cost
+    // the D 128 body 2-7% at S >= 512 (chip_smoke.py's flash phases, parent
+    // against change on one H100)
+    if constexpr (LSE) {
+      if (tig == 0) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int row = j ? r1 : r0;
+          if (row < seq)
+            lse[((size_t)b * gridDim.y + h) * seq + row] =
+                m[j] * 0.69314718055994531f + logf(fmaxf(l[j], 1e-30f));
+        }
+      }
+    }
     __nv_bfloat16* ob = o + b * os.b + h * os.h;
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
@@ -701,11 +732,11 @@ int tensor_map(CUtensorMap* map, const void* ptr, const Strides& st, int d,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-template <int D, int NWG>
+template <int D, int NWG, bool LSE>
 int launch_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                 const __nv_bfloat16* v, __nv_bfloat16* o, Strides qs,
-                 Strides ks, Strides vs, Strides os, int batch, int seq,
-                 int hq, int hkv, float scale, int causal,
+                 const __nv_bfloat16* v, __nv_bfloat16* o, float* lse,
+                 Strides qs, Strides ks, Strides vs, Strides os, int batch,
+                 int seq, int hq, int hkv, float scale, int causal,
                  cudaStream_t stream) {
   using T = Tile<D, NWG>;
   CUtensorMap qm, km, vm;
@@ -720,21 +751,22 @@ int launch_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
   static bool raised[64] = {};
   if (!raised[dev]) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_wgmma_kernel<D, NWG>,
+        flash_wgmma_kernel<D, NWG, LSE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
     if (e != cudaSuccess) return (int)e;
     raised[dev] = true;
   }
   const dim3 grid((seq + T::BQ - 1) / T::BQ, hq, batch);
-  flash_wgmma_kernel<D, NWG><<<grid, T::THREADS, T::SMEM, stream>>>(
-      qm, km, vm, o, os, seq, hq / hkv, scale * 1.4426950408889634f, causal);
+  flash_wgmma_kernel<D, NWG, LSE><<<grid, T::THREADS, T::SMEM, stream>>>(
+      qm, km, vm, o, lse, os, seq, hq / hkv, scale * 1.4426950408889634f,
+      causal);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int NC>
-int launch_nc(const T* q, const T* k, const T* v, T* o, Strides qs,
-              Strides ks, Strides vs, Strides os, int batch, int seq,
-              int hq, int hkv, int d, float scale, int causal,
+int launch_nc(const T* q, const T* k, const T* v, T* o, float* lse,
+              Strides qs, Strides ks, Strides vs, Strides os, int batch,
+              int seq, int hq, int hkv, int d, float scale, int causal,
               cudaStream_t stream) {
   const size_t smem = smem_bytes(d);
   cudaError_t err = cudaFuncSetAttribute(
@@ -743,14 +775,14 @@ int launch_nc(const T* q, const T* k, const T* v, T* o, Strides qs,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((seq + BQ - 1) / BQ, hq, batch);
   flash_kernel<T, NC><<<grid, NT, smem, stream>>>(
-      q, k, v, o, qs, ks, vs, os, seq, hq / hkv, d, scale, causal);
+      q, k, v, o, lse, qs, ks, vs, os, seq, hq / hkv, d, scale, causal);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const T* q, const T* k, const T* v, T* o, const long long* st,
-           int batch, int seq, int hq, int hkv, int d, float scale,
-           int causal, void* stream) {
+int launch(const T* q, const T* k, const T* v, T* o, float* lse,
+           const long long* st, int batch, int seq, int hq, int hkv, int d,
+           float scale, int causal, void* stream) {
   if (batch <= 0 || seq <= 0 || hq <= 0 || hkv <= 0 || hq % hkv ||
       d <= 0 || d % 8 || d > MAX_D || batch > 65535 || hq > 65535)
     return (int)cudaErrorInvalidValue;
@@ -759,8 +791,8 @@ int launch(const T* q, const T* k, const T* v, T* o, const long long* st,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FLASH_CASE(NC)                                                    \
   case NC:                                                                \
-    return launch_nc<T, NC>(q, k, v, o, qs, ks, vs, os, batch, seq, hq,  \
-                            hkv, d, scale, causal, s);
+    return launch_nc<T, NC>(q, k, v, o, lse, qs, ks, vs, os, batch, seq, \
+                            hq, hkv, d, scale, causal, s);
   switch ((d + 15) / 16) {
     FLASH_CASE(1)
     FLASH_CASE(2)
@@ -786,7 +818,7 @@ int launch(const T* q, const T* k, const T* v, T* o, const long long* st,
 // The Hopper body takes D 64 or 128 and rows TMA can address: 16-byte
 // aligned pointers, strides that are multiples of 8 elements.
 int launch_hopper(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                  const __nv_bfloat16* v, __nv_bfloat16* o,
+                  const __nv_bfloat16* v, __nv_bfloat16* o, float* lse,
                   const long long* st, int batch, int seq, int hq, int hkv,
                   int d, float scale, int causal, int bq, void* stream) {
   if (batch <= 0 || seq <= 0 || hq <= 0 || hkv <= 0 || hq % hkv ||
@@ -804,8 +836,12 @@ int launch_hopper(const __nv_bfloat16* q, const __nv_bfloat16* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FLASH_HOPPER_CASE(D, NWG)                                          \
   if (d == D && bq == 64 * NWG)                                            \
-    return launch_wgmma<D, NWG>(q, k, v, o, qs, ks, vs, os, batch, seq, hq, \
-                                hkv, scale, causal, s);
+    return lse ? launch_wgmma<D, NWG, true>(q, k, v, o, lse, qs, ks, vs,   \
+                                            os, batch, seq, hq, hkv, scale, \
+                                            causal, s)                      \
+               : launch_wgmma<D, NWG, false>(q, k, v, o, lse, qs, ks, vs,  \
+                                             os, batch, seq, hq, hkv,      \
+                                             scale, causal, s);
   FLASH_HOPPER_CASE(128, 2)
   FLASH_HOPPER_CASE(128, 1)
   FLASH_HOPPER_CASE(64, 2)
@@ -817,32 +853,36 @@ int launch_hopper(const __nv_bfloat16* q, const __nv_bfloat16* k,
 }  // namespace
 
 // strides: 12 values, (batch, seq, head) for q, k, v and o, in elements.
+// lse: a float32 (B, Hq, S) tensor to write each row's log-sum-exp into,
+// or null (serving) for none.
 // flash_attention_f32 and flash_attention_bf16 run the CUDA-core body;
 // flash_attention_bf16_hopper the TMA + wgmma body with blocks of bq query
 // rows (64 or 128).
 extern "C" int flash_attention_f32(const float* q, const float* k,
-                                   const float* v, float* o,
+                                   const float* v, float* o, float* lse,
                                    const long long* strides, int batch,
                                    int seq, int hq, int hkv, int d,
                                    float scale, int causal, void* stream) {
-  return launch<float>(q, k, v, o, strides, batch, seq, hq, hkv, d, scale,
-                       causal, stream);
+  return launch<float>(q, k, v, o, lse, strides, batch, seq, hq, hkv, d,
+                       scale, causal, stream);
 }
 
 extern "C" int flash_attention_bf16(const __nv_bfloat16* q,
                                     const __nv_bfloat16* k,
                                     const __nv_bfloat16* v, __nv_bfloat16* o,
-                                    const long long* strides, int batch,
-                                    int seq, int hq, int hkv, int d,
-                                    float scale, int causal, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, strides, batch, seq, hq, hkv, d,
-                               scale, causal, stream);
+                                    float* lse, const long long* strides,
+                                    int batch, int seq, int hq, int hkv,
+                                    int d, float scale, int causal,
+                                    void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, o, lse, strides, batch, seq, hq, hkv,
+                               d, scale, causal, stream);
 }
 
 extern "C" int flash_attention_bf16_hopper(
     const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-    __nv_bfloat16* o, const long long* strides, int batch, int seq, int hq,
-    int hkv, int d, float scale, int causal, int bq, void* stream) {
-  return launch_hopper(q, k, v, o, strides, batch, seq, hq, hkv, d, scale,
-                       causal, bq, stream);
+    __nv_bfloat16* o, float* lse, const long long* strides, int batch,
+    int seq, int hq, int hkv, int d, float scale, int causal, int bq,
+    void* stream) {
+  return launch_hopper(q, k, v, o, lse, strides, batch, seq, hq, hkv, d,
+                       scale, causal, bq, stream);
 }

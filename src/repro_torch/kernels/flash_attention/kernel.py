@@ -14,7 +14,8 @@ of :func:`block_rows` query rows); everything else runs the CUDA-core
 body, gemma_2b's head dim 256 among them (the Hopper body at 256 is a
 later redesign). ``flash_attention.launches`` counts every launch,
 ``flash_attention.hopper_launches`` and ``flash_attention.cuda_core_launches``
-each body's.
+each body's, ``flash_attention.lse_launches`` those that also wrote the
+rows' log-sum-exp (``return_lse=True``, the training path's forward).
 """
 from __future__ import annotations
 
@@ -70,12 +71,16 @@ def takes_hopper_body(q, k, v) -> bool:
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    sm_scale: float | None = None):
+                    sm_scale: float | None = None, return_lse: bool = False):
     """q: (B, S, Hq, D); k, v: (B, S, Hkv, D), one dtype (float32 or
     bfloat16), one device, each with a contiguous head dim (other strides
-    free). Returns a contiguous (B, S, Hq, D) tensor of q's dtype."""
+    free). Returns a contiguous (B, S, Hq, D) tensor of q's dtype; with
+    ``return_lse`` also each row's log-sum-exp of its scaled, masked
+    scores, a contiguous float32 (B, Hq, S) tensor (``m + log(l)``, as the
+    reference's ``_flash_fwd_scan`` returns it)."""
     if q.device.type == "cpu":
-        return ref.flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
+        return ref.flash_attention(q, k, v, causal=causal, sm_scale=sm_scale,
+                                   return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu: {q.device}")
     if q.dim() != 4:
@@ -106,8 +111,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError(f"flash_attention takes head dims that are "
                          f"multiples of 8 up to {MAX_HEAD_DIM}: {d}")
     out = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     strides = (ctypes.c_longlong * 12)(*(
@@ -116,7 +123,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                strides, b, s, hq, hkv, d, float(sm_scale),
+                lse.data_ptr() if return_lse else None, strides, b, s, hq, hkv, d, float(sm_scale),
                 int(bool(causal)))
         if hopper:
             err = _entry("flash_attention_bf16_hopper")(
@@ -131,18 +138,22 @@ def flash_attention(q, k, v, *, causal: bool = True,
         flash_attention.hopper_launches += 1
     else:
         flash_attention.cuda_core_launches += 1
+    if return_lse:
+        flash_attention.lse_launches += 1
+        return out, lse
     return out
 
 
 flash_attention.launches = 0
 flash_attention.hopper_launches = 0
 flash_attention.cuda_core_launches = 0
+flash_attention.lse_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
 def _entry(name):
     fn = getattr(_build.load("flash_attention"), name)
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)] \
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_longlong)] \
         + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int] \
         + [ctypes.c_int] * (1 if name.endswith("hopper") else 0) \
         + [ctypes.c_void_p]

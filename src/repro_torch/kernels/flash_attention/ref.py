@@ -2,7 +2,9 @@
 full) grouped-query attention in float32 with the output cast to q's
 dtype — what ``repro/kernels/flash_attention/kernel.py::_flash_kernel``
 and its oracle ``ref.py::attention_ref`` compute, in the model's
-(B, S, H, D) layout. The wrapper uses it for CPU tensors;
+(B, S, H, D) layout, and on request each row's log-sum-exp, as the
+reference's training flash ``repro/models/attention.py::_flash_fwd_scan``
+returns it. The wrapper uses it for CPU tensors;
 ``chip_smoke.py`` holds the kernel against it."""
 from __future__ import annotations
 
@@ -12,9 +14,10 @@ import torch
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
-                    sm_scale: float | None = None):
+                    sm_scale: float | None = None, return_lse: bool = False):
     """q: (B, S, Hq, D); k, v: (B, S, Hkv, D) -> (B, S, Hq, D); query head
-    h reads kv head h // (Hq // Hkv)."""
+    h reads kv head h // (Hq // Hkv). With ``return_lse`` also each row's
+    log-sum-exp of its scaled, masked scores, float32 (B, Hq, S)."""
     b, s, hq, d = q.shape
     rep = hq // k.shape[2]
     if sm_scale is None:
@@ -26,4 +29,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
         mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
         scores = scores.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, vf).to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, vf).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(scores, dim=-1)
+    return out

@@ -1,15 +1,22 @@
 """Grouped-query attention with optional QKV bias and qk-norm, RoPE, and a
 decode path over a preallocated KV cache — the port of
-``repro/models/attention.py`` for serving.
+``repro/models/attention.py``.
 
 Prefill goes through ``kernels/flash_attention`` and every decode step
 through ``kernels/decode_attention``: on the card those are the Hopper
 kernels (the reference's model computes attention with jnp in ``_attend``
 and never calls its Pallas kernels). ``_attend`` is ported as the plain
 path the tests hold the kernels' plain versions against. M-RoPE
-(``rope_type="mrope"``, qwen2_vl_72b) takes (3, B, S) positions. The
-training-only custom-vjp flash (``attention.py:149-254``), sliding windows
-and a quantized cache wait for the slices that need them.
+(``rope_type="mrope"``, qwen2_vl_72b) takes (3, B, S) positions.
+
+Training (``attention_train_torch``) routes as the reference's
+``_attend_any``: where ``cfg.attn_flash_block`` divides S and S exceeds it,
+``_FlashTrain``, the reference's recompute-backward flash
+(``_make_flash_train``, ``attention.py:195-254``) as a
+``torch.autograd.Function`` whose forward is the flash kernel (it also
+writes the rows' log-sum-exp) and whose backward is the reference's
+``bwd`` in plain torch, one kv block at a time; else ``_attend`` under
+autograd. Sliding windows and a quantized cache wait for ROADMAP item 13.
 """
 from __future__ import annotations
 
@@ -100,8 +107,9 @@ def _attend(cfg: ModelConfig, q, k, v, q_offset, kv_len_mask=None):
     """Causal GQA attention in the compute dtype, as the reference's
     ``_attend``: q (B, Sq, Hq, D); k, v (B, Skv, Hkv, D); q position i
     attends kv position j iff j <= i + q_offset (and, with ``kv_len_mask``
-    (B, Skv), iff the slot is valid). The model does not call it; the
-    tests hold the kernels' plain versions against it."""
+    (B, Skv), iff the slot is valid). Training takes it where
+    ``_FlashTrain`` does not apply; the tests hold the kernels' plain
+    versions against it."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     rep = hq // hkv
@@ -124,6 +132,77 @@ def _attend(cfg: ModelConfig, q, k, v, q_offset, kv_len_mask=None):
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bhrqk,bkhd->bqhrd", probs, v)
     return out.reshape(b, sq, hq, d)
+
+
+class _FlashTrain(torch.autograd.Function):
+    """Causal GQA flash attention for training: q (B, S, Hq, D), k, v (B,
+    S, Hkv, D) -> (B, S, Hq, D). The forward is the flash kernel with its
+    log-sum-exp output (the plain version for CPU tensors) and saves (q, k,
+    v, out, lse); the backward recomputes each kv block's probabilities
+    from lse, as the reference's ``bwd`` (``attention.py:208-254``), in
+    float32: delta = sum(dO O), P = exp(S - lse), dV = P^T dO, dP = dO V^T,
+    dS = P (dP - delta), dQ = dS K scale, dK = dS^T Q scale, cast back to
+    the inputs' dtypes. Its live memory is O(S x block), not O(S^2)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, block):
+        out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.block = block
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        block = ctx.block
+        b, sq, hq, d = q.shape
+        skv, hkv = k.shape[1], k.shape[2]
+        rep = hq // hkv
+        scale = 1.0 / math.sqrt(d)
+        qg = (q.float() * scale).reshape(b, sq, hkv, rep, d)
+        dog = do.float().reshape(b, sq, hkv, rep, d).permute(0, 2, 3, 1, 4)
+        delta = (dog * out.float().reshape(b, sq, hkv, rep, d)
+                 .permute(0, 2, 3, 1, 4)).sum(-1)           # (B,Hkv,rep,S)
+        lse = lse.reshape(b, hkv, rep, sq)
+        qpos = torch.arange(sq, device=q.device)[:, None]
+        dq = torch.zeros((b, sq, hkv, rep, d), dtype=torch.float32,
+                         device=q.device)
+        dk = torch.empty((b, skv, hkv, d), dtype=torch.float32,
+                         device=q.device)
+        dv = torch.empty_like(dk)
+        for j0 in range(0, skv, block):
+            k_i = k[:, j0:j0 + block].float()
+            v_i = v[:, j0:j0 + block].float()
+            s_blk = torch.einsum("bqhrd,bkhd->bhrqk", qg, k_i)
+            kpos = j0 + torch.arange(k_i.shape[1], device=q.device)[None, :]
+            s_blk = torch.where(kpos <= qpos, s_blk, NEG_INF)
+            p_blk = torch.exp(s_blk - lse[..., None])       # (B,Hkv,rep,S,bk)
+            dv[:, j0:j0 + block] = torch.einsum("bhrqk,bhrqd->bkhd", p_blk,
+                                                dog)
+            dp = torch.einsum("bhrqd,bkhd->bhrqk", dog, v_i)
+            ds = p_blk * (dp - delta[..., None])
+            dq += torch.einsum("bhrqk,bkhd->bqhrd", ds, k_i)
+            dk[:, j0:j0 + block] = torch.einsum("bhrqk,bqhrd->bkhd", ds, qg)
+        dq = (dq * scale).reshape(b, sq, hq, d).to(q.dtype)
+        return dq, dk.to(k.dtype), dv.to(v.dtype), None
+
+
+def _attend_any_torch(cfg: ModelConfig, q, k, v):
+    """Causal attention for training, routed as the reference's
+    ``_attend_any``: ``_FlashTrain`` where ``cfg.attn_flash_block``
+    divides S and S exceeds it, else ``_attend`` (autograd through it)."""
+    block = cfg.attn_flash_block
+    if block and k.shape[1] % block == 0 and k.shape[1] > block:
+        return _FlashTrain.apply(q, k, v, block)
+    return _attend(cfg, q, k, v, 0)
+
+
+def attention_train_torch(cfg: ModelConfig, p: Attention, x, positions):
+    """Full-sequence causal attention with autograd (training); x: (B, S,
+    D). The reference's ``attention_train``."""
+    q, k, v = _project_qkv(cfg, p, x, positions)
+    out = _attend_any_torch(cfg, q, k, v)
+    return out.reshape(out.shape[0], out.shape[1], -1) @ p.wo
 
 
 def attention_prefill(cfg: ModelConfig, p: Attention, x, positions):

@@ -7,14 +7,20 @@ params on a leading axis and ``lax.scan``s over them; the port keeps one
 ``_group_prefill`` / ``_group_decode`` become ``Block.prefill`` /
 ``Block.decode``, which dispatch by mixer and add ``mlp(norm(h))`` or
 ``moe(norm(h))[0]`` (the aux loss is a training term and is dropped, as
-the reference's serving paths drop it). ``remat`` is a training lever and
-does not come across.
+the reference's serving paths drop it). ``_group_train`` becomes
+``Block.train_torch``, which returns the MoE aux beside h, and
+``stack_train_torch`` runs the layers group by group under the
+reference's ``_remat`` rule (``blocks.py:148-153``).
 """
 from __future__ import annotations
 
-import torch
+import functools
 
-from .attention import Attention, attention_decode, attention_prefill
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from .attention import (Attention, attention_decode, attention_prefill,
+                        attention_train_torch)
 from .common import RMSNorm
 from .config import ModelConfig
 from .mlp import MLP
@@ -54,12 +60,26 @@ class Block(torch.nn.Module):
             self.moe = MoE(cfg, generator, dtype, device)
 
     def _mlp(self, h):
+        """(h + mlp(norm(h)), the MoE aux loss or None)."""
         if self.mlp_kind == "dense":
-            return h + self.mlp(self.norm_mlp(h))
+            return h + self.mlp(self.norm_mlp(h)), None
         if self.mlp_kind == "moe":
-            y, _ = moe_apply_torch(self.cfg, self.moe, self.norm_mlp(h))
-            return h + y
-        return h
+            y, aux = moe_apply_torch(self.cfg, self.moe, self.norm_mlp(h))
+            return h + y, aux
+        return h, None
+
+    def train_torch(self, h, positions):
+        """The training forward, autograd on: returns (h, this layer's MoE
+        aux loss, a float32 scalar, 0 without an MoE)."""
+        hn = self.norm_mixer(h)
+        if self.mixer == "attn":
+            h = h + attention_train_torch(self.cfg, self.attn, hn, positions)
+        else:
+            h = h + mamba_train(self.cfg, self.mamba, hn)
+        h, aux = self._mlp(h)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        return h, aux
 
     def prefill(self, h, positions):
         """Returns (h, this layer's cache: {"k", "v"} for attention,
@@ -70,7 +90,7 @@ class Block(torch.nn.Module):
         else:
             y, cache = mamba_train(self.cfg, self.mamba, hn,
                                    return_state=True)
-        return self._mlp(h + y), cache
+        return self._mlp(h + y)[0], cache
 
     def decode(self, h, cache, pos):
         """One token; ``cache`` is updated in place (mamba ignores
@@ -80,4 +100,36 @@ class Block(torch.nn.Module):
             y, cache = attention_decode(self.cfg, self.attn, hn, cache, pos)
         else:
             y, cache = mamba_decode(self.cfg, self.mamba, hn, cache)
-        return self._mlp(h + y), cache
+        return self._mlp(h + y)[0], cache
+
+
+def _group_train_torch(layers, h, positions):
+    """One group (one copy of the block pattern) forward: (h, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for layer in layers:
+        h, a = layer.train_torch(h, positions)
+        aux = aux + a
+    return h, aux
+
+
+def stack_train_torch(cfg: ModelConfig, layers, h, positions):
+    """The layers group by group, as the reference's ``stack_train``:
+    ``cfg.remat == "none"`` keeps every activation; any other value but
+    ``"dots"`` (``"full"``, every config's default) recomputes each group in
+    the backward (``torch.utils.checkpoint``, non-reentrant). Returns (h, the summed MoE aux loss)."""
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            f"{cfg.name}: remat='dots' (save the matrix products' outputs) "
+            f"is not in the port yet (no config the repository ships sets "
+            f"it; ROADMAP.md queue 1 item 13, options no shipped config "
+            f"sets)")
+    width = len(cfg.block_pattern)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for g0 in range(0, len(layers), width):
+        fn = functools.partial(_group_train_torch, layers[g0:g0 + width])
+        if cfg.remat == "none":
+            h, a = fn(h, positions)
+        else:
+            h, a = checkpoint(fn, h, positions, use_reentrant=False)
+        aux = aux + a
+    return h, aux

@@ -11,7 +11,9 @@ the mamba mixer's ``A_log``, ``D`` and ``dt_bias`` and the MoE
 ``router`` (D, E) stay float32 in a bfloat16 model, as ``init_mamba`` and
 ``init_moe`` make them. The MoE expert stacks (G, E, D, F) / (G, E, F, D)
 lose their groups axis like every other leaf and keep the expert axis:
-``layers.<i>.moe.wi_gate`` is (E, D, F).
+``layers.<i>.moe.wi_gate`` is (E, D, F). ``opt_state_from_numpy`` carries
+the reference's AdamW state (its moments have the params' tree) the same
+way.
 """
 from __future__ import annotations
 
@@ -70,3 +72,18 @@ def load_params(cfg: ModelConfig, state: Dict[str, torch.Tensor],
     model = Transformer(cfg, None, resolve_device(device))
     model.load_state_dict(state, strict=True)
     return model
+
+
+def opt_state_from_numpy(cfg: ModelConfig, tree,
+                         device: DeviceLike = None):
+    """The reference's optimizer state (``{"mu", "nu"}`` pytrees shaped
+    like the params, and ``step``) as the port's: the moments keyed like
+    the params' state dict, each in its own dtype, and ``step`` an int64
+    scalar, all on ``device``."""
+    dev = resolve_device(device)
+    return {"mu": {k: v.to(dev) for k, v in
+                   params_from_numpy(cfg, tree["mu"]).items()},
+            "nu": {k: v.to(dev) for k, v in
+                   params_from_numpy(cfg, tree["nu"]).items()},
+            "step": torch.tensor(int(np.asarray(tree["step"])),
+                                 dtype=torch.int64, device=dev)}

@@ -1,8 +1,9 @@
 """The language model: embed -> layers -> final norm -> logits — the port
-of ``repro/models/model.py`` for serving.
+of ``repro/models/model.py``.
 
 Entry points:
   init_params(cfg, seed, generator=None, device=None)  -> Transformer
+  forward_train_torch(cfg, params, batch, device=None)  -> (loss, metrics)
   forward_prefill(cfg, params, tokens, positions=None, extra_embeds=None,
                   extra_mask=None, device=None) -> (last_logits, caches)
   forward_decode(cfg, params, caches, token, pos, device=None)
@@ -23,14 +24,20 @@ selects; ``forward_decode`` takes token ids only, as the reference's. Each
 entry point runs on the card unless ``device="cpu"`` is passed, and
 ``params`` must live there. Tied
 embeddings only share the table; padded vocab slots read -1e9.
-``forward_train`` waits for the training slice.
+
+``forward_prefill`` and ``forward_decode`` run without autograd;
+``forward_train_torch`` runs with it, through each attention layer's
+``_FlashTrain`` (or ``_attend``) and each mamba layer's differentiable
+``ssd_chunked_train``, the layers grouped under ``cfg.remat``. The params a
+``Transformer`` is built with are frozen (``requires_grad=False``) for
+serving; ``train.step.make_train_state_torch`` makes them trainable.
 """
 from __future__ import annotations
 
 import torch
 
 from ..device import DeviceLike, resolve_device
-from .blocks import Block
+from .blocks import Block, stack_train_torch
 from .common import RMSNorm, dtype_of, embed_init, rmsnorm
 from .config import ModelConfig
 
@@ -47,7 +54,9 @@ class Transformer(torch.nn.Module):
         if cfg.dtype != cfg.param_dtype:
             raise NotImplementedError(
                 f"{cfg.name}: the port runs params and activations in one "
-                f"dtype ({cfg.param_dtype} != {cfg.dtype})")
+                f"dtype ({cfg.param_dtype} != {cfg.dtype}; no config the "
+                f"repository ships splits them; ROADMAP.md queue 1 item 13, "
+                f"options no shipped config sets)")
         self.cfg = cfg
         dtype = dtype_of(cfg.param_dtype)
         self.embed = torch.nn.Parameter(
@@ -95,6 +104,20 @@ def _default_positions(cfg: ModelConfig, tokens):
     return pos
 
 
+def _inputs(cfg: ModelConfig, dev, tokens, positions, extra_embeds,
+            extra_mask):
+    """The entry points' inputs as tensors on ``dev``: int64 tokens,
+    positions (``_default_positions`` when None), the frontend stub's
+    embeddings and bool mask (or None)."""
+    tokens = torch.as_tensor(tokens, device=dev).long()
+    positions = (_default_positions(cfg, tokens) if positions is None
+                 else torch.as_tensor(positions, device=dev))
+    if extra_embeds is not None:
+        extra_embeds = torch.as_tensor(extra_embeds, device=dev)
+        extra_mask = torch.as_tensor(extra_mask, device=dev).bool()
+    return tokens, positions, extra_embeds, extra_mask
+
+
 def _embed(cfg: ModelConfig, params: Transformer, tokens, extra_embeds=None,
            extra_mask=None):
     """The table's rows for ``tokens``; with a frontend stub, the positions
@@ -116,6 +139,38 @@ def _logits(cfg: ModelConfig, params: Transformer, h):
     return logits
 
 
+def softmax_xent_torch(logits, labels, z_loss: float = 1e-4):
+    """Cross entropy with z-loss per token, as the reference's
+    ``softmax_xent``: logits float32 (B, S, V), labels int (B, S) ->
+    ``lse - gold + z_loss lse^2`` (B, S)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return lse - gold + z_loss * lse * lse
+
+
+def forward_train_torch(cfg: ModelConfig, params: Transformer, batch,
+                        device: DeviceLike = None):
+    """The reference's ``forward_train``, with autograd: ``batch`` holds
+    tokens (B, S) and labels (B, S) ints, optionally positions ((B, S), or
+    (3, B, S) under M-RoPE; default ``_default_positions``) and, for a
+    frontend stub, extra_embeds (B, S, D) with the bool extra_mask (B, S).
+    Returns (loss, metrics): ``loss = mean(xent) + 0.01 aux`` (a float32
+    scalar to backpropagate), metrics ``loss``, ``nll`` (the mean per-token
+    loss, z-loss included, as the reference names it) and ``aux_loss`` (the
+    MoE layers' summed load-balancing loss), all float32 scalars."""
+    dev = _check_params(params, device)
+    tokens, positions, extra_embeds, extra_mask = _inputs(
+        cfg, dev, batch["tokens"], batch.get("positions"),
+        batch.get("extra_embeds"), batch.get("extra_mask"))
+    labels = torch.as_tensor(batch["labels"], device=dev).long()
+    h = _embed(cfg, params, tokens, extra_embeds, extra_mask)
+    h, aux = stack_train_torch(cfg, params.layers, h, positions)
+    per_tok = softmax_xent_torch(_logits(cfg, params, h), labels)
+    nll = per_tok.mean()
+    loss = nll + 0.01 * aux
+    return loss, {"loss": loss, "nll": nll, "aux_loss": aux}
+
+
 @torch.no_grad()
 def forward_prefill(cfg: ModelConfig, params: Transformer, tokens,
                     positions=None, extra_embeds=None, extra_mask=None,
@@ -127,14 +182,8 @@ def forward_prefill(cfg: ModelConfig, params: Transformer, tokens,
     per layer, {"k", "v"} (B, S, Hkv, D) for attention, {"conv", "ssm"}
     for mamba)."""
     dev = _check_params(params, device)
-    tokens = torch.as_tensor(tokens, device=dev).long()
-    if positions is None:
-        positions = _default_positions(cfg, tokens)
-    else:
-        positions = torch.as_tensor(positions, device=dev)
-    if extra_embeds is not None:
-        extra_embeds = torch.as_tensor(extra_embeds, device=dev)
-        extra_mask = torch.as_tensor(extra_mask, device=dev).bool()
+    tokens, positions, extra_embeds, extra_mask = _inputs(
+        cfg, dev, tokens, positions, extra_embeds, extra_mask)
     h = _embed(cfg, params, tokens, extra_embeds, extra_mask)
     caches = []
     for layer in params.layers:

@@ -1,13 +1,13 @@
 """Mamba-2 mixer via the SSD (state-space duality) chunked algorithm
-(arXiv:2405.21060), ngroups = 1 — the port of ``repro/models/ssm.py`` for
-serving.
+(arXiv:2405.21060), ngroups = 1 — the port of ``repro/models/ssm.py``.
 
 Prefill's SSD goes through ``kernels/ssd_scan``: on the card that is the
 Hopper kernel (the reference's model computes it with jnp in
-``_ssd_chunked`` and never calls its Pallas kernel). A decode step is the
+``_ssd_chunked`` and never calls its Pallas kernel). With autograd on
+(training) ``mamba_train`` takes ``ops.ssd_chunked_train``: the kernel's
+forward and the plain version's backward. A decode step is the
 single-step recurrence in plain torch, as in the reference, and updates its
-cache IN PLACE. ``forward_train`` and the backward pass wait for the
-training slice.
+cache IN PLACE.
 
 Layer I/O:
   prefill: x (B, S, D) -> y (B, S, D) [+ {"conv": (B, k-1, convdim),
@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..kernels.ssd_scan.ops import ssd_chunked
+from ..kernels.ssd_scan.ops import ssd_chunked, ssd_chunked_train
 from .common import dense_init
 from .config import ModelConfig
 
@@ -79,7 +79,9 @@ def mamba_train(cfg: ModelConfig, p: Mamba, x, return_state: bool = False):
     ``return_state`` also returns the decode cache: ``conv``, the last k-1
     pre-activation conv inputs, right-aligned with zeros first when S <
     k-1 (what the causal conv saw; the reference returns only S rows then),
-    and ``ssm``, the final state in float32."""
+    and ``ssm``, the final state in float32. With autograd on and no
+    state asked for, the SSD is ``ssd_chunked_train`` (differentiable on
+    the card too)."""
     bsz, s, _ = x.shape
     di, n, nh, ph = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
     proj = x @ p.in_proj
@@ -90,7 +92,11 @@ def mamba_train(cfg: ModelConfig, p: Mamba, x, return_state: bool = False):
     c_mat = xbc[..., di + n:]
     dt = _softplus(dt.float() + p.dt_bias)
     a = -torch.exp(p.A_log)
-    y, state = ssd_chunked(xin, dt, a, b_mat, c_mat, chunk=cfg.ssm_chunk)
+    if torch.is_grad_enabled() and not return_state:
+        y = ssd_chunked_train(xin, dt, a, b_mat, c_mat, chunk=cfg.ssm_chunk)
+    else:
+        y, state = ssd_chunked(xin, dt, a, b_mat, c_mat,
+                               chunk=cfg.ssm_chunk)
     y = y + xin * p.D[None, None, :, None].to(x.dtype)
     y = y.reshape(bsz, s, di) * F.silu(z)
     out = y @ p.out_proj

@@ -1372,3 +1372,141 @@ def test_frontend_stub_prefill_on_card_matches_cpu(cuda, arch):
     got, _ = forward_prefill(cfg, params.to(cuda), tokens, pos, extra, mask,
                              device=cuda)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# -- the training slice: flash's log-sum-exp, _FlashTrain and _SsdTrain ----
+
+def _lse_counts():
+    fa = flash_kernel.flash_attention
+    return fa.launches, fa.hopper_launches, fa.cuda_core_launches, \
+        fa.lse_launches
+
+
+@pytest.mark.parametrize("s", [1, 65, 200, 1000])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_lse_matches_plain(cuda, s, d, dtype, causal):
+    # each row's log-sum-exp from both bodies (bf16 at 64 and 128: the
+    # Hopper body), ragged S and GQA 2:1; lse is float32 in both runs:
+    # 1e-5 in float32, 1e-3 in bfloat16 (the scores are products of the
+    # same bf16 inputs summed in float32)
+    q = _randn((2, s, 4, d), dtype, cuda, 31)
+    k = _randn((2, s, 2, d), dtype, cuda, 32)
+    v = _randn((2, s, 2, d), dtype, cuda, 33)
+    before = _lse_counts()
+    out, lse = flash_kernel.flash_attention(q, k, v, causal=causal,
+                                            return_lse=True)
+    torch.cuda.synchronize()
+    hopper = dtype == torch.bfloat16 and d in flash_kernel.HOPPER_HEAD_DIMS
+    assert _lse_counts() == (before[0] + 1, before[1] + hopper,
+                             before[2] + (not hopper), before[3] + 1)
+    assert lse.shape == (2, 4, s) and lse.dtype == torch.float32
+    want_out, want_lse = flash_ref.flash_attention(q, k, v, causal=causal,
+                                                   return_lse=True)
+    tol = 1e-5 if dtype == torch.float32 else 1e-3
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=tol)
+    torch.testing.assert_close(out.float(), want_out.float(),
+                               rtol=ATTN_TOL[dtype], atol=ATTN_TOL[dtype])
+    # the serving call (no lse) writes the same output
+    assert torch.equal(flash_kernel.flash_attention(q, k, v, causal=causal),
+                       out)
+    assert _lse_counts()[3] == before[3] + 1
+
+
+def _plain_ssd_train(x, dt, a, b_mat, c_mat, *, chunk):
+    y, _ = ssd_ref.ssd_scan(x.transpose(1, 2), dt.transpose(1, 2), a, b_mat,
+                            c_mat, chunk=chunk)
+    return y.transpose(1, 2)
+
+
+def _train_grads(cfg, params, batch, device):
+    params.requires_grad_(True)
+    for p in params.parameters():
+        p.grad = None
+    from repro_torch.models.model import forward_train_torch
+    loss, metrics = forward_train_torch(cfg, params, batch, device=device)
+    loss.backward()
+    torch.cuda.synchronize()
+    return float(loss.detach()), {n: p.grad.clone() for n, p in
+                         params.named_parameters()}
+
+
+@pytest.mark.parametrize("arch", ["qwen3_1_7b", "mamba2_1_3b"])
+def test_train_grads_through_kernels_match_plain(cuda, monkeypatch, arch):
+    # a 2-layer float32 model: the loss and every gradient with the
+    # kernels (_FlashTrain's flash forward with lse; _SsdTrain's ssd_scan
+    # forward) against the same step with the plain versions, 1e-4 x
+    # max|.| (float32 sums in another order); the kernels run twice a
+    # layer (remat="full" recomputes each layer in the backward)
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import attention as attention_mod
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models.model import init_params
+    cfg = dataclasses.replace(get_smoke_config(arch), attn_flash_block=16)
+    params = init_params(cfg, 3, device="cpu").to(cuda)
+    g = torch.Generator().manual_seed(8)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=g)
+    batch = {"tokens": tokens, "labels": tokens.roll(-1, 1)}
+    fa, ssd = flash_kernel.flash_attention, ssd_kernel.ssd_scan
+    before = (fa.lse_launches, ssd.launches)
+    loss, grads = _train_grads(cfg, params, batch, cuda)
+    n_attn = 2 if cfg.has_mixer("attn") else 0
+    assert (fa.lse_launches - before[0], ssd.launches - before[1]) == (
+        2 * n_attn, 2 * (2 - n_attn))
+    monkeypatch.setattr(attention_mod, "flash_attention",
+                        flash_ref.flash_attention)
+    monkeypatch.setattr(ssm_mod, "ssd_chunked_train", _plain_ssd_train)
+    before = (fa.launches, ssd.launches)
+    want_loss, want = _train_grads(cfg, params, batch, cuda)
+    assert (fa.launches, ssd.launches) == before
+    assert abs(loss - want_loss) <= 1e-4 * abs(want_loss)
+    for name, w in want.items():
+        err = float((grads[name] - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()), (name, err)
+
+
+@pytest.mark.parametrize("arch", ["qwen3_1_7b", "mamba2_1_3b"])
+def test_bf16_train_step_on_card_is_finite(cuda, arch):
+    # one bfloat16 step of a 2-layer model, two microbatches: attention at
+    # head dim 64 takes flash's Hopper body with lse (2 layers x 2
+    # microbatches x 2 with the recompute), mamba the bf16 ssd_scan
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import init_params
+    from repro_torch.train import (OptimizerConfig, build_train_step_torch,
+                                   make_train_state_torch)
+    cfg = dataclasses.replace(
+        get_smoke_config(arch), dtype="bfloat16", param_dtype="bfloat16",
+        attn_flash_block=64)
+    if cfg.has_mixer("attn"):
+        cfg = dataclasses.replace(cfg, d_model=256, num_heads=4,
+                                  num_kv_heads=2, head_dim=64)
+    params = init_params(cfg, 4, device=cuda)
+    before = {n: p.detach().clone() for n, p in params.named_parameters()}
+    oc = OptimizerConfig(peak_lr=1e-3, warmup_steps=1)
+    state = make_train_state_torch(cfg, params, oc, device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 256),
+                           generator=torch.Generator().manual_seed(9))
+    counts = (*_lse_counts(), ssd_kernel.ssd_scan.launches)
+    state, metrics = build_train_step_torch(cfg, oc, 2, device=cuda)(
+        state, {"tokens": tokens, "labels": tokens.roll(-1, 1)})
+    torch.cuda.synchronize()
+    now = (*_lse_counts(), ssd_kernel.ssd_scan.launches)
+    launched = [a - b for a, b in zip(now, counts)]
+    if cfg.has_mixer("attn"):
+        assert launched == [8, 8, 0, 8, 0]
+    else:
+        assert launched == [0, 0, 0, 0, 8]
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    assert float(metrics["grad_norm"]) > 0
+    assert abs(float(metrics["loss"]) - np.log(cfg.vocab_size)) < 2
+    for n, p in state["params"].named_parameters():
+        # mamba's A_log, D and dt_bias are float32 in any model
+        assert p.dtype == before[n].dtype and bool(torch.isfinite(p).all())
+    assert any(not torch.equal(p, before[n])
+               for n, p in state["params"].named_parameters())
+    assert state["opt"]["mu"]["embed"].dtype == torch.float32
