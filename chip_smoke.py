@@ -207,7 +207,25 @@ Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
    it, the AdamW update), and holds the first step's loss and grad_norm against
    the same step from the same params with the plain flash (2^-6 and 2^-4
    relative);
-28. prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and as its
+28. drives the training loop with every launch count set to 0 before each
+   run: ``Trainer`` on full-width qwen3_1_7b (28 layers, the training
+   step's shapes) for 3 steps with a checkpoint every 2 into a temporary
+   directory (an async save at step 2, the final blocking save at 3);
+   deletes step_3; a fresh ``Trainer`` on the directory must resume at
+   step 2 with the step-2 snapshot's embedding, a layer's wq, their
+   moments and the step equal bit for bit, and repeat step 3's loss
+   within 2e-3; checks 4 x 112 flash launches with lse; prints the
+   losses, step walls, tokens/s, the checkpoint's bytes, the free disk
+   and the seconds to snapshot, write and hash, and restore;
+29. drives ``ElasticController`` over step 14's fleet (20,000 jobs x 256
+   pods) with the port's ``schedule`` on the card (float64, Jacobi rounds
+   of the bisect fill, dense layout, ``SCHED_ROUNDS``) as its solve: the
+   initial solve, then 8 pods go silent and ``on_tick`` marks them
+   failed and re-solves; 6 ``psdsf_fill`` launches a round; each
+   allocation held against the same controller driven with the plain
+   versions (1e-9 a job, equal rounds); prints both solve walls and the
+   jobs whose replicas fell;
+30. prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and as its
    last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the last line. Without a CUDA device,
@@ -336,6 +354,20 @@ DENSE_PROFILE_WINDOW = (4, 4)
 #: per-body launch counts beside ``.launches`` (flash_attention's two)
 BODY_COUNTS = ("hopper_launches", "cuda_core_launches", "lse_launches")
 
+
+#: the training loop phase: depth of its full-width qwen3_1_7b (None: all
+#: 28 layers), and the step-2 snapshot's leaves it keeps on the card to
+#: hold the restore against, bit for bit
+TRAIN_LOOP_LAYERS = None
+TRAIN_LOOP_KEEP = ("params/embed", "params/layers.0.attn.wq", "opt/mu/embed",
+                   "opt/nu/embed", "opt/mu/layers.0.attn.wq",
+                   "opt/nu/layers.0.attn.wq", "opt/step")
+#: the resumed step's loss against the first run's: the reference's own
+#: restart bound (tests/test_substrate.py); the card's backward sums with
+#: atomics, so a step is not bit-deterministic there
+RESTART_RTOL = 2e-3
+#: pods that go silent in the elastic re-solve phase
+ELASTIC_SILENT = 8
 
 #: Jacobi rounds of the scheduler phase's solves (``schedule_detail`` and
 #: ``admitted_rates`` keep ``ensure_converged`` on: a budget the fleet
@@ -3445,6 +3477,245 @@ class Smoke:
                    "the kernel-driven step and the plain-flash step "
                    "disagree")
 
+    def train_loop(self):
+        """The restart-safe loop on full-width qwen3_1_7b (bfloat16 params,
+        float32 moments, remat full, B 2 x S 2,048 in 2 microbatches, flash
+        blocks of 1,024): ``Trainer`` for 3 steps with a checkpoint every
+        2 into a temporary directory (an async save at step 2 overlapped
+        with step 3, the final blocking save at 3), counts set to 0 just
+        before ``run`` and read just after; then step_3 is deleted and a
+        fresh ``Trainer`` on the directory must resume at 2 with the step-2
+        values bit for bit and repeat step 3's loss within
+        ``RESTART_RTOL``. Times the manager's snapshot, write-and-hash and
+        restore by wrapping its functions."""
+        import gc
+        import shutil
+        import tempfile
+        import numpy as np
+        torch = self.torch
+        from repro_torch.ckpt import manager as manager_mod
+        from repro_torch.data import DataConfig
+        from repro_torch.train import OptimizerConfig, Trainer, TrainerConfig
+        self.free_full_model()
+        cfg = dataclasses.replace(self.llm_config(layers=TRAIN_LOOP_LAYERS),
+                                  remat="full", attn_flash_block=16
+                                  if self.rehearse else 1024)
+        seq, batch, micro = (64, 2, 2) if self.rehearse else (2048, 2, 2)
+        oc = OptimizerConfig()
+        dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                        global_batch=batch)
+        spans = {"snapshot": [], "write": [], "restore": []}
+
+        def timed(kind, fn):
+            def call(*a, **k):
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                spans[kind].append(time.perf_counter() - t0)
+                return out
+            return call
+        kept = {}
+
+        def keep_step_2(step, state, metrics):
+            if step + 1 == 2:      # the state the step-2 save snapshotted
+                leaves = dict(manager_mod._flatten_state_torch(state))
+                kept.update({k: leaves[k].clone() for k in TRAIN_LOOP_KEEP})
+        counters = wrappers()
+        launches = {n: 0 for n in counters}
+        lse = 0
+
+        def run(trainer):
+            nonlocal lse
+            reset_counts(counters)
+            self.sync()
+            t0 = time.perf_counter()
+            out = trainer.run()
+            self.sync()
+            for n, fn in counters.items():
+                launches[n] += fn.launches
+            lse += counters["flash_attention"].lse_launches
+            return out, time.perf_counter() - t0
+
+        with tempfile.TemporaryDirectory() as tmp, \
+                mock.patch.object(manager_mod, "_snapshot_torch", timed(
+                    "snapshot", manager_mod._snapshot_torch)), \
+                mock.patch.object(manager_mod.CheckpointManager, "_write",
+                                  timed("write", manager_mod.CheckpointManager
+                                        ._write)), \
+                mock.patch.object(manager_mod.CheckpointManager, "restore",
+                                  timed("restore", manager_mod
+                                        .CheckpointManager.restore)):
+            disk = shutil.disk_usage(tmp)
+            print(f"  checkpoint directory: {disk.free / 1e9:.1f} GB free of "
+                  f"{disk.total / 1e9:.1f} GB")
+            tc = TrainerConfig(total_steps=3, ckpt_every=2, log_every=1,
+                               ckpt_dir=tmp, microbatches=micro)
+            first = Trainer(cfg, oc, tc, dc, hooks=keep_step_2,
+                            device=self.device)
+            t0 = time.perf_counter()
+            first.init_or_restore()
+            self.sync()
+            init_s = time.perf_counter() - t0
+            n_params = sum(p.numel() for p in first.state["params"]
+                           .parameters())
+            out, run_s = run(first)
+            walls = list(first.straggler.times["worker0"])
+            step_2 = Path(tmp) / "step_2"
+            ckpt_bytes = sum(f.stat().st_size for f in step_2.iterdir())
+            n_files = len(list(step_2.iterdir()))
+            del first
+            gc.collect()
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
+            shutil.rmtree(Path(tmp) / "step_3")
+            second = Trainer(cfg, oc, tc, dc, device=self.device)
+            t0 = time.perf_counter()
+            start = second.init_or_restore()
+            self.sync()
+            resume_s = time.perf_counter() - t0
+            leaves = dict(manager_mod._flatten_state_torch(second.state))
+            equal = {k: bool(torch.equal(leaves[k], v))
+                     for k, v in kept.items()}
+            out2, run2_s = run(second)
+            walls2 = list(second.straggler.times["worker0"])
+            del second, leaves
+            kept.clear()
+            gc.collect()
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
+        tokens = batch * seq
+        print(f"  {cfg.name}: {cfg.num_layers} layers, {n_params} params "
+              f"{cfg.param_dtype}, moments {oc.state_dtype}; B {batch} x S "
+              f"{seq} in {micro} microbatches; init {init_s:.2f} s")
+        print(f"  run 1: losses {[round(x, 5) for x in out['losses']]}, step "
+              f"walls {[round(w * 1e3, 1) for w in walls]} ms ("
+              f"{[round(tokens / w) for w in walls]} tokens/s), run {run_s:.2f}"
+              f" s with the saves")
+        print(f"  checkpoint: {ckpt_bytes} bytes in {n_files} files; "
+              f"snapshot {[round(t, 3) for t in spans['snapshot']]} s, write "
+              f"and hash {[round(t, 3) for t in spans['write']]} s ("
+              f"{[round(ckpt_bytes / t / 1e9, 3) for t in spans['write']]} "
+              f"GB/s), restore {[round(t, 3) for t in spans['restore']]} s")
+        print(f"  resumed at step {start} in {resume_s:.2f} s (init and "
+              f"restore); step-2 leaves equal bit for bit: {equal}")
+        print(f"  run 2: loss {[round(x, 5) for x in out2['losses']]} vs run "
+              f"1's {[round(x, 5) for x in out['losses'][2:]]}, step wall "
+              f"{[round(w * 1e3, 1) for w in walls2]} ms, run {run2_s:.2f} s; "
+              f"launches over both runs {launches}, with lse {lse}")
+        self.paths["train_loop"] = dict(
+            launches=dict(launches), layers=cfg.num_layers, params=n_params,
+            losses=out["losses"], resumed_losses=out2["losses"],
+            step_walls_s=walls, resumed_step_walls_s=walls2,
+            tokens_per_s=[tokens / w for w in walls], ckpt_bytes=ckpt_bytes,
+            snapshot_s=spans["snapshot"], write_s=spans["write"],
+            restore_s=spans["restore"], init_s=init_s, resume_s=resume_s,
+            disk_free_bytes=disk.free)
+        ln_v = float(np.log(cfg.vocab_size))
+        self.check(start == 2, f"resumed at step {start}, expected 2")
+        self.check(len(equal) == len(TRAIN_LOOP_KEEP) and all(equal.values()),
+                   f"restored step-2 leaves differ: {equal}")
+        self.check(all(np.isfinite(out["losses"]))
+                   and all(abs(x - ln_v) < 1.0 for x in out["losses"]),
+                   f"losses {out['losses']}: expected finite, near ln V = "
+                   f"{ln_v:.3f}")
+        self.check(np.allclose(out2["losses"], out["losses"][2:],
+                               rtol=RESTART_RTOL, atol=RESTART_RTOL),
+                   "the resumed step's loss differs from the first run's")
+        self.check(len(spans["write"]) == 3 and len(spans["restore"]) == 1,
+                   f"saves {len(spans['write'])}, restores "
+                   f"{len(spans['restore'])}: expected 3 and 1")
+        n_flash = cfg.num_layers * micro * 2 * 4     # 3 steps, then 1
+        want = {"flash_attention": n_flash}
+        self.check_launches(launches, want, "training loop")
+        if not self.rehearse:
+            self.check(lse == n_flash, f"flash lse launches {lse}, "
+                                       f"expected {n_flash}")
+
+    def elastic_resolve(self):
+        """``ElasticController`` over the scheduler phase's fleet (20,000
+        jobs x 256 pods) with the port's ``schedule`` on the card (PS-DSF
+        RDM, float64, Jacobi rounds of the bisect fill on the dense layout,
+        ``SCHED_ROUNDS``) as its ``solve_fn``: the initial solve, then every
+        pod beats at t = 0, ``ELASTIC_SILENT`` healthy ones go silent, and
+        ``on_tick(25.0)`` marks them failed and re-solves; counts set to 0
+        before and read after ((R+1) ``psdsf_fill`` launches a round, R =
+        5). Each allocation is held against the same controller driven
+        with the plain versions (1e-9 a job, equal rounds)."""
+        from repro_torch.ft import ElasticController
+        from repro_torch.sched import cluster as cluster_mod
+        kw = dict(fill="bisect", round="jacobi", layout="dense",
+                  max_rounds=SCHED_ROUNDS, device=self.device)
+        solve = cluster_mod.solve
+
+        def drive(plain):
+            rounds = []
+
+            def recorded(*a, **k):
+                alloc, info = solve(*a, **k)
+                rounds.append(info.rounds)
+                return alloc, info
+            fleet, jobs, _, _ = self.sched_fleets()
+            stack = self.plain_versions() if plain else contextlib.ExitStack()
+            with stack, mock.patch.object(cluster_mod, "solve", recorded):
+                self.sync()
+                t0 = time.perf_counter()
+                ctl = ElasticController(
+                    fleet, jobs,
+                    lambda c, j: cluster_mod.schedule(c, j, **kw),
+                    heartbeat_timeout_s=10.0)
+                self.sync()
+                init_s = time.perf_counter() - t0
+                before = dict(ctl.allocation)
+                healthy = [p.name for p in fleet.pods if p.healthy]
+                silent = healthy[::len(healthy) // ELASTIC_SILENT][
+                    :ELASTIC_SILENT]
+                for p in fleet.pods:
+                    ctl.monitor.beat(p.name, 0.0)
+                    if p.name not in silent:
+                        ctl.monitor.beat(p.name, 20.0)
+                t0 = time.perf_counter()
+                after = ctl.on_tick(25.0, {})
+                self.sync()
+                tick_s = time.perf_counter() - t0
+            return dict(ctl=ctl, before=before, after=after, rounds=rounds,
+                        walls=(init_s, tick_s), silent=silent,
+                        resources=fleet.problem(jobs[:1]).num_resources)
+
+        counters = wrappers()
+        reset_counts(counters)
+        run = drive(plain=False)
+        launches = {n: fn.launches for n, fn in counters.items()}
+        twin = drive(plain=True)
+        ctl = run["ctl"]
+        failed = [e.worker for e in ctl.events if e.reason == "failure"]
+        fell = [j for j in run["before"]
+                if run["after"][j] < run["before"][j] - F64_ATOL]
+        diff = max(abs(run[k][j] - twin[k][j]) for k in ("before", "after")
+                   for j in run[k])
+        print(f"  {len(run['before'])} jobs on {len(ctl.cluster.pods)} pods; "
+              f"silent {run['silent']}; failure events {failed}")
+        print(f"  solve walls (initial, re-solve): "
+              f"{[round(w, 3) for w in run['walls']]} s with the kernel, "
+              f"{[round(w, 3) for w in twin['walls']]} s plain-driven; rounds "
+              f"{run['rounds']} / {twin['rounds']}; psdsf_fill launches "
+              f"{launches['psdsf_fill']}")
+        print(f"  replicas {sum(run['before'].values()):.3f} -> "
+              f"{sum(run['after'].values()):.3f}; {len(fell)} jobs' replicas "
+              f"fell; kernel vs plain-driven max|d replicas| {diff:.3e}")
+        self.paths["elastic"] = dict(
+            launches=launches, rounds=run["rounds"], walls_s=run["walls"],
+            plain_walls_s=twin["walls"], jobs_fell=len(fell),
+            max_abs_diff=diff, silent=run["silent"])
+        self.check(sorted(failed) == sorted(run["silent"])
+                   and len(failed) == ELASTIC_SILENT,
+                   f"failure events {failed}, expected {run['silent']}")
+        self.check(run["rounds"] == twin["rounds"] and diff <= F64_ATOL,
+                   "elastic re-solve: kernel and plain runs disagree")
+        self.check(sum(run["after"].values()) < sum(run["before"].values()),
+                   "losing pods did not shrink the allocation")
+        self.check_launches(launches, {"psdsf_fill": (run["resources"] + 1)
+                                       * sum(run["rounds"])},
+                            "elastic re-solve")
+
     def report(self):
         kernels = []
         for name, source, replaces, dtype in (
@@ -3607,6 +3878,10 @@ def main(argv=None) -> int:
         smoke.phase(f"training, kernel vs plain, {arch}",
                     lambda a=arch: smoke.train_vs_plain(a))
     smoke.phase("training step", smoke.train_step)
+    # the training loop (checkpoint, restart) and the elastic re-solve of
+    # the scheduler's fleet after pod failures
+    smoke.phase("training loop", smoke.train_loop)
+    smoke.phase("elastic re-solve", smoke.elastic_resolve)
     if smoke.failed:
         print(f"chip_smoke: FAILED phases: {smoke.failed}", file=sys.stderr)
         return 1

@@ -47,7 +47,9 @@ def test_port_modules_listed():
                  "core.trace", "core.flowrouter", "sched.cluster",
                  "sched.serving", "models.moe", "configs.granite_moe_3b_a800m",
                  "configs.jamba_v0_1_52b", "configs.grok_1_314b",
-                 "train.optimizer", "train.step"):
+                 "train.optimizer", "train.step", "data.pipeline",
+                 "ckpt.manager", "ft.failures", "train.compression",
+                 "train.trainer", "launch.train"):
         assert f"repro_torch.{name}" in PORT_MODULES, name
 
 
@@ -84,6 +86,21 @@ def test_port_imports_no_jax_and_no_repro():
         "                                device='cpu')(\n"
         "    state, {'tokens': tok, 'labels': tok})\n"
         "assert float(met['grad_norm']) > 0\n"
+        "import tempfile\n"
+        "from repro_torch.launch import train\n"
+        "with tempfile.TemporaryDirectory() as d, \\\n"
+        "        contextlib.redirect_stdout(io.StringIO()):\n"
+        "    out = train.main(['--smoke', '--steps', '2', '--seq-len', '8',\n"
+        "                      '--global-batch', '2', '--device', 'cpu',\n"
+        "                      '--ckpt-dir', d])\n"
+        "assert len(out['losses']) == 2\n"
+        "from repro_torch.ft import ElasticController\n"
+        "from repro_torch.sched import Cluster, TenantJob, TPUPod, schedule\n"
+        "ctl = ElasticController(\n"
+        "    Cluster([TPUPod('a', 'v5e', 64, 16, 128, 400, 25)]),\n"
+        "    [TenantJob('j', 1.0, 8, 100, 16, 50, 0)],\n"
+        "    lambda c, j: schedule(c, j, device='cpu'))\n"
+        "assert ctl.allocation['j'] > 0\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib')) or m == 'repro'\n"
         "             or m.startswith('repro.'))\n"
@@ -448,6 +465,12 @@ TRAIN_REFERENCE = {
     "models/attention.py": {"attention_train", "_attend_any",
                             "_make_flash_train"},
     "models/blocks.py": {"_group_train", "stack_train"},
+    "data/pipeline.py": {"global_batch_at"},
+    "train/compression.py": {"_blocked", "quantize_int8", "dequantize_int8",
+                             "ef_compress_decompress",
+                             "compressed_cross_pod_mean", "init_residuals",
+                             "wire_bytes_ratio"},
+    "ckpt/manager.py": {"_flatten"},
 }
 
 
@@ -469,6 +492,14 @@ def test_train_functions_take_names_of_their_own():
         port_root / "train" / "optimizer.py")
     assert {"make_train_state_torch", "build_train_step_torch"} <= \
         _module_functions(port_root / "train" / "step.py")
+    assert "global_batch_at_torch" in _module_functions(
+        port_root / "data" / "pipeline.py")
+    assert {"quantize_int8_torch", "dequantize_int8_torch",
+            "ef_compress_decompress_torch", "init_residuals_torch",
+            "wire_bytes_ratio_np"} <= _module_functions(
+        port_root / "train" / "compression.py")
+    assert "_flatten_state_torch" in _module_functions(
+        port_root / "ckpt" / "manager.py")
     # no port definition is named ``schedule`` but the scheduler layer's,
     # which mirrors the reference's ``repro.sched.schedule`` on purpose
     named = sorted(str(p.relative_to(port_root))
