@@ -225,7 +225,33 @@ Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
    allocation held against the same controller driven with the plain
    versions (1e-9 a job, equal rounds); prints both solve walls and the
    jobs whose replicas fell;
-30. prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and as its
+30. "pod mean": ``train/compression.py::compressed_cross_pod_mean_torch``
+   on two ranks (a spawn context, a ``file://`` store in a temporary
+   directory): NCCL with a card a rank where there are two cards, else
+   gloo with both ranks' tensors on ``cuda:0``; each rank's gradients and
+   residuals are full-width qwen3_1_7b's parameter shapes (1.72e9 float32
+   values each), drawn from a seeded generator per rank on the card; rank
+   0 then redraws both ranks' tensors, sums the two error-feedback
+   estimates in one process and divides by 2: the mean and its own
+   residuals must be equal bit for bit; prints the backend, every
+   tensor's device, the seconds and the bytes (no speed claim);
+31. "launch dry run": ``python -m repro_torch.launch.dryrun`` in
+   subprocesses (started in the background at the lowest priority after
+   step 2's build, two chains, each with a timeout): jamba_v0_1_52b, grok_1_314b and
+   qwen2_vl_72b at full depth on the single-pod (16, 16) mesh at
+   decode_32k, and qwen3_1_7b at train_4k; each result must be ``ok``;
+   prints the per-device argument and temp GB against the card's 80 GB,
+   the collective counts by kind and the H100 roofline table;
+32. "roofline on the card": the dry run (same chains) of exactly step
+   27's training step (B 2 x S 2,048, 2 microbatches, remat) and step
+   16's decode step (8 slots x 2,048 rows) on a one-rank group and a
+   (1, 1) mesh; for each the three roofline terms with the H100
+   figures (the traced eager ops' FLOPs and bytes, each kernel call at
+   its own inputs, outputs and operations), the wall steps 27 and 16
+   measured (not run again), which must not beat the bound, the wall
+   over the bound and the model-FLOP utilization (model FLOPs / wall /
+   989 TFLOP/s), on one line with the card's name and power limit;
+33. prints the ``kernels`` JSON line, the ``nvidia-smi`` line, and as its
    last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits non-zero without the last line. Without a CUDA device,
@@ -237,7 +263,9 @@ what needs the card, and never prints a result line.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
+import os
 import dataclasses
 import json
 import subprocess
@@ -286,8 +314,8 @@ LOGIT_REL = 2.0 ** -5
 #: tests' bound); a bfloat16 y is rounded once more (2^-9 relative), bound
 #: 2^-8; the final state is float32 in both runs (1e-4)
 SSD_REL = {"float32": 1e-4, "bfloat16": 2.0 ** -8}
-#: flash's log-sum-exp output (float32 in every body) vs its plain
-#: version: the scores are products of the same inputs summed in float32,
+#: flash's and decode's log-sum-exp outputs (float32 in every body) vs
+#: their plain versions: the scores are products of the same inputs summed in float32,
 #: so lse is within a few float32 ulps of a row's ~5-10; bounds 1e-3
 #: absolute in bfloat16 (its exp2 domain and the Hopper body's tiles), 1e-5
 #: in float32
@@ -374,6 +402,25 @@ ELASTIC_SILENT = 8
 #: does not converge in raises, and is raised here, never caught)
 SCHED_ROUNDS = 32
 
+#: the launch tooling's phases: the cross-pod mean's ranks, the dry run's
+#: cells (two chains of CLI runs) and their time limits (seconds)
+POD_RANKS = 2
+POD_TIMEOUT = 600
+POD_ARCH = "qwen3_1_7b"
+DRYRUN_CHAINS = (
+    (("jamba_v0_1_52b", "decode_32k", ()),
+     ("grok_1_314b", "decode_32k", ()),
+     ("qwen2_vl_72b", "decode_32k", ())),
+    (("qwen3_1_7b", "train_4k", ()),
+     # step 27's training step and step 16's decode step on one device
+     ("qwen3_1_7b", "train_4k", ("--mesh-shape", "1x1", "--batch", "2",
+                                 "--seq", "2048", "--microbatches", "2",
+                                 "--tag", "card")),
+     ("qwen3_1_7b", "decode_32k", ("--mesh-shape", "1x1", "--batch", "8",
+                                   "--seq", "2048", "--tag", "card"))))
+DRYRUN_TIMEOUT = 600
+CARD_GB = 80
+
 
 def cold_route_totals(src, demands, capacities, weights, eligibility,
                       mechanism):
@@ -389,6 +436,81 @@ def cold_route_totals(src, demands, capacities, weights, eligibility,
     x, stages = lexmm_route_cold_np(prob,
                                     level_rate_matrix_np(prob, mechanism))
     return x.sum(axis=1), stages, time.perf_counter() - t0
+
+
+def pod_mean_rank(rank, world, init, out_dir, backend, rehearse):
+    """A process of the "pod mean" phase: ``compressed_cross_pod_mean_torch``
+    over full-width qwen3_1_7b's parameter shapes (smoke shapes in a
+    rehearsal), gradients and residuals drawn on the card from a generator
+    seeded per rank; rank 0 then holds the mean and its residuals against
+    the plain version. Writes ``rank<r>.json`` into ``out_dir``."""
+    import datetime
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models.model import abstract_params_torch
+    from repro_torch.train import compression
+    if rehearse:
+        dev = torch.device("cpu")
+    else:
+        dev = torch.device("cuda", rank if backend == "nccl" else 0)
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=init, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=POD_TIMEOUT))
+    try:
+        cfg = (get_smoke_config if rehearse else get_config)(POD_ARCH)
+        shapes = {n: tuple(p.shape) for n, p in
+                  abstract_params_torch(cfg).named_parameters()}
+
+        def draw(r):
+            gen = torch.Generator(device=dev).manual_seed(1000 + r)
+            for name, shape in shapes.items():
+                g = torch.randn(shape, generator=gen, device=dev)
+                res = torch.randn(shape, generator=gen, device=dev) * 0.01
+                yield name, g, res
+        grads, res = {}, {}
+        for name, g, r_ in draw(rank):
+            grads[name], res[name] = g, r_
+        n = sum(g.numel() for g in grads.values())
+        devices = sorted({str(t.device) for t in (*grads.values(),
+                                                  *res.values())})
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dist.barrier()
+        t0 = time.perf_counter()
+        mean, new_res = compression.compressed_cross_pod_mean_torch(grads,
+                                                                    res)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        del grads, res
+        out = dict(rank=rank, backend=backend, values=n, leaves=len(shapes),
+                   input_devices=devices, seconds=seconds,
+                   estimate_bytes=4 * n,
+                   int8_wire_bytes=4 * n * compression.wire_bytes_ratio_np(),
+                   output_devices=sorted({str(t.device) for t in (
+                       *mean.values(), *new_res.values())}),
+                   peak_gib=(torch.cuda.max_memory_allocated(dev) / 2**30
+                             if dev.type == "cuda" else None))
+        if rank == 0:
+            # the plain version: both ranks' estimates in this process,
+            # summed on the card and divided by 2
+            unequal_mean, unequal_res = [], []
+            t0 = time.perf_counter()
+            for (name, g0, r0), (_, g1, r1) in zip(draw(0), draw(1)):
+                e0, nr0 = compression.ef_compress_decompress_torch(g0, r0)
+                e1, _ = compression.ef_compress_decompress_torch(g1, r1)
+                if not torch.equal(mean[name], (e0 + e1) / 2):
+                    unequal_mean.append(name)
+                if not torch.equal(new_res[name], nr0):
+                    unequal_res.append(name)
+            out.update(unequal_mean=unequal_mean, unequal_res=unequal_res,
+                       plain_seconds=time.perf_counter() - t0)
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
 
 
 def reset_counts(counters):
@@ -2340,10 +2462,21 @@ class Smoke:
                     3 * s_max // 4 - 5, s_max - 1]
         kv_len = torch.tensor(lens, dtype=torch.int32, device=self.device)
         got = kernel.decode_attention(q, kc, vc, kv_len)
-        plain32 = ref.decode_attention(q.float(), kc.float(), vc.float(),
-                                       kv_len)
+        plain32, lse32 = ref.decode_attention(q.float(), kc.float(),
+                                              vc.float(), kv_len,
+                                              return_lse=True)
+        # the heads' log-sum-exps, which a split-KV decode merges by
+        got_lse, lse = kernel.decode_attention(q, kc, vc, kv_len,
+                                               return_lse=True)
         self.sync()
         err = self.compare_attn(got, plain32, f"decode {b}x{s_max}")
+        lse_err = float((lse - lse32).abs().max())
+        same = torch.equal(got_lse, got)
+        print(f"  decode {b}x{s_max} lse: max|kernel-plain f32|="
+              f"{lse_err:.3e} (bound {LSE_ATOL['bfloat16']:.0e}); output "
+              f"equal to the call without it: {same}")
+        self.check(lse_err <= LSE_ATOL["bfloat16"] and same,
+                   f"decode {b}x{s_max} lse disagrees with plain")
         valid = [min(n, s_max) for n in lens]
         top = max(valid)
         qt = q[:, :, None, :]
@@ -2380,7 +2513,7 @@ class Smoke:
             ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, bound_ms=bound_ms,
             bound_by="bytes", max_abs_err=err, library_ms=library_ms,
             library_eager_ms=library_eager_ms, turns_ms=ks,
-            library_turns_ms=ls, blocks=blocks,
+            library_turns_ms=ls, blocks=blocks, lse_max_abs_err=lse_err,
             shape=f"{b}x{s_max}x{hq}/{hkv}x{d}")
 
     @staticmethod
@@ -3716,6 +3849,201 @@ class Smoke:
                                        * sum(run["rounds"])},
                             "elastic re-solve")
 
+    # -- the launch tooling --------------------------------------------------
+    def start_dry_runs(self):
+        """Start ``DRYRUN_CHAINS`` in the background, one shell a chain of
+        ``launch/dryrun.py`` CLI runs writing into a temporary directory
+        (smoke configs in a rehearsal); "launch dry run" collects them."""
+        import tempfile
+        self.dryrun_dir = tempfile.TemporaryDirectory()
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        self.dryrun_procs = []
+        for i, chain in enumerate(DRYRUN_CHAINS):
+            cmds = []
+            for arch, shape, extra in chain:
+                cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                       "--arch", arch, "--shape", shape, "--out",
+                       self.dryrun_dir.name, "--force", *extra]
+                if self.rehearse:
+                    cmd.append("--smoke")
+                cmds.append(" ".join(cmd))
+            log = open(Path(self.dryrun_dir.name) / f"chain{i}.log", "w")
+            self.dryrun_procs.append((subprocess.Popen(
+                ["nice", "-n", "19", "timeout", "-k", "10",
+                 str(DRYRUN_TIMEOUT), "sh", "-c",
+                 " && ".join(cmds)], env=env, cwd=ROOT, stdout=log,
+                stderr=subprocess.STDOUT), log))
+        self.dryrun_t0 = time.perf_counter()
+
+    def stop_dry_runs(self):
+        """Stop any chain still running (every exit path calls it)."""
+        for proc, log in getattr(self, "dryrun_procs", ()):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        self.dryrun_procs = []
+        if getattr(self, "dryrun_dir", None) is not None:
+            self.dryrun_dir.cleanup()
+            self.dryrun_dir = None
+
+    def pod_mean(self):
+        """``compressed_cross_pod_mean_torch`` on ``POD_RANKS`` ranks
+        (``pod_mean_rank``), each joined with a timeout; every rank must
+        exit 0 and rank 0's plain check find every leaf equal."""
+        import multiprocessing
+        import tempfile
+        torch = self.torch
+        self.free_full_model()
+        if self.device.type == "cuda":
+            print(f"  device memory before: "
+                  f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+                  f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} "
+                  f"GiB reserved in this process")
+        backend = ("nccl" if not self.rehearse
+                   and torch.cuda.device_count() >= POD_RANKS else "gloo")
+        spawn = multiprocessing.get_context("spawn")
+        with tempfile.TemporaryDirectory() as tmp:
+            init = f"file://{tmp}/store"
+            procs = [spawn.Process(target=pod_mean_rank, args=(
+                r, POD_RANKS, init, tmp, backend, self.rehearse))
+                for r in range(POD_RANKS)]
+            t0 = time.perf_counter()
+            for p in procs:
+                p.start()
+            try:
+                for p in procs:
+                    p.join(max(1.0, POD_TIMEOUT - (time.perf_counter()
+                                                   - t0)))
+            finally:
+                for p in procs:
+                    if p.is_alive():
+                        p.kill()
+                        p.join()
+            codes = [p.exitcode for p in procs]
+            self.check(codes == [0] * POD_RANKS,
+                       f"pod-mean ranks exited {codes}")
+            ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                     for r in range(POD_RANKS)]
+        r0 = ranks[0]
+        print(f"  backend {backend}, {POD_RANKS} ranks: {POD_ARCH}'s "
+              f"{r0['leaves']} parameter shapes, {r0['values']} float32 "
+              f"values a rank; input devices "
+              f"{[r['input_devices'] for r in ranks]}, output devices "
+              f"{[r['output_devices'] for r in ranks]}")
+        print(f"  seconds (EF rounds + all_reduce + divide) "
+              f"{[round(r['seconds'], 3) for r in ranks]}; estimates "
+              f"{r0['estimate_bytes'] / 1e9:.3f} GB a rank summed as "
+              f"float32 (the int8 wire format would carry "
+              f"{r0['int8_wire_bytes'] / 1e9:.3f} GB); peak device memory "
+              f"{[r['peak_gib'] for r in ranks]} GiB; the plain check "
+              f"{r0['plain_seconds']:.1f} s: unequal mean leaves "
+              f"{len(r0['unequal_mean'])}, residual leaves "
+              f"{len(r0['unequal_res'])}")
+        self.paths["pod_mean"] = dict(backend=backend, ranks=ranks)
+        self.check(all(d.startswith(self.device.type)
+                       for r in ranks for d in r["input_devices"]
+                       + r["output_devices"]),
+                   "a pod-mean tensor left the card")
+        self.check(not r0["unequal_mean"] and not r0["unequal_res"],
+                   f"the mean or residuals differ from the plain version: "
+                   f"{r0['unequal_mean'][:4]} {r0['unequal_res'][:4]}")
+
+    def dry_run_results(self):
+        """Wait for the chains (their time limit), then read every
+        result; each must be ``ok``."""
+        for proc, _ in self.dryrun_procs:
+            proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT + 30 - (
+                time.perf_counter() - self.dryrun_t0)))
+        out = Path(self.dryrun_dir.name)
+        codes = [proc.returncode for proc, _ in self.dryrun_procs]
+        if codes != [0] * len(codes):
+            for log in sorted(out.glob("chain*.log")):
+                print(log.read_text()[-3000:])
+        self.check(codes == [0] * len(codes),
+                   f"dry-run chains exited {codes}")
+        results = {p.stem: json.loads(p.read_text())
+                   for p in sorted(out.glob("*.json"))}
+        bad = [k for k, r in results.items() if not r.get("ok")]
+        for k in bad:
+            print(f"  {k}: {results[k].get('error')}\n"
+                  f"{results[k].get('traceback', '')[-2500:]}")
+        self.check(not bad and len(results) == sum(map(len, DRYRUN_CHAINS)),
+                   f"dry-run cells failed or missing: {bad}, have "
+                   f"{sorted(results)}")
+        return results
+
+    def launch_dry_run(self):
+        """The full-depth plans of the depth-cut models and qwen3's
+        train_4k on the production mesh (``DRYRUN_CHAINS``)."""
+        from repro_torch.launch import roofline
+        results = self.dry_run_results()
+        print(f"  chains done {time.perf_counter() - self.dryrun_t0:.1f} s "
+              f"after their start")
+        rows = []
+        for key, r in results.items():
+            if key.endswith("_card"):
+                continue
+            mem = r["memory_analysis"]
+            arg_gb = mem["argument_size_in_bytes"] / 1e9
+            temp_gb = mem["temp_size_in_bytes"] / 1e9
+            counts = {k: c["count"] for k, c in r["collectives"].items()
+                      if c["count"]}
+            print(f"  {r['arch']} {r['shape']} ({r['layers']} layers, "
+                  f"{r['devices']} devices {r['mesh_shape']['shape']}): "
+                  f"per device {arg_gb:.3f} GB arguments + {temp_gb:.3f} GB "
+                  f"temp = {arg_gb + temp_gb:.3f} of the card's {CARD_GB} "
+                  f"GB; collectives {counts}; traced in {r['trace_s']} s; "
+                  f"local_map regions {r['local_regions']}")
+            rows.append(roofline.analyze_artifact_np(r))
+        print("\n".join("  " + line for line in
+                        roofline.format_table_np(rows).splitlines()))
+        self.paths["launch_dry_run"] = {
+            key: dict(arch=r["arch"], shape=r["shape"], layers=r["layers"],
+                      devices=r["devices"],
+                      memory_analysis=r["memory_analysis"],
+                      cost_analysis=r["cost_analysis"],
+                      collectives={k: c["count"] for k, c in
+                                   r["collectives"].items()},
+                      trace_s=r["trace_s"])
+            for key, r in results.items()}
+
+    def roofline_card(self):
+        """The (1, 1) dry runs of step 27's training step and step 16's
+        decode step against the walls those phases measured."""
+        from repro_torch.launch import roofline
+        results = self.dry_run_results()
+        walls = {"train": self.paths.get("train_step", {}).get("wall_s"),
+                 "decode": (self.paths.get("serving", {})
+                            .get("decode_step_ms", 0) / 1e3 or None)}
+        self.check(all(walls.values()), f"walls not recorded: {walls}")
+        self.paths["roofline"] = {}
+        for key, r in results.items():
+            if not key.endswith("_card"):
+                continue
+            row = roofline.analyze_artifact_np(r)
+            wall = walls[r["kind"]]
+            mfu = r["model_flops"] / r["devices"] / wall / \
+                roofline.PEAK_FLOPS
+            print(f"  {r['arch']} {r['kind']} B {r['global_batch']} x S "
+                  f"{r['seq_len']} ({r['microbatches']} microbatches) on "
+                  f"{self.smi}: compute {row['compute_s'] * 1e3:.3f} ms, "
+                  f"memory {row['memory_s'] * 1e3:.3f} ms, collective "
+                  f"{row['collective_s'] * 1e3:.3f} ms (bound "
+                  f"{row['bound_s'] * 1e3:.3f} ms, {row['dominant']}); "
+                  f"measured wall {wall * 1e3:.3f} ms = "
+                  f"{wall / row['bound_s']:.2f} x the bound; model FLOPs "
+                  f"{r['model_flops']:.4e}, MFU {100 * mfu:.2f}% of "
+                  f"{roofline.PEAK_FLOPS / 1e12:.0f} TFLOP/s")
+            self.paths["roofline"][r["kind"]] = dict(
+                row, wall_s=wall, wall_over_bound=wall / row["bound_s"],
+                mfu=mfu, card=self.smi)
+            self.check(row["bound_s"] > 0 and mfu > 0
+                       and wall >= row["bound_s"],
+                       f"roofline of {key}: wall {wall} s against {row}")
+        self.check(set(self.paths["roofline"]) == {"train", "decode"},
+                   "a (1, 1) dry run is missing")
+
     def report(self):
         kernels = []
         for name, source, replaces, dtype in (
@@ -3798,6 +4126,11 @@ def main(argv=None) -> int:
     smoke = Smoke(args.rehearse)
     smoke.phase("card", smoke.card)
     smoke.phase("build", smoke.build)
+    # the launch tooling's dry runs need no card: they run in the
+    # background from here (CPU only, at the lowest priority) and are
+    # collected after the cross-pod mean; every exit path stops them
+    atexit.register(smoke.stop_dry_runs)
+    smoke.start_dry_runs()
     smoke.phase("paper examples", smoke.paper)
     smoke.phase("psdsf_fill vs plain", smoke.fill_vs_plain)
     if "psdsf_fill vs plain" not in smoke.failed:
@@ -3882,6 +4215,13 @@ def main(argv=None) -> int:
     # the scheduler's fleet after pod failures
     smoke.phase("training loop", smoke.train_loop)
     smoke.phase("elastic re-solve", smoke.elastic_resolve)
+    # the launch tooling: the cross-pod mean, then the dry runs' results
+    try:
+        smoke.phase("pod mean", smoke.pod_mean)
+        smoke.phase("launch dry run", smoke.launch_dry_run)
+        smoke.phase("roofline on the card", smoke.roofline_card)
+    finally:
+        smoke.stop_dry_runs()
     if smoke.failed:
         print(f"chip_smoke: FAILED phases: {smoke.failed}", file=sys.stderr)
         return 1

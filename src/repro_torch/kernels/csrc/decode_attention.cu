@@ -39,14 +39,16 @@
 // shared memory, and the block writes one float32 partial (max, sum,
 // unnormalised (rep, D) accumulator) to scratch the wrapper allocates.
 // A second small kernel merges each (sequence, kv head)'s partials by
-// their log-sum-exp and rounds once to q's type. A second kernel, rather
-// than the last block of each (sequence, kv head) found with a device
-// counter, because it needs no counter zeroed before each launch and no
-// fence between the partials' writes and their reads; its grid of
-// B x Hkv x (rep D / 32) blocks of 8 warps, each warp a share of the
-// chunks, costs about one launch gap. What is left between
-// it and its bound: each warp waits for its loads before it computes on
-// them, so with ~4 blocks of 4 warps per SM it reads 1.4-2.4 TB/s
+// their log-sum-exp and rounds once to q's type; on request it also writes
+// each query head's log-sum-exp (natural log, float32), by which a
+// decode over a sequence-sharded cache merges its shards' outputs. A
+// second kernel, rather than the last block of each (sequence, kv head)
+// found with a device counter, because it needs no counter zeroed before
+// each launch and no fence between the partials' writes and their
+// reads; its grid of B x Hkv x (rep D / 32) blocks of 8 warps, each warp
+// a share of the chunks, costs about one launch gap. What is left
+// between it and its bound: each warp waits for its loads before it
+// computes on them, so with ~4 blocks of 4 warps per SM it reads 1.4-2.4 TB/s
 // (chip_smoke.py, H100 80GB HBM3 at 700 W); a cp.async or TMA ring in
 // shared memory would keep more bytes in flight.
 #include <cuda_bf16.h>
@@ -325,7 +327,7 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(
 template <typename T>
 __global__ void __launch_bounds__(NT_MERGE) decode_merge_kernel(
     const int* __restrict__ kv_len, const float* __restrict__ part,
-    T* __restrict__ o, Shape sh) {
+    T* __restrict__ o, float* __restrict__ lse, Shape sh) {
   constexpr int NW = NT_MERGE / MERGE_COLS;
   __shared__ float s_st[3][NW][MERGE_COLS];
   const int g = blockIdx.x, b = blockIdx.y;
@@ -368,6 +370,10 @@ __global__ void __launch_bounds__(NT_MERGE) decode_merge_kernel(
       }
     o[b * sh.osb + (g * rep + r) * sh.osh + cc] =
         from_f<T>(nv ? tn / td : 0.f);
+    // lse (B, Hq), contiguous: the scores are in log2 units
+    if (lse != nullptr && cc == 0)
+      lse[b * gridDim.x * rep + g * rep + r] =
+          nv ? (mm + log2f(td)) / LOG2E : -INFINITY;
   }
 }
 
@@ -377,8 +383,8 @@ size_t smem_bytes(int rep, int d) {
 
 template <typename T, int REP, int VEC, int NPK>
 int launch_rep(const T* q, const T* k, const T* v, const int* kv_len, T* o,
-               float* part, const Shape& sh, int batch, int hkv, int vec,
-               cudaStream_t stream) {
+               float* lse, float* part, const Shape& sh, int batch, int hkv,
+               int vec, cudaStream_t stream) {
   const size_t smem = smem_bytes(sh.rep, sh.d);
   auto split = decode_split_kernel<T, REP, VEC, NPK>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -390,30 +396,31 @@ int launch_rep(const T* q, const T* k, const T* v, const int* kv_len, T* o,
   if (err != cudaSuccess) return (int)err;
   const dim3 mgrid(hkv, batch, (sh.rep * sh.d + MERGE_COLS - 1) / MERGE_COLS);
   decode_merge_kernel<T><<<mgrid, NT_MERGE, 0, stream>>>(kv_len, part, o,
-                                                         sh);
+                                                         lse, sh);
   return (int)cudaGetLastError();
 }
 
 // NPK: 2 where 32 lanes of VEC columns do not cover D (VEC 4 past D 128)
 template <typename T, int REP, int VEC>
 int launch_npk(const T* q, const T* k, const T* v, const int* kv_len, T* o,
-               float* part, const Shape& sh, int batch, int hkv, int vec,
-               cudaStream_t stream) {
+               float* lse, float* part, const Shape& sh, int batch, int hkv,
+               int vec, cudaStream_t stream) {
   if constexpr (32 * VEC < MAX_D) {
     if (sh.lpr * VEC < sh.d)
-      return launch_rep<T, REP, VEC, 2>(q, k, v, kv_len, o, part, sh, batch,
-                                        hkv, vec, stream);
+      return launch_rep<T, REP, VEC, 2>(q, k, v, kv_len, o, lse, part, sh,
+                                        batch, hkv, vec, stream);
   }
-  return launch_rep<T, REP, VEC, 1>(q, k, v, kv_len, o, part, sh, batch, hkv,
-                                    vec, stream);
+  return launch_rep<T, REP, VEC, 1>(q, k, v, kv_len, o, lse, part, sh, batch,
+                                    hkv, vec, stream);
 }
 
 // VEC: 16 bytes a lane, but 8 for bf16 query groups of 8 or more, whose
 // per-lane query and accumulator registers grow with the group
 template <typename T>
 int launch(const T* q, const T* k, const T* v, const int* kv_len, T* o,
-           float* part, const long long* st, int batch, int s_max, int hq,
-           int hkv, int d, float scale, int chunk, void* stream) {
+           float* lse, float* part, const long long* st, int batch,
+           int s_max, int hq, int hkv, int d, float scale, int chunk,
+           void* stream) {
   if (batch <= 0 || s_max <= 0 || hq <= 0 || hkv <= 0 || hq % hkv ||
       hq / hkv > MAX_REP || d <= 0 || d % 8 || d > MAX_D || batch > 65535 ||
       hkv > 65535 || chunk <= 0)
@@ -441,8 +448,8 @@ int launch(const T* q, const T* k, const T* v, const int* kv_len, T* o,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   constexpr int V16 = 16 / sizeof(T);
 #define DECODE_CASE(RR, VV)                                                  \
-  return launch_npk<T, RR, VV>(q, k, v, kv_len, o, part, sh, batch, hkv,    \
-                               vec, s)
+  return launch_npk<T, RR, VV>(q, k, v, kv_len, o, lse, part, sh, batch,   \
+                               hkv, vec, s)
   if (rep <= 1) DECODE_CASE(1, V16);
   if (rep <= 2) DECODE_CASE(2, V16);
   if (rep <= 4) DECODE_CASE(4, V16);
@@ -454,27 +461,31 @@ int launch(const T* q, const T* k, const T* v, const int* kv_len, T* o,
 }  // namespace
 
 // strides: 10 values in elements: q (batch, head); k (batch, seq, head);
-// v (batch, seq, head); o (batch, head). Head dims have stride 1. part:
+// v (batch, seq, head); o (batch, head). Head dims have stride 1. lse:
+// null, or a contiguous float32 (batch, Hq) for each head's log-sum-exp
+// of its scaled scores (-inf at kv_len 0). part:
 // float32 scratch of B * Hkv * ceil(S_max / chunk) * (Hq / Hkv) * (D + 2)
 // values.
 extern "C" int decode_attention_f32(const float* q, const float* k,
                                     const float* v, const int* kv_len,
-                                    float* o, float* part,
+                                    float* o, float* lse, float* part,
                                     const long long* strides, int batch,
                                     int s_max, int hq, int hkv, int d,
                                     float scale, int chunk, void* stream) {
-  return launch<float>(q, k, v, kv_len, o, part, strides, batch, s_max, hq,
-                       hkv, d, scale, chunk, stream);
+  return launch<float>(q, k, v, kv_len, o, lse, part, strides, batch, s_max,
+                       hq, hkv, d, scale, chunk, stream);
 }
 
 extern "C" int decode_attention_bf16(const __nv_bfloat16* q,
                                      const __nv_bfloat16* k,
                                      const __nv_bfloat16* v,
                                      const int* kv_len, __nv_bfloat16* o,
-                                     float* part, const long long* strides,
+                                     float* lse, float* part,
+                                     const long long* strides,
                                      int batch, int s_max, int hq, int hkv,
                                      int d, float scale, int chunk,
                                      void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, kv_len, o, part, strides, batch,
-                               s_max, hq, hkv, d, scale, chunk, stream);
+  return launch<__nv_bfloat16>(q, k, v, kv_len, o, lse, part, strides,
+                               batch, s_max, hq, hkv, d, scale, chunk,
+                               stream);
 }

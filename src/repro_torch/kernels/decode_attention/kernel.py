@@ -7,6 +7,13 @@ with ``nvcc`` and loaded through ``ctypes`` on the first call with a CUDA
 tensor; CPU tensors take the plain version in ``ref.py``, and nothing else
 does. ``decode_attention.launches`` counts the kernel's launches.
 
+On CPU tensors the plain version runs as one operator,
+``torch.ops.repro_torch.decode_attention_plain`` (``_plain_torch``), with a
+fake implementation and a FLOP formula: a trace under a ``FakeTensorMode``
+(``launch/dryrun.py``) sees the kernel's inputs, outputs and operations,
+not the plain version's float32 copies of the cache. The lengths are data
+a trace cannot read, so it counts the whole cache.
+
 Split-KV: every (sequence, kv head)'s cache rows are cut into chunks of
 :func:`chunk_rows` rows, one block each, whose float32 partials (max, sum,
 accumulator) a second kernel merges by their log-sum-exp; the wrapper
@@ -19,6 +26,8 @@ import functools
 import math
 
 import torch
+
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import _build
 from . import ref
@@ -47,15 +56,18 @@ def chunk_rows(batch: int, s_max: int, hkv: int) -> int:
 
 
 def decode_attention(q, k_cache, v_cache, kv_len, *,
-                     sm_scale: float | None = None):
+                     sm_scale: float | None = None, return_lse: bool = False):
     """q: (B, Hq, D); k_cache, v_cache: (B, S_max, Hkv, D), one dtype
     (float32 or bfloat16) with q, each with a contiguous head dim (other
     strides free); kv_len: (B,) int32, contiguous, on the same device, read
     there (no host sync) and clamped to [0, S_max]. Returns a contiguous
-    (B, Hq, D) tensor of q's dtype."""
+    (B, Hq, D) tensor of q's dtype; with ``return_lse`` also each head's
+    log-sum-exp of its scaled scores over the valid rows, a contiguous
+    float32 (B, Hq) tensor (-inf where kv_len is 0)."""
     if q.device.type == "cpu":
-        return ref.decode_attention(q, k_cache, v_cache, kv_len,
-                                    sm_scale=sm_scale)
+        outs = _plain_torch(q, k_cache, v_cache, kv_len, sm_scale,
+                            return_lse)
+        return tuple(outs) if return_lse else outs[0]
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention runs on cuda or cpu: {q.device}")
     if q.dim() != 3:
@@ -95,8 +107,10 @@ def decode_attention(q, k_cache, v_cache, kv_len, *,
     if s_max == 0:
         raise ValueError("decode_attention needs a cache of at least one row")
     out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, hq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if b == 0 or hq == 0:
-        return out
+        return (out, lse) if return_lse else out
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     chunk = chunk_rows(b, s_max, hkv)
@@ -109,23 +123,53 @@ def decode_attention(q, k_cache, v_cache, kv_len, *,
     with torch.cuda.device(q.device):
         err = _entry(_ENTRY[q.dtype])(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            kv_len.data_ptr(), out.data_ptr(), part.data_ptr(), strides, b,
-            s_max, hq, hkv, d, float(sm_scale), chunk,
+            kv_len.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if return_lse else None, part.data_ptr(), strides,
+            b, s_max, hq, hkv, d, float(sm_scale), chunk,
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")
     decode_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 decode_attention.launches = 0
 
 
+@torch.library.custom_op(
+    "repro_torch::decode_attention_plain", mutates_args=(),
+    schema="(Tensor q, Tensor k_cache, Tensor v_cache, Tensor kv_len, "
+           "float? sm_scale, bool return_lse) -> Tensor[]")
+def _plain_torch(q, k_cache, v_cache, kv_len, sm_scale, return_lse):
+    """The plain version (``ref.py``) as one operator: [out] or [out,
+    lse]."""
+    outs = ref.decode_attention(q, k_cache, v_cache, kv_len,
+                                sm_scale=sm_scale, return_lse=return_lse)
+    return list(outs) if return_lse else [outs]
+
+
+@_plain_torch.register_fake
+def _plain_fake_torch(q, k_cache, v_cache, kv_len, sm_scale, return_lse):
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if not return_lse:
+        return [out]
+    return [out, torch.empty(q.shape[:2], dtype=torch.float32,
+                             device=q.device)]
+
+
+@register_flop_formula(torch.ops.repro_torch.decode_attention_plain)
+def _plain_flops_np(q_shape, k_shape, *args, **kwargs) -> int:
+    """The kernel's operations over the whole cache: q.k and p.v, 4 D a
+    (query head, row)."""
+    b, hq, d = q_shape
+    return 4 * b * hq * d * k_shape[1]
+
+
 @functools.lru_cache(maxsize=None)
 def _entry(name):
     fn = getattr(_build.load("decode_attention"), name)
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.POINTER(ctypes.c_longlong)] \
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_longlong)] \
         + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

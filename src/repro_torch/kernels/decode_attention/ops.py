@@ -11,12 +11,17 @@ from .kernel import decode_attention as _kernel
 
 
 def decode_attention(q, k_cache, v_cache, kv_len, *,
-                     sm_scale: float | None = None):
+                     sm_scale: float | None = None, return_lse: bool = False):
     """q: (B, 1, Hq, D); k_cache, v_cache: (B, S_max, Hkv, D); kv_len: (B,)
     or () int tensor (valid cache rows per sequence, on q's device).
-    Returns (B, 1, Hq, D) in q's dtype; the caches must share it."""
+    Returns (B, 1, Hq, D) in q's dtype; the caches must share it. With
+    ``return_lse`` also the heads' log-sum-exps, float32 (B, Hq)."""
     b = q.shape[0]
     kv_len = torch.as_tensor(kv_len, device=q.device).to(torch.int32)
     kv_len = kv_len.expand(b).contiguous()
+    if return_lse:
+        out, lse = _kernel(q[:, 0], k_cache, v_cache, kv_len,
+                           sm_scale=sm_scale, return_lse=True)
+        return out[:, None], lse
     out = _kernel(q[:, 0], k_cache, v_cache, kv_len, sm_scale=sm_scale)
     return out[:, None]

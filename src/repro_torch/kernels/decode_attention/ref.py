@@ -13,9 +13,11 @@ import torch
 
 
 def decode_attention(q, k_cache, v_cache, kv_len, *,
-                     sm_scale: float | None = None):
+                     sm_scale: float | None = None, return_lse: bool = False):
     """q: (B, Hq, D); k_cache, v_cache: (B, S_max, Hkv, D); kv_len: (B,)
-    int. Returns (B, Hq, D); query head h reads kv head h // (Hq // Hkv)."""
+    int. Returns (B, Hq, D); query head h reads kv head h // (Hq // Hkv).
+    With ``return_lse`` also each head's log-sum-exp of its scaled, masked
+    scores, float32 (B, Hq) (-inf at length 0)."""
     b, hq, d = q.shape
     s_max, hkv = k_cache.shape[1], k_cache.shape[2]
     rep = hq // hkv
@@ -29,4 +31,7 @@ def decode_attention(q, k_cache, v_cache, kv_len, *,
     probs = torch.softmax(scores, dim=-1)
     probs = probs.masked_fill((length == 0)[:, None, None, None], 0.0)
     out = torch.einsum("bhrk,bkhd->bhrd", probs, v_cache.float())
-    return out.reshape(b, hq, d).to(q.dtype)
+    out = out.reshape(b, hq, d).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(scores, dim=-1).reshape(b, hq)
+    return out

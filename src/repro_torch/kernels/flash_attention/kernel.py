@@ -16,6 +16,12 @@ later redesign). ``flash_attention.launches`` counts every launch,
 ``flash_attention.hopper_launches`` and ``flash_attention.cuda_core_launches``
 each body's, ``flash_attention.lse_launches`` those that also wrote the
 rows' log-sum-exp (``return_lse=True``, the training path's forward).
+
+On CPU tensors the plain version runs as one operator,
+``torch.ops.repro_torch.flash_attention_plain`` (``_plain_torch``), with a
+fake implementation and a FLOP formula: a trace under a ``FakeTensorMode``
+(``launch/dryrun.py``) sees the kernel's inputs, outputs and operations
+(the causal half of the products), not the plain version's S x S scores.
 """
 from __future__ import annotations
 
@@ -24,6 +30,8 @@ import functools
 import math
 
 import torch
+
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import _build
 from . import ref
@@ -79,8 +87,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     scores, a contiguous float32 (B, Hq, S) tensor (``m + log(l)``, as the
     reference's ``_flash_fwd_scan`` returns it)."""
     if q.device.type == "cpu":
-        return ref.flash_attention(q, k, v, causal=causal, sm_scale=sm_scale,
-                                   return_lse=return_lse)
+        outs = _plain_torch(q, k, v, causal, sm_scale, return_lse)
+        return tuple(outs) if return_lse else outs[0]
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu: {q.device}")
     if q.dim() != 4:
@@ -123,8 +131,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse.data_ptr() if return_lse else None, strides, b, s, hq, hkv, d, float(sm_scale),
-                int(bool(causal)))
+                lse.data_ptr() if return_lse else None, strides, b, s, hq,
+                hkv, d, float(sm_scale), int(bool(causal)))
         if hopper:
             err = _entry("flash_attention_bf16_hopper")(
                 *args, block_rows(b, s, hq), stream)
@@ -148,6 +156,38 @@ flash_attention.launches = 0
 flash_attention.hopper_launches = 0
 flash_attention.cuda_core_launches = 0
 flash_attention.lse_launches = 0
+
+
+@torch.library.custom_op(
+    "repro_torch::flash_attention_plain", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, bool causal, float? sm_scale, "
+           "bool return_lse) -> Tensor[]")
+def _plain_torch(q, k, v, causal, sm_scale, return_lse):
+    """The plain version (``ref.py``) as one operator: [out] or [out,
+    lse]."""
+    outs = ref.flash_attention(q, k, v, causal=causal, sm_scale=sm_scale,
+                               return_lse=return_lse)
+    return list(outs) if return_lse else [outs]
+
+
+@_plain_torch.register_fake
+def _plain_fake_torch(q, k, v, causal, sm_scale, return_lse):
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if not return_lse:
+        return [out]
+    b, s, hq, _ = q.shape
+    return [out, torch.empty((b, hq, s), dtype=torch.float32,
+                             device=q.device)]
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_plain)
+def _plain_flops_np(q_shape, k_shape, v_shape, causal, *args,
+                    **kwargs) -> int:
+    """The kernel's operations: q.k and p.v, 4 D a (query head, key) pair
+    it attends, the causal pairs only where ``causal``."""
+    b, s, hq, d = q_shape
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return 4 * b * hq * d * pairs
 
 
 @functools.lru_cache(maxsize=None)

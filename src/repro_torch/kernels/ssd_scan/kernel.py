@@ -8,6 +8,12 @@ does. ``ssd_scan.launches`` counts the wrapper's launches: one a call,
 whose bfloat16 body runs three CUDA kernels (the chunk scores and deltas,
 the state pass, the outputs) on scratch the wrapper allocates
 (:func:`scratch_size`), and whose float32 body runs one.
+
+On CPU tensors the plain version runs as one operator,
+``torch.ops.repro_torch.ssd_scan_plain`` (``_plain_torch``), with a fake
+implementation and a FLOP formula: a trace under a ``FakeTensorMode``
+(``launch/dryrun.py``) sees the kernel's inputs, outputs and operations,
+not the plain version's float32 intermediates.
 """
 from __future__ import annotations
 
@@ -15,6 +21,8 @@ import ctypes
 import functools
 
 import torch
+
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import _build
 from . import ref
@@ -44,12 +52,10 @@ def ssd_scan(x, dt, a, b_mat, c_mat, *, chunk: int = 128, init_state=None,
     write y into, or None. Returns (y, final state: a contiguous (B, H, P,
     N) float32 tensor)."""
     if x.device.type == "cpu":
-        y, state = ref.ssd_scan(x, dt, a, b_mat, c_mat, chunk=chunk,
-                                init_state=init_state)
-        if out is not None:
-            out.copy_(y)
-            y = out
-        return y, state
+        if out is None:
+            out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+        return out, _plain_torch(x, dt, a, b_mat, c_mat, chunk, init_state,
+                                 out)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cuda or cpu: {x.device}")
     if x.dim() != 4:
@@ -120,6 +126,39 @@ def ssd_scan(x, dt, a, b_mat, c_mat, *, chunk: int = 128, init_state=None,
 
 
 ssd_scan.launches = 0
+
+
+@torch.library.custom_op(
+    "repro_torch::ssd_scan_plain", mutates_args=("out",),
+    schema="(Tensor x, Tensor dt, Tensor a, Tensor b_mat, Tensor c_mat, "
+           "int chunk, Tensor? init_state, Tensor(a!) out) -> Tensor")
+def _plain_torch(x, dt, a, b_mat, c_mat, chunk, init_state, out):
+    """The plain version (``ref.py``) as one operator: writes y into
+    ``out`` and returns the final state."""
+    y, state = ref.ssd_scan(x, dt, a, b_mat, c_mat, chunk=chunk,
+                            init_state=init_state)
+    out.copy_(y)
+    return state
+
+
+@_plain_torch.register_fake
+def _plain_fake_torch(x, dt, a, b_mat, c_mat, chunk, init_state, out):
+    b, h, _, p = x.shape
+    return torch.empty((b, h, p, b_mat.shape[2]), dtype=torch.float32,
+                       device=x.device)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_scan_plain)
+def _plain_flops_np(x_shape, dt_shape, a_shape, b_shape, c_shape, chunk,
+                    *args, **kwargs) -> int:
+    """The kernel's operations, chunk by chunk (the ragged last one at its
+    own length c): the causal C B^T, shared by the heads, c (c + 1) N; per
+    head the causal W x, c (c + 1) P, and C state^T and x^T B, 4 c N P."""
+    b, h, s, p = x_shape
+    n = b_shape[2]
+    lengths = [chunk] * (s // chunk) + ([s % chunk] if s % chunk else [])
+    return b * sum(c * (c + 1) * n + h * (c * (c + 1) * p + 4 * c * n * p)
+                   for c in lengths)
 
 
 @functools.lru_cache(maxsize=None)

@@ -17,16 +17,27 @@ Training (``attention_train_torch``) routes as the reference's
 writes the rows' log-sum-exp) and whose backward is the reference's
 ``bwd`` in plain torch, one kv block at a time; else ``_attend`` under
 autograd. Sliding windows and a quantized cache wait for ROADMAP item 13.
+
+On a mesh (DTensor params, the launcher's ``cfg.dp_axes``/``tp_axis``
+set) q, k and v are constrained as the reference constrains them, each
+device runs the kernel on its own batch and head shards
+(``_sharded_heads_torch``, a ``local_map`` region), and a decode step runs
+the decode kernel on each device's cache shard, merging a
+sequence-sharded cache's chunks by their log-sum-exps (split-KV,
+``_decode_sharded_torch``).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.distributed.tensor import DTensor, Shard
 
 from ..kernels.decode_attention.ops import decode_attention
 from ..kernels.flash_attention.ops import flash_attention
-from .common import RMSNorm, apply_mrope, apply_rope, dense_init
+from .common import (RMSNorm, apply_mrope, apply_rope, constrain_torch,
+                     dense_init, local_region_torch, shard_axes_torch,
+                     unshard_dp_torch)
 from .config import ModelConfig
 
 NEG_INF = -1e30
@@ -80,16 +91,20 @@ class Attention(torch.nn.Module):
 
 def _project_qkv(cfg: ModelConfig, p: Attention, x, positions):
     b, s, _ = x.shape
-    q = x @ p.wq
-    k = x @ p.wk
-    v = x @ p.wv
+    q = x @ unshard_dp_torch(p.wq, cfg)
+    k = x @ unshard_dp_torch(p.wk, cfg)
+    v = x @ unshard_dp_torch(p.wv, cfg)
     if cfg.qkv_bias:
         q = q + p.bq
         k = k + p.bk
         v = v + p.bv
-    q = q.view(b, s, cfg.num_heads, cfg.head_dim)
-    k = k.view(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = v.view(b, s, cfg.num_kv_heads, cfg.head_dim)
+    heads = (1, 1, cfg.head_dim)      # shard whole heads, or replicate
+    q = constrain_torch(q, cfg, "dp", None, "tp", granule=heads)
+    k = constrain_torch(k, cfg, "dp", None, "tp", granule=heads)
+    v = constrain_torch(v, cfg, "dp", None, "tp", granule=heads)
+    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = p.q_norm(q)
         k = p.k_norm(k)
@@ -197,21 +212,153 @@ def _attend_any_torch(cfg: ModelConfig, q, k, v):
     return _attend(cfg, q, k, v, 0)
 
 
+def _sharded_heads_torch(name: str, cfg: ModelConfig, fn, q, k, v):
+    """``fn(q, k, v)`` (a causal attention of (B, S, H, D) tensors); on
+    DTensors, in ``local_region_torch``: batch over the dp axes, heads over
+    the tp axis where the kv heads divide it, else (the q heads dividing
+    it) with k and v repeated to the q heads first, as tensor-parallel
+    GQA replicates kv heads; else heads replicated. Each device then runs
+    the kernel (its plain version on CPU tensors) on its own shards."""
+    if not isinstance(q, DTensor):
+        return fn(q, k, v)
+    mesh = q.device_mesh
+    b, _, hq, _ = q.shape
+    dp = shard_axes_torch(cfg, mesh, "dp", b)
+    tp = shard_axes_torch(cfg, mesh, "tp", k.shape[2])
+    if not tp and shard_axes_torch(cfg, mesh, "tp", hq):
+        tp = shard_axes_torch(cfg, mesh, "tp", hq)
+        rep = hq // k.shape[2]
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+        name += " (kv heads repeated)"
+    lay = (dp, (), tp, ())
+    return local_region_torch(name, fn, (lay, lay, lay), (lay,), q, k, v)
+
+
 def attention_train_torch(cfg: ModelConfig, p: Attention, x, positions):
     """Full-sequence causal attention with autograd (training); x: (B, S,
     D). The reference's ``attention_train``."""
     q, k, v = _project_qkv(cfg, p, x, positions)
-    out = _attend_any_torch(cfg, q, k, v)
-    return out.reshape(out.shape[0], out.shape[1], -1) @ p.wo
+    out = _sharded_heads_torch(
+        "attention_train", cfg,
+        lambda q, k, v: _attend_any_torch(cfg, q, k, v), q, k, v)
+    return out.reshape(out.shape[0], out.shape[1], -1) @ unshard_dp_torch(
+        p.wo, cfg)
 
 
 def attention_prefill(cfg: ModelConfig, p: Attention, x, positions):
     """Full-sequence causal attention from position 0; x: (B, S, D).
     Returns (y, {"k", "v"}: this layer's (B, S, Hkv, D) cache)."""
     q, k, v = _project_qkv(cfg, p, x, positions)
-    out = flash_attention(q, k, v, causal=True)
-    y = out.reshape(out.shape[0], out.shape[1], -1) @ p.wo
+    out = _sharded_heads_torch("flash_attention", cfg, flash_attention, q,
+                               k, v)
+    y = out.reshape(out.shape[0], out.shape[1], -1) @ unshard_dp_torch(
+        p.wo, cfg)
     return y, {"k": k, "v": v}
+
+
+def _cache_axes_torch(cache_k):
+    """(batch axes, sequence axes) of a DTensor cache (B, S, Hkv, D); its
+    head and head-dim dims must be whole on each device."""
+    mesh = cache_k.device_mesh
+    axes = {0: (), 1: ()}
+    for name, pl in zip(mesh.mesh_dim_names, cache_k.placements):
+        if isinstance(pl, Shard):
+            if pl.dim not in axes:
+                raise NotImplementedError(
+                    f"a decode cache sharded on dim {pl.dim} (heads or head "
+                    f"dim): the sharded decode splits batch and sequence "
+                    f"only (ShardingOptions.decode_cache_shard='seq')")
+            axes[pl.dim] += (name,)
+    return axes[0], axes[1]
+
+
+def _decode_rows_torch(q, k_new, v_new, ck, cv, pos):
+    """One decode step on whole cache rows: writes row ``pos`` of each
+    sequence in place and runs the decode kernel (see
+    ``attention_decode``). Returns (B, 1, Hq, D) in q's dtype."""
+    b, s_max = ck.shape[0], ck.shape[1]
+    inside = (pos < s_max)[:, None, None]
+    rows = torch.arange(b, device=q.device)
+    idx = pos.clamp(max=s_max - 1).long()
+    for c, new in ((ck, k_new), (cv, v_new)):
+        c[rows, idx] = torch.where(inside, new[:, 0].to(c.dtype), c[rows, idx])
+    kv_len = (pos + 1).clamp(max=s_max).to(torch.int32)
+    return decode_attention(q, ck, cv, kv_len)
+
+
+def _decode_sharded_torch(q, k_new, v_new, cache, pos):
+    """The decode step on a DTensor cache. Sharded on batch only, each
+    device runs ``_decode_rows_torch`` on its own sequences. Sharded on
+    the sequence too (split-KV, flash-decoding), each device writes the new
+    row where it falls in its chunk and runs the decode kernel on its chunk
+    (``_decode_chunk_torch``), which also gives each head's log-sum-exp;
+    the chunks' outputs are then merged by their log-sum-exps with DTensor
+    reductions over the sequence axes. Returns (B, 1, Hq, D) in q's
+    dtype."""
+    mesh = cache["k"].device_mesh
+    dp, seq = _cache_axes_torch(cache["k"])
+    row = (dp, (), (), ())
+    if not seq:
+        return local_region_torch(
+            "decode_attention", _decode_rows_torch, (row,) * 5 + ((dp,),),
+            (row,), q, k_new, v_new, cache["k"], cache["v"], pos)
+    s_max = cache["k"].shape[1]
+    n_chunks = 1
+    for a in seq:
+        n_chunks *= mesh.size(mesh.mesh_dim_names.index(a))
+    chunk = s_max // n_chunks
+
+    def part(q, k_new, v_new, ck, cv, pos):
+        coord = mesh.get_coordinate() or [0] * mesh.ndim
+        idx = 0
+        for a in seq:
+            i = mesh.mesh_dim_names.index(a)
+            idx = idx * mesh.size(i) + coord[i]
+        return _decode_chunk_torch(q, k_new, v_new, ck, cv, pos,
+                                   idx * chunk, s_max)
+
+    kv = (dp, seq, (), ())
+    o, lse = local_region_torch(
+        "decode_attention (split-KV)", part, (row, row, row, kv, kv, (dp,)),
+        ((seq, dp, (), (), ()), (seq, dp, ())),
+        q, k_new, v_new, cache["k"], cache["v"], pos)
+    return merge_chunks_torch(o, lse).to(q.dtype)
+
+
+def _decode_chunk_torch(q, k_new, v_new, ck, cv, pos, c0: int, s_max: int):
+    """One device's part of the split-KV decode on local tensors: q (B, 1,
+    Hq, D), the new rows (B, 1, Hkv, D), its cache chunk (B, C, Hkv, D)
+    holding rows [c0, c0 + C), pos (B,). Writes row ``pos`` where it falls
+    in the chunk (a row past the cache is written nowhere, as on one card)
+    and runs the decode kernel over the chunk's valid rows (< min(pos + 1,
+    S_max)). Returns (out (1, B, 1, Hq, D), lse (1, B, Hq))."""
+    b, c = ck.shape[0], ck.shape[1]
+    rows = torch.arange(b, device=q.device)
+    local = pos.long() - c0
+    inside = ((local >= 0) & (local < c) & (pos < s_max))[:, None, None]
+    idx = local.clamp(0, c - 1)
+    for cache, new in ((ck, k_new), (cv, v_new)):
+        cache[rows, idx] = torch.where(inside, new[:, 0].to(cache.dtype),
+                                       cache[rows, idx])
+    kv_len = ((pos.long() + 1).clamp(max=s_max) - c0).clamp(0, c)
+    out, lse = decode_attention(q, ck, cv, kv_len.to(torch.int32),
+                                return_lse=True)
+    return out[None], lse[None]
+
+
+def merge_chunks_torch(o, lse):
+    """Attention over the union of K chunks from each chunk's output o (K,
+    B, 1, Hq, D) and log-sum-exp lse (K, B, Hq): the outputs weighed by
+    exp(lse - max lse), in float32 (a chunk with no valid row, lse -inf,
+    weighs 0; a sequence with none anywhere gives 0)."""
+    m_all = lse.amax(dim=0)
+    w = torch.exp(lse - m_all)
+    w = torch.where(torch.isfinite(lse), w, 0.0)
+    l_all = w.sum(dim=0)
+    o_all = (o.float() * w[:, :, None, :, None]).sum(dim=0)
+    return torch.where(l_all[:, None, :, None] > 0,
+                       o_all / l_all.clamp_min(1e-30)[:, None, :, None], 0.0)
 
 
 def attention_decode(cfg: ModelConfig, p: Attention, x, cache: dict, pos):
@@ -229,14 +376,10 @@ def attention_decode(cfg: ModelConfig, p: Attention, x, cache: dict, pos):
     if cfg.rope_type == "mrope":        # (3, B, 1): t == h == w
         positions = positions[None].expand(3, b, 1)
     q, k_new, v_new = _project_qkv(cfg, p, x, positions)
-    s_max = cache["k"].shape[1]
-    inside = (pos < s_max)[:, None, None]
-    rows = torch.arange(b, device=x.device)
-    idx = pos.clamp(max=s_max - 1).long()
-    for key, new in (("k", k_new), ("v", v_new)):
-        c = cache[key]
-        c[rows, idx] = torch.where(inside, new[:, 0].to(c.dtype), c[rows, idx])
-    kv_len = (pos + 1).clamp(max=s_max).to(torch.int32)
-    out = decode_attention(q, cache["k"], cache["v"], kv_len)
-    y = out.reshape(b, 1, -1) @ p.wo
+    if isinstance(cache["k"], DTensor):
+        out = _decode_sharded_torch(q, k_new, v_new, cache, pos)
+    else:
+        out = _decode_rows_torch(q, k_new, v_new, cache["k"], cache["v"],
+                                 pos)
+    y = out.reshape(b, 1, -1) @ unshard_dp_torch(p.wo, cfg)
     return y, cache

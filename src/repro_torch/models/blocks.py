@@ -21,7 +21,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .attention import (Attention, attention_decode, attention_prefill,
                         attention_train_torch)
-from .common import RMSNorm
+from .common import RMSNorm, constrain_torch
 from .config import ModelConfig
 from .mlp import MLP
 from .moe import MoE, moe_apply_torch
@@ -60,7 +60,12 @@ class Block(torch.nn.Module):
             self.moe = MoE(cfg, generator, dtype, device)
 
     def _mlp(self, h):
-        """(h + mlp(norm(h)), the MoE aux loss or None)."""
+        """(h + mlp(norm(h)), the MoE aux loss or None). On a mesh the
+        residual is first constrained to (dp, None, None), a hint the
+        reference does not need: GSPMD plans the whole graph, DTensor op
+        by op, and would carry the mixer's partial sum into the norm and
+        replicate the MLP's products."""
+        h = constrain_torch(h, self.cfg, "dp", None, None)
         if self.mlp_kind == "dense":
             return h + self.mlp(self.norm_mlp(h)), None
         if self.mlp_kind == "moe":
@@ -71,6 +76,7 @@ class Block(torch.nn.Module):
     def train_torch(self, h, positions):
         """The training forward, autograd on: returns (h, this layer's MoE
         aux loss, a float32 scalar, 0 without an MoE)."""
+        h = constrain_torch(h, self.cfg, "dp", None, None)
         hn = self.norm_mixer(h)
         if self.mixer == "attn":
             h = h + attention_train_torch(self.cfg, self.attn, hn, positions)
@@ -84,6 +90,7 @@ class Block(torch.nn.Module):
     def prefill(self, h, positions):
         """Returns (h, this layer's cache: {"k", "v"} for attention,
         {"conv", "ssm"} for mamba)."""
+        h = constrain_torch(h, self.cfg, "dp", None, None)
         hn = self.norm_mixer(h)
         if self.mixer == "attn":
             y, cache = attention_prefill(self.cfg, self.attn, hn, positions)
@@ -95,6 +102,7 @@ class Block(torch.nn.Module):
     def decode(self, h, cache, pos):
         """One token; ``cache`` is updated in place (mamba ignores
         ``pos``). Returns (h, cache)."""
+        h = constrain_torch(h, self.cfg, "dp", None, None)
         hn = self.norm_mixer(h)
         if self.mixer == "attn":
             y, cache = attention_decode(self.cfg, self.attn, hn, cache, pos)

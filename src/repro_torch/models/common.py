@@ -3,8 +3,11 @@ M-RoPE — the port of ``repro/models/common.py``.
 
 The same mixed-precision policy as the reference: params are stored in
 ``cfg.param_dtype``, matmuls run in the params' dtype, reductions (norms,
-softmax) and the RoPE rotation run in float32. ``constrain`` (sharding
-constraints) does not come across: the port runs on one card.
+softmax) and the RoPE rotation run in float32. ``constrain_torch`` is the
+reference's ``constrain``: on a DTensor, with the launcher's
+``cfg.dp_axes``/``cfg.tp_axis`` set (``launch/dryrun.py`` and a sharded
+run set them), it redistributes the activation to the placements its
+logical dims name; on one card it returns its input.
 """
 from __future__ import annotations
 
@@ -12,11 +15,155 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16,
            "float8_e4m3fn": torch.float8_e4m3fn,
            "float8_e5m2": torch.float8_e5m2}
+
+
+def shard_axes_torch(cfg, mesh, logical, size: int, granule: int = 1):
+    """The mesh axes a dim of ``size`` with logical name ``logical``
+    (``"dp"``, ``"tp"`` or None) shards over under ``cfg``'s launcher
+    axes: the longest prefix of them whose product, times ``granule``,
+    divides ``size`` (``launch/sharding.py``'s rule for specs)."""
+    names = mesh.mesh_dim_names
+    axes = (tuple(cfg.dp_axes) if logical == "dp"
+            else (cfg.tp_axis,) if logical == "tp" and cfg.tp_axis else ())
+    axes = tuple(a for a in axes if a in names)
+    while axes and size % (granule * math.prod(
+            mesh.size(names.index(a)) for a in axes)):
+        axes = axes[:-1]
+    return axes
+
+
+def placements_of_torch(mesh, layout):
+    """DTensor placements for ``layout``, a tuple with the mesh axes of
+    each tensor dim: a mesh dim shards the tensor dim that names it, else
+    replicates (a mesh dim of size 1 always replicates: DTensor will not
+    view a dim sharded one way)."""
+    placements = [Replicate()] * mesh.ndim
+    for d, axes in enumerate(layout):
+        for a in axes:
+            i = mesh.mesh_dim_names.index(a)
+            if mesh.size(i) > 1:
+                placements[i] = Shard(d)
+    return tuple(placements)
+
+
+def unshard_dp_torch(w, cfg):
+    """A weight as a layer uses it: on a DTensor with ``cfg.dp_axes`` set,
+    gathered over the data-parallel axes (ZeRO-3 / FSDP: the backward
+    reduce-scatters its gradient), its tensor-parallel shards kept; else
+    ``w`` itself. GSPMD picks this plan for the reference; DTensor's cost
+    model, left alone, may shard the contraction instead and replicate a
+    matrix product's tokens."""
+    if not cfg.dp_axes:
+        return w
+    if not isinstance(w, DTensor):
+        return w
+    names = w.device_mesh.mesh_dim_names
+    placements = tuple(Replicate() if isinstance(pl, Shard)
+                       and names[i] in cfg.dp_axes else pl
+                       for i, pl in enumerate(w.placements))
+    if placements == tuple(w.placements):
+        return w
+    return w.redistribute(w.device_mesh, placements)
+
+
+def constrain_torch(x, cfg, *dims, granule=None):
+    """The reference's ``constrain`` (``with_sharding_constraint`` by
+    logical dims: ``"dp"``, ``"tp"`` or None, one a tensor dim). A no-op
+    unless ``cfg.dp_axes`` or ``cfg.tp_axis`` is set, and unless ``x`` is a
+    DTensor; else ``x`` redistributed so that each mesh axis the dims name
+    shards its dim and every other mesh axis replicates. Where the axes a
+    dim names do not divide it, the longest divisible prefix of them is
+    kept (``shard_axes_torch``): GSPMD pads an uneven dim, DTensor cannot
+    view one. ``granule`` (one int a dim) asks each shard to hold whole
+    granules: a flat (heads x head_dim) dim that is viewed as heads next
+    gives ``head_dim``, so heads that do not divide the axes replicate."""
+    if not cfg.dp_axes and not cfg.tp_axis:
+        return x
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    layout = tuple(shard_axes_torch(cfg, mesh, logical, x.shape[d],
+                                    granule[d] if granule else 1)
+                   for d, logical in enumerate(dims))
+    placements = placements_of_torch(mesh, layout)
+    if placements == tuple(x.placements):
+        return x
+    return x.redistribute(mesh, placements)
+
+
+def layout_of_torch(x):
+    """A DTensor's layout: a tuple with the mesh axes of each dim."""
+    layout = [()] * x.dim()
+    for name, pl in zip(x.device_mesh.mesh_dim_names, x.placements):
+        if isinstance(pl, Shard):
+            layout[pl.dim] += (name,)
+    return tuple(layout)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes the gradient contiguous: a
+    region's input gradients leave it so (DTensor's matmul backward views
+    its local gradient, which a transposed one refuses)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+#: the profiler range a region opens is named this prefix and its name:
+#: ``launch/collectives.py`` counts the regions a traced step entered
+REGION_PREFIX = "local_map: "
+
+
+def local_region_torch(name: str, fn, layouts_in, layouts_out, *args):
+    """``fn(*args)``; when an argument is a DTensor, ``fn`` runs under
+    ``local_map`` on each device's shards instead: argument ``i`` is
+    redistributed to ``layouts_in[i]`` (a tuple with the mesh axes of each
+    dim, or None for an argument passed as it is), a plain tensor argument
+    counting as replicated, and output ``j`` is wrapped as a DTensor laid
+    out by ``layouts_out[j]``. An argument replicated along a mesh dim that
+    splits the work (another argument is sharded along it) gets its
+    gradient as a partial sum there: each device's part of it comes from
+    its own shard of the work. The call runs in a profiler range named
+    ``REGION_PREFIX + name``. On one card (no DTensor) it is
+    ``fn(*args)``, bit for bit."""
+    dts = [a for a in args if isinstance(a, DTensor)]
+    if not dts:
+        return fn(*args)
+    mesh = dts[0].device_mesh
+    args = [DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+            if isinstance(a, torch.Tensor) and not isinstance(a, DTensor)
+            and lay is not None else a
+            for a, lay in zip(args, layouts_in)]
+    in_pl = tuple(None if lay is None else placements_of_torch(mesh, lay)
+                  for lay in layouts_in)
+    split = {i for pl in in_pl if pl is not None for i, p in enumerate(pl)
+             if not isinstance(p, Replicate)}
+    grad_pl = tuple(None if pl is None else tuple(
+        Partial() if i in split and isinstance(p, Replicate) else p
+        for i, p in enumerate(pl)) for pl in in_pl)
+    out_pl = tuple(placements_of_torch(mesh, lay) for lay in layouts_out)
+    if len(out_pl) == 1:
+        out_pl = list(out_pl[0])
+
+    def local(*xs):
+        return fn(*(_ContiguousGrad.apply(x) if isinstance(x, torch.Tensor)
+                    and x.requires_grad else x for x in xs))
+    with torch.profiler.record_function(REGION_PREFIX + name):
+        return local_map(local, out_pl, in_pl, grad_pl, device_mesh=mesh,
+                         redistribute_inputs=True)(*args)
 
 
 def dtype_of(name: str) -> torch.dtype:

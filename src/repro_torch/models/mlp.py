@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from .common import act_fn, dense_init
+from .common import act_fn, constrain_torch, dense_init, unshard_dp_torch
 from .config import ModelConfig
 
 
@@ -17,6 +17,7 @@ class MLP(torch.nn.Module):
     def __init__(self, cfg: ModelConfig, generator, dtype, device=None,
                  d_ff: int | None = None):
         super().__init__()
+        self.cfg = cfg
         d_ff = d_ff or cfg.d_ff
         self.gated = cfg.mlp_type in ("swiglu", "geglu")
         self.act = act_fn(cfg.mlp_type)
@@ -32,8 +33,11 @@ class MLP(torch.nn.Module):
                                     device=device))
 
     def forward(self, x):
+        cfg = self.cfg
         if self.gated:
-            h = self.act(x @ self.wi_gate) * (x @ self.wi_up)
+            h = self.act(x @ unshard_dp_torch(self.wi_gate, cfg)) * (
+                x @ unshard_dp_torch(self.wi_up, cfg))
         else:
-            h = self.act(x @ self.wi)
-        return h @ self.wo
+            h = self.act(x @ unshard_dp_torch(self.wi, cfg))
+        return constrain_torch(h, cfg, "dp", None, "tp") @ unshard_dp_torch(
+            self.wo, cfg)

@@ -9,6 +9,8 @@ Entry points:
   forward_decode(cfg, params, caches, token, pos, device=None)
                                                 -> (logits, caches)
   init_caches(cfg, batch, max_len, device=None) -> caches
+  abstract_params_torch(cfg, device="meta"), abstract_caches_torch(...)
+                                 -> shapes only, for launch/dryrun.py
 
 ``params`` is a ``Transformer`` module (its state dict mirrors the
 reference's pytree, see ``convert.py``); ``caches`` is a list with one dict
@@ -23,7 +25,11 @@ M-RoPE, t == h == w. The frontend stubs (``frontend="vision_stub"`` or
 selects; ``forward_decode`` takes token ids only, as the reference's. Each
 entry point runs on the card unless ``device="cpu"`` is passed, and
 ``params`` must live there. Tied
-embeddings only share the table; padded vocab slots read -1e9.
+embeddings only share the table; padded vocab slots read -1e9. A model
+sharded by ``launch/sharding.py::distribute_state_torch`` (DTensor params,
+``cfg.dp_axes``/``tp_axis`` set) runs the same entry points under
+``implicit_replication()``; its embedding lookup and loss go
+vocab-parallel.
 
 ``forward_prefill`` and ``forward_decode`` run without autograd;
 ``forward_train_torch`` runs with it, through each attention layer's
@@ -35,10 +41,13 @@ serving; ``train.step.make_train_state_torch`` makes them trainable.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..device import DeviceLike, resolve_device
 from .blocks import Block, stack_train_torch
-from .common import RMSNorm, dtype_of, embed_init, rmsnorm
+from .common import (RMSNorm, constrain_torch, dtype_of, embed_init,
+                     layout_of_torch, local_region_torch, rmsnorm,
+                     unshard_dp_torch)
 from .config import ModelConfig
 
 
@@ -123,19 +132,62 @@ def _embed(cfg: ModelConfig, params: Transformer, tokens, extra_embeds=None,
     """The table's rows for ``tokens``; with a frontend stub, the positions
     ``extra_mask`` (B, S) selects take ``extra_embeds`` (B, S, D) cast to the
     table's dtype instead; then the compute dtype."""
-    h = params.embed[tokens]
+    table = unshard_dp_torch(params.embed, cfg)
+    h = (_embed_sharded_torch(table, tokens) if isinstance(table, DTensor)
+         else table[tokens])
     if cfg.frontend != "none" and extra_embeds is not None:
         h = torch.where(extra_mask[..., None],
                         extra_embeds.to(h.dtype), h)
-    return h.to(dtype_of(cfg.dtype))
+    return constrain_torch(h.to(dtype_of(cfg.dtype)), cfg, "dp", None, None)
+
+
+def _embed_sharded_torch(table, tokens):
+    """``table[tokens]`` for a vocab-sharded DTensor table, the
+    vocab-parallel way: each device looks up the tokens its vocab shard
+    holds (zeros elsewhere) in ``local_region_torch``, and the shards'
+    rows are summed by a DTensor reduction. DTensor's own rule for the
+    lookup's backward (an accumulating ``index_put``) fails in some torch
+    releases."""
+    mesh = table.device_mesh
+    vl, dl = layout_of_torch(table)
+    tl = layout_of_torch(tokens) if hasattr(tokens, "device_mesh") else (
+        (), ())
+    names = mesh.mesh_dim_names
+
+    def part(table, tokens):
+        coord = mesh.get_coordinate() or [0] * mesh.ndim
+        shard = 0
+        for a in vl:
+            i = names.index(a)
+            shard = shard * mesh.size(i) + coord[i]
+        v = table.shape[0]
+        local = tokens.long() - shard * v
+        inside = ((local >= 0) & (local < v))[..., None]
+        rows = table[local.clamp(0, v - 1)]
+        return torch.where(inside, rows, torch.zeros((), dtype=rows.dtype,
+                                                     device=rows.device))[None]
+
+    rows = local_region_torch("embedding (vocab-parallel parts)", part,
+                              ((vl, dl), tl), ((vl,) + tl + (dl,),),
+                              table, tokens)
+    return rows.sum(dim=0)
 
 
 def _logits(cfg: ModelConfig, params: Transformer, h):
-    h = rmsnorm(params.final_norm.scale, h, cfg.norm_eps)
-    w = params.embed.T if cfg.tie_embeddings else params.unembed
-    logits = (h @ w).float()
-    if cfg.vocab_padded != cfg.vocab_size:    # mask padded vocab slots
-        logits[..., cfg.vocab_size:] = -1e9
+    # (dp, None, None) before the unembedding, a hint for DTensor as in
+    # ``Block._mlp``
+    h = rmsnorm(params.final_norm.scale,
+                constrain_torch(h, cfg, "dp", None, None), cfg.norm_eps)
+    w = unshard_dp_torch(params.embed if cfg.tie_embeddings
+                         else params.unembed, cfg)
+    w = w.T if cfg.tie_embeddings else w
+    logits = constrain_torch((h @ w).float(), cfg, "dp", None, "tp")
+    if cfg.vocab_padded == cfg.vocab_size:
+        return logits
+    if isinstance(logits, DTensor):     # no slice write on a sharded dim
+        pad = torch.arange(cfg.vocab_padded, device=logits.device)
+        return logits.masked_fill_(pad >= cfg.vocab_size, -1e9)
+    logits[..., cfg.vocab_size:] = -1e9    # mask padded vocab slots
     return logits
 
 
@@ -143,9 +195,47 @@ def softmax_xent_torch(logits, labels, z_loss: float = 1e-4):
     """Cross entropy with z-loss per token, as the reference's
     ``softmax_xent``: logits float32 (B, S, V), labels int (B, S) ->
     ``lse - gold + z_loss lse^2`` (B, S)."""
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    if isinstance(logits, DTensor):
+        lse, gold = _xent_parts_sharded_torch(logits, labels)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return lse - gold + z_loss * lse * lse
+
+
+def _xent_parts_sharded_torch(logits, labels):
+    """(lse, gold) of vocab-sharded DTensor logits (B, S, V), the
+    vocab-parallel way: each device reduces its vocab shard (its max, sum
+    of exps and the label's logit where the label falls in it) in
+    ``local_region_torch``, and the shards' parts merge with DTensor
+    reductions; DTensor's own ``logsumexp`` and ``gather`` would gather
+    the whole vocab on every device."""
+    mesh = logits.device_mesh
+    bl, sl, vl = layout_of_torch(logits)
+    names = mesh.mesh_dim_names
+
+    def part(logits, labels):
+        coord = mesh.get_coordinate() or [0] * mesh.ndim
+        shard = 0
+        for a in vl:
+            i = names.index(a)
+            shard = shard * mesh.size(i) + coord[i]
+        v = logits.shape[-1]
+        local = labels.long() - shard * v
+        inside = (local >= 0) & (local < v)
+        gold = torch.gather(logits, -1, local.clamp(0, v - 1)[..., None])
+        gold = torch.where(inside, gold[..., 0], 0.0)
+        m = logits.detach().amax(dim=-1)
+        s = torch.exp(logits - m[..., None]).sum(dim=-1)
+        return m[None], s[None], gold[None]
+
+    part_lay = (vl, bl, sl)
+    m, s, gold = local_region_torch(
+        "softmax_xent (vocab-parallel parts)", part, ((bl, sl, vl), (bl, sl)),
+        (part_lay,) * 3, logits, labels)
+    m_all = m.amax(dim=0)
+    lse = m_all + torch.log((s * torch.exp(m - m_all)).sum(dim=0))
+    return lse, gold.sum(dim=0)
 
 
 def forward_train_torch(cfg: ModelConfig, params: Transformer, batch,
@@ -207,6 +297,24 @@ def forward_decode(cfg: ModelConfig, params: Transformer, caches, token,
     return _logits(cfg, params, h)[:, 0, :], caches
 
 
+def _cache_layout_torch(cfg: ModelConfig, batch: int, max_len: int):
+    """One dict a layer, name -> (shape, dtype), as ``init_caches`` fills
+    them."""
+    dtype = dtype_of(cfg.dtype)
+    pattern = cfg.block_pattern
+    layout = []
+    for i in range(cfg.num_layers):
+        if pattern[i % len(pattern)][0] == "attn":
+            shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+            layout.append({"k": (shape, dtype), "v": (shape, dtype)})
+        else:
+            conv = (batch, cfg.ssm_conv - 1, cfg.d_inner + 2 * cfg.ssm_state)
+            ssm = (batch, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state)
+            layout.append({"conv": (conv, dtype),
+                           "ssm": (ssm, torch.float32)})
+    return layout
+
+
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 device: DeviceLike = None):
     """Zeroed decode caches, one dict per layer as ``init_group_cache``
@@ -214,18 +322,24 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     for attention; for mamba {"conv": (batch, ssm_conv - 1, d_inner + 2 N)
     in the compute dtype, "ssm": (batch, H, P, N) float32}."""
     dev = resolve_device(device)
-    dtype = dtype_of(cfg.dtype)
-    pattern = cfg.block_pattern
-    caches = []
-    for i in range(cfg.num_layers):
-        if pattern[i % len(pattern)][0] == "attn":
-            shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-            caches.append({"k": torch.zeros(shape, dtype=dtype, device=dev),
-                           "v": torch.zeros(shape, dtype=dtype, device=dev)})
-        else:
-            conv = (batch, cfg.ssm_conv - 1, cfg.d_inner + 2 * cfg.ssm_state)
-            ssm = (batch, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state)
-            caches.append({
-                "conv": torch.zeros(conv, dtype=dtype, device=dev),
-                "ssm": torch.zeros(ssm, dtype=torch.float32, device=dev)})
-    return caches
+    return [{k: torch.zeros(shape, dtype=dt, device=dev)
+             for k, (shape, dt) in layer.items()}
+            for layer in _cache_layout_torch(cfg, batch, max_len)]
+
+
+def abstract_params_torch(cfg: ModelConfig, device="meta") -> Transformer:
+    """A ``Transformer`` of ``cfg`` with uninitialized weights on
+    ``device``, the meta device by default (shapes and dtypes, no
+    storage), for the dry run: the reference's ``abstract_params``. It
+    does not go through ``resolve_device``, which refuses "meta"; under a
+    ``FakeTensorMode`` pass "cpu" for fake CPU tensors."""
+    return Transformer(cfg, None, torch.device(device))
+
+
+def abstract_caches_torch(cfg: ModelConfig, batch: int, max_len: int,
+                          device="meta"):
+    """``init_caches``' list as empty tensors on ``device`` (meta by
+    default): the reference's ``abstract_caches``."""
+    return [{k: torch.empty(shape, dtype=dt, device=device)
+             for k, (shape, dt) in layer.items()}
+            for layer in _cache_layout_torch(cfg, batch, max_len)]

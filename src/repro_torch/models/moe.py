@@ -16,13 +16,23 @@ the sorted ids and combines by gathering each token's k rows back and
 summing over k, in float order fixed by the shapes: no scatter-add (CUDA's
 float ``index_add_`` sums in atomic order) and no host read, so every shape
 is static and a run's bits repeat.
+
+On a mesh the gather path's grouping, routing, dispatch and combine run on
+each device's rows (``local_map`` regions) and the expert products are
+DTensor ops; the dense baseline has no sharded path of its own (no shipped
+config sets it).
 """
 from __future__ import annotations
 
+import math
+import types
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
-from .common import act_fn, dense_init
+from .common import (act_fn, constrain_torch, dense_init, local_region_torch,
+                     shard_axes_torch, unshard_dp_torch)
 from .config import ModelConfig
 
 MOE_GROUP = 256          # tokens per routing group
@@ -96,10 +106,14 @@ def _expert_ffn_torch(cfg: ModelConfig, p: MoE, xin):
     xe = xin.transpose(0, 1).reshape(e, g * c, d)
     act = act_fn(cfg.mlp_type)
     if cfg.mlp_type in ("swiglu", "geglu"):
-        h = act(torch.bmm(xe, p.wi_gate)) * torch.bmm(xe, p.wi_up)
+        h = act(torch.bmm(xe, unshard_dp_torch(p.wi_gate, cfg))) * torch.bmm(
+            xe, unshard_dp_torch(p.wi_up, cfg))
     else:
-        h = act(torch.bmm(xe, p.wi))
-    return torch.bmm(h, p.wo).reshape(e, g, c, d).transpose(0, 1)
+        h = act(torch.bmm(xe, unshard_dp_torch(p.wi, cfg)))
+    # (E, G*C, F), G-major: a shard holds whole groups
+    h = constrain_torch(h, cfg, None, "dp", "tp", granule=(1, c, 1))
+    return torch.bmm(h, unshard_dp_torch(p.wo, cfg)).reshape(
+        e, g, c, d).transpose(0, 1)
 
 
 def moe_apply_gather_torch(cfg: ModelConfig, p: MoE, x):
@@ -108,37 +122,86 @@ def moe_apply_gather_torch(cfg: ModelConfig, p: MoE, x):
     choice) expert ids gives each entry its position in its expert (its
     rank among equal ids); entries at or past ``cap`` are dropped."""
     b, s, d = x.shape
-    e, k = cfg.moe_experts, cfg.moe_top_k
+    e = cfg.moe_experts
     gsz, g, cap = moe_group_plan_torch(cfg, b * s)
-    xt = x.reshape(g, gsz, d)
+    if not isinstance(x, DTensor):
+        xt = constrain_torch(x.reshape(g, gsz, d), cfg, "dp", None, None)
+        xin, row, w, _, aux = _gather_dispatch_torch(cfg, p, cap, xt)
+        yout = _expert_ffn_torch(cfg, p, xin).reshape(g, e * cap, d)
+        return _gather_combine_torch(yout, row, w).reshape(b, s, d), aux
+    # sharded: the grouping and the index work run on each device's rows
+    # (local_map), the batch over the dp axes that divide both B and G so
+    # a device holds whole groups (DTensor's own view of a batch shard as
+    # groups, and its backward, come out the wrong size); the expert
+    # products stay DTensor ops; the aux loss takes the router's global
+    # means
+    dp = shard_axes_torch(cfg, x.device_mesh, "dp", math.gcd(b, g))
+    lay3, lay2 = (dp, (), ()), (dp, ())
+    router = unshard_dp_torch(p.router, cfg)
+
+    def dispatch(router, x):
+        out = _gather_dispatch_torch(
+            cfg, types.SimpleNamespace(router=router), cap,
+            x.reshape(-1, gsz, d))
+        return out[:4]
+
+    def combine(yout, row, w):
+        return _gather_combine_torch(yout, row, w).reshape(-1, s, d)
+    xin, row, w, idx0 = local_region_torch(
+        "moe gather dispatch", dispatch, (((), ()), lay3),
+        ((dp, (), (), ()), lay2, lay3, lay2), router, x)
+    probs = torch.softmax(x.float() @ router, dim=-1)        # (B, S, E)
+    ce = (idx0[..., None] == torch.arange(e, device=idx0.device)).float()
+    aux = e * torch.sum(probs.mean(dim=(0, 1)) * ce.mean(dim=(0, 1)))
+    yout = _expert_ffn_torch(cfg, p, xin).reshape(g, e * cap, d)
+    y = local_region_torch("moe gather combine", combine,
+                           (lay3, lay2, lay3), (lay3,), yout, row, w)
+    return y, aux
+
+
+def _gather_dispatch_torch(cfg: ModelConfig, p, cap: int, xt):
+    """The gather path's routing and dispatch on groups xt (G, T, D):
+    (xin (G, E, cap, D), each entry's buffer row (G, T*k), its combine
+    weight (G, T, k) in xt's dtype (0 where dropped), each token's first
+    expert (G, T), the aux loss)."""
+    g, gsz, d = xt.shape
+    e, k = cfg.moe_experts, cfg.moe_top_k
     gate_vals, expert_idx, aux = _route_torch(cfg, p, xt)          # (G, T, k)
     ids = expert_idx.reshape(g, gsz * k)
     order = torch.argsort(ids, dim=1, stable=True)
     ids_sorted = torch.gather(ids, 1, order)
-    experts = torch.arange(e, device=x.device).expand(g, e).contiguous()
+    experts = torch.arange(e, device=xt.device).expand(g, e).contiguous()
     start = torch.searchsorted(ids_sorted, experts, side="left")   # (G, E)
     count = torch.searchsorted(ids_sorted, experts, side="right") - start
 
     # buffer slot c of expert e: sorted entry start_e + c, if c < count_e
-    slot = torch.arange(cap, device=x.device)
+    slot = torch.arange(cap, device=xt.device)
     filled = slot < count[..., None]                               # (G, E, C)
     src = torch.where(filled, start[..., None] + slot, 0).reshape(g, e * cap)
     tok = torch.gather(torch.div(order, k, rounding_mode="floor"), 1, src)
     xin = torch.gather(xt, 1, tok[..., None].expand(g, e * cap, d))
     xin = torch.where(filled.reshape(g, e * cap, 1), xin, 0).reshape(
         g, e, cap, d)
-    yout = _expert_ffn_torch(cfg, p, xin).reshape(g, e * cap, d)
+    xin = constrain_torch(xin, cfg, "dp", None, None, None)
 
     # each entry's position in its expert, back in (token, choice) order
-    pos_sorted = torch.arange(gsz * k, device=x.device) - torch.gather(
+    pos_sorted = torch.arange(gsz * k, device=xt.device) - torch.gather(
         start, 1, ids_sorted)
     pos = torch.empty_like(pos_sorted).scatter_(1, order, pos_sorted)
     keep = (pos < cap).reshape(g, gsz, k)
     row = (ids * cap + pos.clamp(max=cap - 1)).reshape(g, gsz * k)
+    w = torch.where(keep, gate_vals, 0.0).to(xt.dtype)
+    return xin, row, w, expert_idx[..., 0], aux
+
+
+def _gather_combine_torch(yout, row, w):
+    """Each token's k expert outputs gathered back from yout (G, E*cap, D)
+    at ``row`` (G, T*k) and summed with weights ``w`` (G, T, k): (G, T,
+    D)."""
+    g, gsz, k = w.shape
+    d = yout.shape[-1]
     back = torch.gather(yout, 1, row[..., None].expand(g, gsz * k, d))
-    w = torch.where(keep, gate_vals, 0.0).to(x.dtype)
-    y = (back.reshape(g, gsz, k, d) * w[..., None]).sum(dim=2)
-    return y.reshape(b, s, d), aux
+    return (back.reshape(g, gsz, k, d) * w[..., None]).sum(dim=2)
 
 
 def moe_apply_dense_torch(cfg: ModelConfig, p: MoE, x):
@@ -148,7 +211,7 @@ def moe_apply_dense_torch(cfg: ModelConfig, p: MoE, x):
     b, s, d = x.shape
     e, k = cfg.moe_experts, cfg.moe_top_k
     gsz, g, cap = moe_group_plan_torch(cfg, b * s)
-    xt = x.reshape(g, gsz, d)
+    xt = constrain_torch(x.reshape(g, gsz, d), cfg, "dp", None, None)
     gate_vals, expert_idx, aux = _route_torch(cfg, p, xt)
     flat = F.one_hot(expert_idx, e).float().reshape(g, gsz * k, e)
     pos = torch.cumsum(flat, dim=1) - flat
@@ -161,7 +224,9 @@ def moe_apply_dense_torch(cfg: ModelConfig, p: MoE, x):
     dispatch = disp_flat.reshape(g, gsz, k, e, cap).sum(dim=2)
     combine = (disp_flat * gate_vals.reshape(g, gsz * k, 1, 1)).reshape(
         g, gsz, k, e, cap).sum(dim=2)
-    xin = torch.einsum("gtec,gtd->gecd", dispatch.to(x.dtype), xt)
+    xin = constrain_torch(
+        torch.einsum("gtec,gtd->gecd", dispatch.to(x.dtype), xt), cfg,
+        "dp", None, None, None)
     yout = _expert_ffn_torch(cfg, p, xin)
     y = torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), yout)
     return y.reshape(b, s, d), aux

@@ -13,14 +13,20 @@ Layer I/O:
   prefill: x (B, S, D) -> y (B, S, D) [+ {"conv": (B, k-1, convdim),
            "ssm": (B, H, P, N) float32}]
   decode:  x (B, 1, D) with that cache, updated in place.
+
+On a mesh the SSD and the decode step's recurrence run on each device's
+batch and head shards (``local_map`` regions).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from ..kernels.ssd_scan.ops import ssd_chunked, ssd_chunked_train
-from .common import dense_init
+from .common import (constrain_torch, dense_init, layout_of_torch,
+                     local_region_torch, placements_of_torch,
+                     shard_axes_torch, unshard_dp_torch)
 from .config import ModelConfig
 
 
@@ -74,6 +80,25 @@ def _causal_conv(p: Mamba, xbc):
     return F.silu(out + p.conv_b)
 
 
+def _ssd_region_torch(cfg: ModelConfig, name: str, fn, with_state: bool,
+                      xin, dt, a, b_mat, c_mat):
+    """``fn(xin, dt, a, b_mat, c_mat)``; on DTensors in
+    ``local_region_torch``: batch over the dp axes and heads over the tp
+    axis where they divide, B and C whole on each device, so each device
+    runs the SSD kernel (its plain version on CPU tensors) on its shards.
+    Returns y, and the final state when ``with_state``."""
+    if not isinstance(xin, DTensor):
+        return fn(xin, dt, a, b_mat, c_mat)
+    mesh = xin.device_mesh
+    dp = shard_axes_torch(cfg, mesh, "dp", xin.shape[0])
+    tp = shard_axes_torch(cfg, mesh, "tp", xin.shape[2])
+    x_lay = (dp, (), tp, ())
+    outs = (x_lay, (dp, tp, (), ())) if with_state else (x_lay,)
+    return local_region_torch(
+        name, fn, (x_lay, (dp, (), tp), (tp,), (dp, (), ()), (dp, (), ())),
+        outs, xin, dt, a, b_mat, c_mat)
+
+
 def mamba_train(cfg: ModelConfig, p: Mamba, x, return_state: bool = False):
     """Full-sequence SSD pass from an empty state. x: (B, S, D). With
     ``return_state`` also returns the decode cache: ``conv``, the last k-1
@@ -84,7 +109,8 @@ def mamba_train(cfg: ModelConfig, p: Mamba, x, return_state: bool = False):
     the card too)."""
     bsz, s, _ = x.shape
     di, n, nh, ph = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
-    proj = x @ p.in_proj
+    proj = constrain_torch(x @ unshard_dp_torch(p.in_proj, cfg), cfg, "dp",
+                           None, "tp")
     z, xbc_in, dt = _split_proj(cfg, proj)
     xbc = _causal_conv(p, xbc_in)
     xin = xbc[..., :di].reshape(bsz, s, nh, ph)
@@ -93,18 +119,32 @@ def mamba_train(cfg: ModelConfig, p: Mamba, x, return_state: bool = False):
     dt = _softplus(dt.float() + p.dt_bias)
     a = -torch.exp(p.A_log)
     if torch.is_grad_enabled() and not return_state:
-        y = ssd_chunked_train(xin, dt, a, b_mat, c_mat, chunk=cfg.ssm_chunk)
+        y = _ssd_region_torch(
+            cfg, "ssd_chunked_train", lambda *t: ssd_chunked_train(
+                *t, chunk=cfg.ssm_chunk), False, xin, dt, a, b_mat, c_mat)
     else:
-        y, state = ssd_chunked(xin, dt, a, b_mat, c_mat,
-                               chunk=cfg.ssm_chunk)
+        y, state = _ssd_region_torch(
+            cfg, "ssd_scan", lambda *t: ssd_chunked(
+                *t, chunk=cfg.ssm_chunk), True, xin, dt, a, b_mat, c_mat)
     y = y + xin * p.D[None, None, :, None].to(x.dtype)
     y = y.reshape(bsz, s, di) * F.silu(z)
-    out = y @ p.out_proj
+    out = y @ unshard_dp_torch(p.out_proj, cfg)
     if return_state:
         k = cfg.ssm_conv
         tail = F.pad(xbc_in, (0, 0, max(0, k - 1 - s), 0))[:, -(k - 1):]
         return out, {"conv": tail, "ssm": state}
     return out
+
+
+def _ssm_step_torch(state, xin, dt1, a, b_mat, c_mat, d_skip):
+    """One recurrence step, ``state`` (B, H, P, N) float32 updated in
+    place: state = exp(dt a) state + dt x B; returns y = state C + D x
+    (B, H, P) float32."""
+    decay = torch.exp(dt1 * a[None, :])
+    state.mul_(decay[:, :, None, None]).add_(
+        dt1[:, :, None, None] * xin[:, :, :, None] * b_mat[:, None, None, :])
+    y = torch.einsum("bhpn,bn->bhp", state, c_mat)
+    return y + xin * d_skip[None, :, None]
 
 
 def mamba_decode(cfg: ModelConfig, p: Mamba, x, cache: dict):
@@ -113,7 +153,7 @@ def mamba_decode(cfg: ModelConfig, p: Mamba, x, cache: dict):
     reference returns a new cache). Returns (y (B, 1, D), cache)."""
     bsz = x.shape[0]
     di, n, nh, ph = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
-    proj = x @ p.in_proj
+    proj = x @ unshard_dp_torch(p.in_proj, cfg)
     z, xbc_new, dt = _split_proj(cfg, proj)
     window = torch.cat([cache["conv"], xbc_new], dim=1)      # (B, k, C)
     conv_out = (window * p.conv_w).sum(dim=1) + p.conv_b
@@ -123,12 +163,20 @@ def mamba_decode(cfg: ModelConfig, p: Mamba, x, cache: dict):
     c_mat = xbc[:, di + n:].float()
     dt1 = _softplus(dt[:, 0].float() + p.dt_bias)             # (B, H)
     a = -torch.exp(p.A_log)
-    decay = torch.exp(dt1 * a[None, :])
     state = cache["ssm"]
-    state.mul_(decay[:, :, None, None]).add_(
-        dt1[:, :, None, None] * xin[:, :, :, None] * b_mat[:, None, None, :])
-    y = torch.einsum("bhpn,bn->bhp", state, c_mat)
-    y = y + xin * p.D[None, :, None]
+    if isinstance(state, DTensor):    # each device steps its own shard
+        bl, hl, pl, nl = layout_of_torch(state)
+        xl = (bl, hl, pl)
+        y = local_region_torch(
+            "mamba decode step", _ssm_step_torch,
+            ((bl, hl, pl, nl), xl, (bl, hl), (hl,), (bl, nl), (bl, nl),
+             (hl,)), (xl,), state, xin.reshape(bsz, nh, ph), dt1, a, b_mat,
+            c_mat, p.D)
+        # P whole before (H, P) flattens: a flat dim takes one shard
+        y = y.redistribute(y.device_mesh,
+                           placements_of_torch(y.device_mesh, (bl, hl, ())))
+    else:
+        y = _ssm_step_torch(state, xin, dt1, a, b_mat, c_mat, p.D)
     y = y.reshape(bsz, 1, di).to(x.dtype) * F.silu(z)
     cache["conv"].copy_(window[:, 1:])
-    return y @ p.out_proj, cache
+    return y @ unshard_dp_torch(p.out_proj, cfg), cache

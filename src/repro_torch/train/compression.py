@@ -8,9 +8,14 @@ payload, and keeps the quantization error as the residual for the next
 step. On float32 inputs ``q`` and ``scale`` equal the reference's bit for
 bit. The functions run on the device of the tensors they are given.
 
-The reference's ``compressed_cross_pod_mean``, a collective over a "pod"
-mesh axis, is not ported here: it waits for the port's meshes (ROADMAP.md
-queue 1 item 11).
+``compressed_cross_pod_mean_torch`` is the reference's
+``compressed_cross_pod_mean`` (a ``shard_map`` body over the "pod" axis)
+over a ``torch.distributed`` process group, one rank a pod: each rank runs
+the error-feedback round on each tensor, the group sums the dequantized
+estimates (``all_reduce``) and each rank divides by the group's size. As
+in the reference, the sum models the arithmetic; the wire format, int8
+payloads with float32 block scales summed after dequantizing on receive,
+stays a comment.
 """
 from __future__ import annotations
 
@@ -52,6 +57,28 @@ def ef_compress_decompress_torch(grad: torch.Tensor, residual: torch.Tensor):
     q, scale, meta = quantize_int8_torch(target)
     est = dequantize_int8_torch(q, scale, meta)
     return est, target - est
+
+
+def compressed_cross_pod_mean_torch(grads: dict, residuals: dict,
+                                    group=None):
+    """(mean, new residuals), name -> float32 tensor dicts: each rank's
+    ``grads[name] + residuals[name]`` through one error-feedback round, the
+    estimates summed over ``group`` (the default group when None) and
+    divided by its size. Raises ``RuntimeError`` when no process group is
+    initialised; a group of one rank still runs the collective."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        raise RuntimeError("compressed_cross_pod_mean_torch reduces over a "
+                           "process group and none is initialised")
+    size = dist.get_world_size(group)
+    mean, new_res = {}, {}
+    for name, g in grads.items():
+        est, new_res[name] = ef_compress_decompress_torch(g, residuals[name])
+        # the wire carries int8 q and the block scales; the sum of the
+        # dequantized estimates is what the receiving side computes
+        dist.all_reduce(est, op=dist.ReduceOp.SUM, group=group)
+        mean[name] = est / size
+    return mean, new_res
 
 
 def init_residuals_torch(params):

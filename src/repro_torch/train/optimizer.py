@@ -50,12 +50,13 @@ def lr_schedule_torch(oc: OptimizerConfig, step):
 
 def init_opt_state_torch(params: dict, oc: OptimizerConfig):
     """Zero moments in ``state_dtype`` beside each of ``params`` (name ->
-    tensor), and step 0 on their device."""
+    tensor; a DTensor parameter gets DTensor moments of its placements),
+    and step 0 on their device."""
     dt = dtype_of(oc.state_dtype)
     device = next(iter(params.values())).device
-    return {"mu": {n: torch.zeros(p.shape, dtype=dt, device=p.device)
+    return {"mu": {n: torch.zeros_like(p, dtype=dt, requires_grad=False)
                    for n, p in params.items()},
-            "nu": {n: torch.zeros(p.shape, dtype=dt, device=p.device)
+            "nu": {n: torch.zeros_like(p, dtype=dt, requires_grad=False)
                    for n, p in params.items()},
             "step": torch.zeros((), dtype=torch.int64, device=device)}
 

@@ -16,7 +16,8 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..models.config import ModelConfig
-from ..models.model import Transformer, forward_train_torch
+from ..models.model import (Transformer, abstract_params_torch,
+                            forward_train_torch)
 from .optimizer import (OptimizerConfig, adamw_update_torch,
                         init_opt_state_torch)
 
@@ -31,6 +32,16 @@ def make_train_state_torch(cfg: ModelConfig, params: Transformer,
         raise ValueError(f"params live on {params.embed.device}, the call "
                          f"asks for {dev}")
     params.requires_grad_(True)
+    return {"params": params,
+            "opt": init_opt_state_torch(dict(params.named_parameters()), oc)}
+
+
+def abstract_train_state_torch(cfg: ModelConfig, oc: OptimizerConfig,
+                               device="meta"):
+    """``make_train_state_torch``'s state for ``abstract_params_torch``'s
+    model: trainable params and empty moments and step on ``device``, meta
+    by default (the reference's ``abstract_train_state``)."""
+    params = abstract_params_torch(cfg, device).requires_grad_(True)
     return {"params": params,
             "opt": init_opt_state_torch(dict(params.named_parameters()), oc)}
 

@@ -3,7 +3,10 @@
 (``repro.train.compression``, jitted) on the same float32 inputs from a
 numpy seed: ``q`` and ``scale`` bit for bit at sizes around the 1,024-value
 block, and twenty error-feedback rounds equal, estimate and residual; then
-the reference's own two compression tests on the port."""
+the reference's own two compression tests on the port; and
+``compressed_cross_pod_mean_torch`` on 4 gloo CPU ranks against the
+reference's ``compressed_cross_pod_mean`` under ``jax.vmap`` over a "pod"
+axis (residuals bit for bit, the mean within 4 ulp)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -127,3 +130,90 @@ def test_init_residuals_and_wire_ratio():
     assert compression.init_residuals_torch(named).keys() == res.keys()
     assert compression.wire_bytes_ratio_np() == ref.wire_bytes_ratio()
     assert compression.BLOCK == ref.BLOCK
+
+
+# -- the cross-pod mean over a process group ---------------------------------
+
+POD_SHAPES = {"w": (4, 256), "b": (1023,), "m": (3, 700)}
+PODS = 4
+
+POD_BODY = """
+import numpy as np
+from repro_torch.train.compression import compressed_cross_pod_mean_torch
+data = np.load("pods.npz")
+names = sorted({k.split("/", 1)[1] for k in data.files})
+grads = {n: torch.from_numpy(data[f"g/{n}"][RANK]) for n in names}
+res = {n: torch.from_numpy(data[f"r/{n}"][RANK]) for n in names}
+mean, new_res = compressed_cross_pod_mean_torch(grads, res)
+torch.save({"mean": mean, "res": new_res}, f"pod_{RANK}.pt")
+"""
+
+
+def _pod_inputs():
+    grads = {n: _normal((PODS,) + s, seed=200 + i, scale=1.0)
+             for i, (n, s) in enumerate(sorted(POD_SHAPES.items()))}
+    res = {n: _normal((PODS,) + s, seed=300 + i, scale=0.01)
+           for i, (n, s) in enumerate(sorted(POD_SHAPES.items()))}
+    return grads, res
+
+
+@pytest.fixture(scope="module")
+def pod_means(tmp_path_factory):
+    from torch_gloo import run_gloo_ranks
+    tmp = tmp_path_factory.mktemp("pods")
+    grads, res = _pod_inputs()
+    np.savez(tmp / "pods.npz", **{f"g/{n}": v for n, v in grads.items()},
+             **{f"r/{n}": v for n, v in res.items()})
+    run_gloo_ranks(tmp, POD_BODY, world=PODS, timeout=120)
+    got = [torch.load(tmp / f"pod_{r}.pt") for r in range(PODS)]
+    # the reference's shard_map body under vmap over a "pod" axis (psum
+    # works there, no forced devices); not jitted, so nothing fuses
+    want_mean, want_res = jax.vmap(
+        lambda g, r: ref.compressed_cross_pod_mean(g, r, "pod"),
+        axis_name="pod")({n: jnp.asarray(v) for n, v in grads.items()},
+                         {n: jnp.asarray(v) for n, v in res.items()})
+    return got, want_mean, want_res, grads
+
+
+def test_cross_pod_mean_residuals_equal_reference(pod_means):
+    got, _, want_res, _ = pod_means
+    for r in range(PODS):
+        assert got[r]["res"].keys() == want_res.keys()
+        for n, w in want_res.items():
+            np.testing.assert_array_equal(got[r]["res"][n].numpy(),
+                                          np.asarray(w)[r])
+
+
+def test_cross_pod_mean_within_four_ulp_of_reference(pod_means):
+    # the ring's summation order may differ from XLA's: 4 ulp of max|mean|
+    got, want_mean, _, _ = pod_means
+    for n, w in want_mean.items():
+        w = np.asarray(w)
+        ulp = float(np.spacing(np.float32(np.abs(w).max())))
+        for r in range(PODS):
+            assert got[r]["mean"][n].dtype == torch.float32
+            np.testing.assert_array_equal(got[r]["mean"][n].numpy(),
+                                          got[0]["mean"][n].numpy())
+            err = float(np.abs(got[r]["mean"][n].numpy() - w[r]).max())
+            assert err <= 4 * ulp, (n, r, err, ulp)
+
+
+def test_cross_pod_mean_within_the_references_bound_of_the_exact_mean(
+        pod_means):
+    # one int8 EF round: error bounded by the quantization step (~1/127),
+    # the bound of tests/test_compressed_psum.py, against the exact mean of
+    # what each pod sends, gradient plus residual
+    got, _, _, grads = pod_means
+    _, res = _pod_inputs()
+    for n, g in grads.items():
+        exact = (g.astype(np.float64) + res[n]).mean(axis=0)
+        err = float(np.abs(got[0]["mean"][n].numpy() - exact).max())
+        assert err / float(np.abs(exact).max()) < 1.5 / 127, n
+
+
+def test_cross_pod_mean_needs_a_process_group():
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="process group"):
+        compression.compressed_cross_pod_mean_torch(
+            {"w": torch.ones(4)}, {"w": torch.zeros(4)})

@@ -575,6 +575,71 @@ def test_decode_kernel_zero_length_and_strided_cache(cuda):
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("b,s_max,hq,hkv,d", [
+    (8, 2048, 16, 8, 128), (3, 100, 4, 2, 16), (2, 64, 16, 1, 64),
+    (3, 100, 16, 1, 256), (8, 2048, 48, 8, 128), (2, 64, 4, 2, 136)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_lse_matches_plain(cuda, b, s_max, hq, hkv, d, dtype):
+    # the heads' log-sum-exps (natural log) beside the output; -inf and
+    # zeros at length 0
+    q = _randn((b, hq, d), dtype, cuda, 15)
+    kc = _randn((b, s_max, hkv, d), dtype, cuda, 16)
+    vc = _randn((b, s_max, hkv, d), dtype, cuda, 17)
+    lens = [0, s_max, s_max // 2 + 3, 1, 65, 64, 2, s_max - 1][:b]
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = decode_kernel.decode_attention.launches
+    got, lse = decode_kernel.decode_attention(q, kc, vc, kv_len,
+                                              return_lse=True)
+    torch.cuda.synchronize()
+    assert decode_kernel.decode_attention.launches == before + 1
+    assert lse.shape == (b, hq) and lse.dtype == torch.float32
+    assert lse.is_contiguous()
+    want, want_lse = decode_ref.decode_attention(q, kc, vc, kv_len,
+                                                 return_lse=True)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-4)
+    assert torch.isneginf(lse[0]).all() and not got[0].any()
+    # the output is the same launch's without the log-sum-exps
+    assert torch.equal(decode_kernel.decode_attention(q, kc, vc, kv_len),
+                       got)
+
+
+@pytest.mark.parametrize("n_chunks", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_kv_decode_runs_the_kernel_on_each_chunk(cuda, n_chunks,
+                                                       dtype):
+    # what each device of a sequence-sharded cache runs, on one card: the
+    # row write and the decode kernel on its chunk, then the merge by
+    # log-sum-exps; equal to one decode over the whole cache
+    from repro_torch.models.attention import (_decode_chunk_torch,
+                                              _decode_rows_torch,
+                                              merge_chunks_torch)
+    b, s_max, hq, hkv, d = 8, 2048, 16, 8, 128
+    q = _randn((b, 1, hq, d), dtype, cuda, 18)
+    k_new = _randn((b, 1, hkv, d), dtype, cuda, 19)
+    v_new = _randn((b, 1, hkv, d), dtype, cuda, 20)
+    kc = _randn((b, s_max, hkv, d), dtype, cuda, 21)
+    vc = _randn((b, s_max, hkv, d), dtype, cuda, 22)
+    # the first row, chunk edges, the last row and past the cache
+    pos = torch.tensor([0, 511, 512, 1023, 1024, 1500, 2047, 2050],
+                       device=cuda)
+    want_k, want_v = kc.clone(), vc.clone()
+    want = _decode_rows_torch(q, k_new, v_new, want_k, want_v, pos)
+    chunk = s_max // n_chunks
+    before = decode_kernel.decode_attention.launches
+    parts = [_decode_chunk_torch(q, k_new, v_new, kc[:, c0:c0 + chunk],
+                                 vc[:, c0:c0 + chunk], pos, c0, s_max)
+             for c0 in range(0, s_max, chunk)]
+    got = merge_chunks_torch(torch.cat([o for o, _ in parts]),
+                             torch.cat([lse for _, lse in parts])).to(dtype)
+    torch.cuda.synchronize()
+    assert decode_kernel.decode_attention.launches == before + n_chunks
+    assert torch.equal(kc, want_k) and torch.equal(vc, want_v)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
 def test_attention_kernels_reject_bad_inputs(cuda):
     q = _randn((1, 64, 4, 16), torch.float32, cuda, 0)
     k = _randn((1, 64, 2, 16), torch.float32, cuda, 0)

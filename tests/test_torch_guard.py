@@ -49,7 +49,9 @@ def test_port_modules_listed():
                  "configs.jamba_v0_1_52b", "configs.grok_1_314b",
                  "train.optimizer", "train.step", "data.pipeline",
                  "ckpt.manager", "ft.failures", "train.compression",
-                 "train.trainer", "launch.train"):
+                 "train.trainer", "launch.train", "launch.mesh",
+                 "launch.sharding", "launch.specs", "launch.collectives",
+                 "launch.dryrun", "launch.roofline"):
         assert f"repro_torch.{name}" in PORT_MODULES, name
 
 
@@ -101,6 +103,13 @@ def test_port_imports_no_jax_and_no_repro():
         "    [TenantJob('j', 1.0, 8, 100, 16, 50, 0)],\n"
         "    lambda c, j: schedule(c, j, device='cpu'))\n"
         "assert ctl.allocation['j'] > 0\n"
+        "from repro_torch.configs import ShapeSpec\n"
+        "from repro_torch.launch.dryrun import lower_cell_torch\n"
+        "from repro_torch.launch.roofline import analyze_artifact_np\n"
+        "res = lower_cell_torch('qwen3_1_7b', 'd', mesh_shape=(1, 1),\n"
+        "                       shape=ShapeSpec('d', 'decode', 16, 2),\n"
+        "                       smoke=True)\n"
+        "assert res['ok'] and analyze_artifact_np(res)['bound_s'] > 0\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib')) or m == 'repro'\n"
         "             or m.startswith('repro.'))\n"
@@ -506,3 +515,44 @@ def test_train_functions_take_names_of_their_own():
                    for p in port_root.rglob("*.py")
                    if "schedule" in _all_definitions(p))
     assert named == ["sched/cluster.py"], named
+
+
+#: the launch tooling's modules and the functions they added
+#: to modules the port had
+LAUNCH_MODULES = ("launch/mesh.py", "launch/sharding.py", "launch/specs.py",
+                  "launch/collectives.py", "launch/dryrun.py",
+                  "launch/roofline.py")
+LAUNCH_ADDED = {
+    "models/common.py": {"constrain_torch", "shard_axes_torch",
+                         "placements_of_torch", "unshard_dp_torch",
+                         "layout_of_torch", "local_region_torch"},
+    "models/model.py": {"abstract_params_torch", "abstract_caches_torch"},
+    "train/step.py": {"abstract_train_state_torch"},
+    "train/compression.py": {"compressed_cross_pod_mean_torch"},
+    "configs/__init__.py": {"shape_applicable_np", "all_cells_np"},
+}
+
+
+def test_launch_functions_take_names_of_their_own():
+    reference = set()
+    for path in (ROOT / "src" / "repro").rglob("*.py"):
+        reference |= _all_definitions(path)
+    assert {"param_specs", "lower_cell", "analyze_artifact", "constrain",
+            "make_production_mesh", "compressed_cross_pod_mean",
+            "shape_applicable", "input_specs"} <= reference
+    port = ROOT / "src" / "repro_torch"
+    added = set()
+    for rel in LAUNCH_MODULES:
+        added |= _module_functions(port / rel)
+    assert {"make_production_mesh_torch", "make_debug_mesh_torch",
+            "dp_axes_torch", "param_specs_np", "sanitize_specs_np",
+            "placements_torch", "distribute_state_torch",
+            "input_specs_torch", "op_histogram_torch", "wire_bytes_np",
+            "lower_cell_torch", "analyze_artifact_np", "suggestion_np",
+            "format_table_np", "main"} <= added
+    for rel, names in LAUNCH_ADDED.items():
+        assert names <= _module_functions(port / rel), rel
+        added |= names
+    # ``main`` is every launch module's CLI entry, as in the reference
+    shared = sorted((added & reference) - {"main"})
+    assert not shared, f"port functions named like the reference's: {shared}"
