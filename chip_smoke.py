@@ -182,6 +182,24 @@ Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
    positions come from ``extra_embeds`` (the vision stub's 8 x 8 patch grid
    with 3-D M-RoPE ids, the audio stub's frames with 1-D positions), the
    kernels' logits against the plain versions' by the same rule;
+24a. holds ``flash_attention`` with a sliding window against its plain
+   version: on the Hopper body (bf16) qwen3_1_7b's 16/8 x 128 at S 1,024,
+   W 256 and Mistral-7B-v0.1's 32/8 x 128 at S 8,192, W 4,096; on the
+   CUDA-core body gemma_2b's 8/1 x 256 and qwen3's widths in float32; the
+   lse call at S 2,048; each timed in turns with SDPA given the boolean
+   window mask and with the kernel without the window, beside the bound
+   over the windowed pairs;
+24b. holds ``decode_attention`` over e4m3 and e5m2 caches, without and
+   with a first valid row per sequence (0, inside the length, equal to
+   it), at qwen3_1_7b's and qwen2_5_32b's widths (8 slots x 2,048 rows),
+   split into 1, 2 and 4 chunks and the wrapper's own, out and lse against
+   the plain version; timed in turns with the bf16-cache kernel on the
+   same rows and with SDPA, beside the byte bound at one byte a value;
+24c. drives the serving path the same way, counts set to 0 again, on
+   full-width qwen3_1_7b with ``sliding_window=256`` and an e4m3 cache
+   (every flash and decode launch windowed, every decode launch float8),
+   profiles a window, and holds a 2-layer model of that config with the
+   kernels against the plain versions (2^-5 x max|logit|);
 25. holds the flash kernel's log-sum-exp output (``return_lse=True``, the
    training path's forward) against its plain version at qwen3_1_7b's 16/8
    x 128 and gemma_2b's 8/1 x 256, S 2,048, in bfloat16 and float32 (out
@@ -207,6 +225,11 @@ Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
    it, the AdamW update), and holds the first step's loss and grad_norm against
    the same step from the same params with the plain flash (2^-6 and 2^-4
    relative);
+27a. the 2-layer float32 training check of step 26 with a window of 48
+   (``_FlashTrain``'s forward through the windowed flash, its backward's
+   mask with the window), then one full-width qwen3_1_7b step with a window
+   of 1,024: 112 flash launches, each windowed with lse on the Hopper
+   body; its loss and wall;
 28. drives the training loop with every launch count set to 0 before each
    run: ``Trainer`` on full-width qwen3_1_7b (28 layers, the training
    step's shapes) for 3 steps with a checkpoint every 2 into a temporary
@@ -381,6 +404,25 @@ DENSE_PROFILE_WINDOW = (4, 4)
 
 #: per-body launch counts beside ``.launches`` (flash_attention's two)
 BODY_COUNTS = ("hopper_launches", "cuda_core_launches", "lse_launches")
+#: the attention wrappers' counts of their windowed and float8 launches
+#: (flash_attention: window; decode_attention: first rows, float8 caches)
+VARIANT_COUNTS = ("window_launches", "fp8_launches")
+
+
+#: the sliding-window and float8-cache phases: qwen3_1_7b served with a
+#: 256-token window (shorter than the 512-token prompts: it cuts in
+#: prefill and in decode) and an e4m3 KV cache; the 2-layer float32
+#: gradients' window (below the flash block of 1,024 that divides S 2,048)
+#: and the full-width training step's
+WINDOW_SERVING = {"sliding_window": 256, "cache_dtype": "float8_e4m3fn"}
+TRAIN_WINDOW = 48
+TRAIN_STEP_WINDOW = 1024
+#: Mistral-7B-v0.1's attention from its published config.json (32 heads, 8
+#: kv heads, hidden 4,096: head dim 128, "sliding_window": 4096), at S
+#: 8,192: (Hq, Hkv, D, W, S)
+MISTRAL_ATTN = (32, 8, 128, 4096, 8192)
+#: the float8 cache dtypes the decode kernel reads
+FP8_CACHES = ("float8_e4m3fn", "float8_e5m2")
 
 
 #: the training loop phase: depth of its full-width qwen3_1_7b (None: all
@@ -517,7 +559,7 @@ def reset_counts(counters):
     """Every wrapper's launch counts, its bodies' too, set to 0."""
     for fn in counters.values():
         fn.launches = 0
-        for attr in BODY_COUNTS:
+        for attr in BODY_COUNTS + VARIANT_COUNTS:
             if hasattr(fn, attr):
                 setattr(fn, attr, 0)
 
@@ -2300,12 +2342,15 @@ class Smoke:
             profiled_schedule=prof)
 
     # -- attention kernels and the serving path -----------------------------
-    def llm_config(self, layers=None, arch="qwen3_1_7b"):
+    def llm_config(self, layers=None, arch="qwen3_1_7b", opts=None):
         """``arch`` at full width in bfloat16 (its smoke config in a
-        rehearsal), optionally cut to ``layers``."""
+        rehearsal), optionally cut to ``layers``, with the config fields
+        ``opts`` sets (a sliding window, a cache dtype)."""
         from repro_torch.configs import get_config, get_smoke_config
         cfg = (get_smoke_config(arch) if self.rehearse
                else get_config(arch))
+        if opts:
+            cfg = dataclasses.replace(cfg, **opts)
         return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
 
     def attn_inputs(self, shapes, dtype, seed):
@@ -2529,16 +2574,17 @@ class Smoke:
                 "ssd_scan": mamba * prefills}
 
     def serving(self, arch="qwen3_1_7b", path="serving", layers=None,
-                requests=16, new_tokens=32):
-        """The serving path of ``arch`` (cut to ``layers`` where given):
-        ``requests`` requests of ``new_tokens`` new tokens each, counts set
-        to 0 just before ``run`` and read just after."""
+                requests=16, new_tokens=32, opts=None):
+        """The serving path of ``arch`` (cut to ``layers`` where given, with
+        the config fields ``opts`` sets): ``requests`` requests of
+        ``new_tokens`` new tokens each, counts set to 0 just before ``run``
+        and read just after."""
         import numpy as np
         torch = self.torch
         from repro_torch.models import model as tmodel
         from repro_torch.serve import ServingEngine
         from repro_torch.serve import engine as engine_mod
-        cfg = self.llm_config(layers, arch=arch)
+        cfg = self.llm_config(layers, arch=arch, opts=opts)
         max_len, (lo, hi), max_new = ((64, (8, 40), 4) if self.rehearse
                                       else (2048, (128, 1024), new_tokens))
         self.free_full_model()            # an earlier model's params
@@ -2567,6 +2613,9 @@ class Smoke:
                          f"({cfg.mlp_type}, {cfg.moe_impl}), "
                          f"{sum(b[1] == 'moe' for b in cfg.block_pattern)} "
                          f"of {len(cfg.block_pattern)} layers")
+        if cfg.sliding_window or cfg.cache_dtype:
+            parts.append(f"sliding window {cfg.sliding_window}, KV cache "
+                         f"{cfg.cache_dtype or cfg.dtype}")
         widths = "; ".join(parts)
         full = self.llm_config(arch=arch)
         cut = (f" (the config's {full.num_layers}: {full.param_count()} "
@@ -2615,6 +2664,10 @@ class Smoke:
             launches = {name: fn.launches for name, fn in counters.items()}
             bodies = {attr: getattr(counters["flash_attention"], attr)
                       for attr in BODY_COUNTS}
+            variants = {f"{name}.{attr}": getattr(counters[name], attr)
+                        for name in ("flash_attention", "decode_attention")
+                        for attr in VARIANT_COUNTS
+                        if hasattr(counters[name], attr)}
         st = eng.stats
         per_tenant = {}
         for r in done:
@@ -2632,10 +2685,12 @@ class Smoke:
               f"{st['decode_tokens'] / st['decode_steps']:.2f} active slots "
               f"per step)")
         print(f"  tokens per tenant: {per_tenant}; launches: {launches}; "
-              f"flash_attention by body: {bodies}"
+              f"flash_attention by body: {bodies}; windowed and float8 "
+              f"launches: {variants}"
               + (f"; peak device memory {peak:.2f} GiB" if peak else ""))
         self.paths[path] = dict(
-            launches=launches, flash_bodies=bodies, wall_s=wall,
+            launches=launches, flash_bodies=bodies, variants=variants,
+            wall_s=wall,
             requests=len(done), layers=cfg.num_layers, params=n_params,
             new_tokens=max_new,
             prefills=st["prefills"], prefill_tokens=st["prefill_tokens"],
@@ -2666,6 +2721,19 @@ class Smoke:
             self.check(bodies == want_bodies,
                        f"flash_attention bodies {bodies}, expected every "
                        f"launch on the {body[:-9]} body")
+            # a window reaches every flash and decode launch, a float8
+            # cache every decode launch; neither reaches any otherwise
+            fp8 = cfg.cache_dtype in FP8_CACHES
+            want_variants = {
+                "flash_attention.window_launches":
+                    want["flash_attention"] if cfg.sliding_window else 0,
+                "decode_attention.window_launches":
+                    want["decode_attention"] if cfg.sliding_window else 0,
+                "decode_attention.fp8_launches":
+                    want["decode_attention"] if fp8 else 0}
+            self.check(variants == want_variants,
+                       f"windowed and float8 launches {variants}, expected "
+                       f"{want_variants}")
 
     def serving_profile(self, path="serving", requests=8, new_tokens=8):
         """Device busy and idle share over a short serving window of the
@@ -2750,18 +2818,20 @@ class Smoke:
         if self.device.type == "cuda":
             self.torch.cuda.empty_cache()
 
-    def serving_vs_plain(self, arch="qwen3_1_7b"):
-        """A 2-layer full-width ``arch``, the kernels' run then the plain
-        versions' run, on the same params and tokens (the default
-        positions: (3, B, S) under M-RoPE)."""
+    def serving_vs_plain(self, arch="qwen3_1_7b", opts=None, key=None):
+        """A 2-layer full-width ``arch`` (with the config fields ``opts``
+        sets), the kernels' run then the plain versions' run, on the same
+        params and tokens (the default positions: (3, B, S) under
+        M-RoPE); the two sequences decode 7 positions apart."""
         import numpy as np
         torch = self.torch
         from repro_torch.kernels.decode_attention import ref as decode_ref
         from repro_torch.kernels.flash_attention import ref as flash_ref
         from repro_torch.models import attention as attention_mod
         from repro_torch.models import model as tmodel
-        cfg = self.llm_config(layers=2, arch=arch)
-        if arch != "qwen3_1_7b":
+        from repro_torch.models.common import to_cache_dtype_torch
+        cfg = self.llm_config(layers=2, arch=arch, opts=opts)
+        if arch != "qwen3_1_7b" or opts:
             self.free_full_model()
         params = tmodel.init_params(cfg, 1, device=self.device)
         s, max_len, steps = (20, 32, 4) if self.rehearse else (300, 512, 4)
@@ -2774,8 +2844,9 @@ class Smoke:
                                                     device=self.device)
             pool = tmodel.init_caches(cfg, 2, max_len, device=self.device)
             for one, kv in zip(pool, caches):
-                for key in ("k", "v"):
-                    one[key][:, :s] = kv[key]
+                for name in ("k", "v"):
+                    one[name][:, :s] = to_cache_dtype_torch(kv[name],
+                                                            one[name].dtype)
             out = [logits]
             pos = torch.tensor([s, s + 7], dtype=torch.int32,
                                device=self.device)
@@ -2794,14 +2865,18 @@ class Smoke:
         with mock.patch.object(attention_mod, "flash_attention",
                                flash_ref.flash_attention), \
                 mock.patch.object(attention_mod, "decode_attention",
-                                  lambda q, kc, vc, n: decode_ref.
-                                  decode_attention(q[:, 0], kc, vc, n)[:, None]):
+                                  lambda q, kc, vc, n, kv_start=None:
+                                  decode_ref.decode_attention(
+                                      q[:, 0], kc, vc, n,
+                                      kv_start=kv_start)[:, None]):
             plain = run()
         plain_launches = {n: fn.launches for n, fn in counters.items()}
         print(f"  2-layer {cfg.name} {cfg.dtype}, prompt 2 x {s}, {steps} "
-              f"decode steps: launches with kernels {kern_launches}")
-        key = ("serving_vs_plain" if arch == "qwen3_1_7b"
-               else f"serving_{arch}_vs_plain")
+              f"decode steps (window {cfg.sliding_window}, cache "
+              f"{cfg.cache_dtype or cfg.dtype}): launches with kernels "
+              f"{kern_launches}")
+        key = key or ("serving_vs_plain" if arch == "qwen3_1_7b"
+                      else f"serving_{arch}_vs_plain")
         self.paths[key] = dict(
             max_abs_err=self.compare_logits(cfg, kern, plain))
         if not self.rehearse:
@@ -3197,8 +3272,9 @@ class Smoke:
                                       float(gap[moved].max()))
             return route(cfg_, p, xt, expert_idx=forced)
 
-        def plain_decode(q, kc, vc, n):
-            return decode_ref.decode_attention(q[:, 0], kc, vc, n)[:, None]
+        def plain_decode(q, kc, vc, n, kv_start=None):
+            return decode_ref.decode_attention(q[:, 0], kc, vc, n,
+                                               kv_start=kv_start)[:, None]
 
         counters = wrappers()
         reset_counts(counters)
@@ -3334,6 +3410,323 @@ class Smoke:
             shape=f"1x{s}x{hq}/{hkv}x{d}", serving_turns_ms=serve_ms,
             lse_turns_ms=lse_ms)
 
+    # -- sliding window and float8 caches ------------------------------------
+    def window_opts(self):
+        """The windowed serving phase's config fields: ``WINDOW_SERVING``;
+        in a rehearsal a window of 16, which the smoke prompts (8-40
+        tokens) cross."""
+        return dict(WINDOW_SERVING, **({"sliding_window": 16}
+                                       if self.rehearse else {}))
+
+    def flash_window_vs_plain(self):
+        """The flash kernel with a sliding window against its plain
+        version: on the Hopper body (bfloat16) qwen3_1_7b's 16/8 x 128 at S
+        1,024, W 256 and Mistral-7B-v0.1's 32/8 x 128 at S 8,192 with its W
+        4,096; on the CUDA-core body gemma_2b's 8/1 x 256 (bfloat16) and
+        qwen3's widths in float32, S 1,024, W 256; the lse call at qwen3's
+        S 2,048, W 256. Each call must take its body and count as
+        windowed. Each is timed in turns with SDPA given the same boolean
+        window mask, and in turns with the kernel without the window
+        (causal), beside the bound over the windowed pairs."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels.flash_attention import kernel, ref
+        self.free_full_model()
+        qwen = self.llm_config()
+        gemma = self.llm_config(arch="gemma_2b")
+        widths = (qwen.num_heads, qwen.num_kv_heads, qwen.head_dim)
+        if self.rehearse:
+            s1, w1, s_lse, mistral, s_long, w_long = 128, 32, 128, widths, \
+                256, 64
+        else:
+            s1, w1, s_lse = 1024, 256, 2048
+            *mistral, w_long, s_long = MISTRAL_ATTN
+        bf16, f32 = torch.bfloat16, torch.float32
+        cases = (("bfloat16_window", widths, s1, w1, bf16, False),
+                 ("bfloat16_window@mistral_7b_v0_1", tuple(mistral), s_long,
+                  w_long, bf16, False),
+                 ("bfloat16_window@gemma_2b", (gemma.num_heads,
+                                               gemma.num_kv_heads,
+                                               gemma.head_dim), s1, w1, bf16,
+                  False),
+                 ("float32_window", widths, s1, w1, f32, False),
+                 ("bfloat16_window_lse", widths, s_lse, w1, bf16, True))
+        fa = kernel.flash_attention
+        for key, (hq, hkv, d), s, w, dtype, lse in cases:
+            label = "bfloat16" if dtype == bf16 else "float32"
+            q, k, v = self.attn_inputs([(1, s, hq, d), (1, s, hkv, d),
+                                        (1, s, hkv, d)], dtype, seed=s + w)
+            body = ("hopper_launches" if dtype == bf16
+                    and d in kernel.HOPPER_HEAD_DIMS else "cuda_core_launches")
+            before = (getattr(fa, body), fa.window_launches, fa.lse_launches)
+            got = fa(q, k, v, window=w, return_lse=lse)
+            plain = ref.flash_attention(q.float(), k.float(), v.float(),
+                                        window=w, return_lse=lse)
+            self.sync()
+            after = (getattr(fa, body), fa.window_launches, fa.lse_launches)
+            if not self.rehearse:
+                self.check(after == (before[0] + 1, before[1] + 1,
+                                     before[2] + lse),
+                           f"flash window {key}: counts {before} -> "
+                           f"{after}, expected the {body[:-9]} body, "
+                           f"windowed")
+            out, plain_out = (got[0], plain[0]) if lse else (got, plain)
+            rel = ATTN_REL if dtype == bf16 else ATTN_F32_REL
+            err = float((out.float() - plain_out).abs().max())
+            bound = rel * max(1.0, float(plain_out.abs().max()))
+            lse_err = float((got[1] - plain[1]).abs().max()) if lse else None
+            del plain, plain_out
+            print(f"  flash window (1, {s}, {hq}/{hkv}, {d}) {label}, W {w}, "
+                  f"{body[:-9]} body{', lse' if lse else ''}: "
+                  f"max|kernel-plain f32|={err:.3e} (bound {bound:.3e})"
+                  + (f", lse {lse_err:.3e} (bound {LSE_ATOL[label]:.0e})"
+                     if lse else ""))
+            self.check(err <= bound and (not lse
+                                         or lse_err <= LSE_ATOL[label]),
+                       f"flash window {key} disagrees with plain")
+            mask = torch.ones((s, s), dtype=torch.bool,
+                              device=self.device).tril().triu(1 - w)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+            def windowed():
+                return fa(q, k, v, window=w, return_lse=lse)
+
+            def causal():
+                return fa(q, k, v, return_lse=lse)
+            iters = 5 if s > 4096 else 20
+            ks, ls = self.interleaved(windowed, sdpa, iters)
+            ks2, cs = self.interleaved(windowed, causal, iters)
+            plain_ms = self.time_ms(lambda: ref.flash_attention(
+                q, k, v, window=w, return_lse=lse), 2)
+            el = 2 if dtype == bf16 else 4
+            nbytes = (2 * hq + 2 * hkv) * s * d * el + (hq * s * 4 if lse
+                                                         else 0)
+            pairs = kernel.attended_pairs_np(s, True, w)
+            flops = 4 * hq * d * pairs
+            t_bytes = nbytes / PEAK_BYTES_PER_S
+            t_ops = flops / (PEAK_BF16_FLOPS if dtype == bf16
+                             else PEAK_FLOPS["float32"])
+            bound_ms = max(t_bytes, t_ops) * 1e3
+            bound_by = "bytes" if t_bytes > t_ops else "operations"
+            print(f"    in turns: windowed {ks[0]:.4f}, {ks[1]:.4f} ms, SDPA "
+                  f"with the window mask {ls[0]:.4f}, {ls[1]:.4f} ms; "
+                  f"windowed {ks2[0]:.4f}, {ks2[1]:.4f} ms, causal (no "
+                  f"window) {cs[0]:.4f}, {cs[1]:.4f} ms; plain "
+                  f"{plain_ms:.4f} ms; bound {bound_ms:.5f} ms ({pairs} "
+                  f"pairs a head of {s * (s + 1) // 2} causal, "
+                  f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP: bound "
+                  f"by {bound_by})")
+            self.rows[("flash_attention", key)] = dict(
+                ms=sum(ks) / 2, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=err, library_ms=sum(ls) / 2,
+                library_computes="SDPA with the boolean window mask",
+                causal_ms=sum(cs) / 2, turns_ms=ks + ks2,
+                library_turns_ms=ls, causal_turns_ms=cs, window=w,
+                pairs=pairs, body=body[:-9], lse_max_abs_err=lse_err,
+                shape=f"1x{s}x{hq}/{hkv}x{d}")
+
+    def decode_fp8_vs_plain(self):
+        """The decode kernel over float8 caches with and without first
+        rows, against its plain version: 8 slots x 2,048 rows at
+        qwen3_1_7b's 16/8 x 128 and qwen2_5_32b's 40/8 x 128 (groups of 5:
+        the rep > 4 path), e4m3 and e5m2 caches, without first rows and
+        with first rows at 0, inside the length and equal to it; each split
+        into 1, 2 and 4 chunks a sequence and into the wrapper's own; out
+        and lse held to the plain version's on the same bytes, every call
+        counted as float8 (and windowed). Timed at the wrapper's chunk in
+        turns with the bfloat16-cache kernel on the same rows, and with
+        SDPA on the bfloat16 cache with the rows masked, beside the byte
+        bound at one byte a cached value."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels.decode_attention import kernel, ref
+        self.free_full_model()
+        da = kernel.decode_attention
+        for arch in ("qwen3_1_7b", "qwen2_5_32b"):
+            cfg = self.llm_config(arch=arch)
+            hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+            b, s_max = (8, 64) if self.rehearse else (8, 2048)
+            q, kc, vc = self.attn_inputs([(b, hq, d), (b, s_max, hkv, d),
+                                          (b, s_max, hkv, d)],
+                                         torch.bfloat16, seed=9)
+            lens = [1, s_max, s_max + 37, s_max // 2 + 3, s_max // 4 + 1, 64,
+                    3 * s_max // 4 - 5, s_max - 1]
+            valid = [min(n, s_max) for n in lens]
+            # first rows: 0, inside the length (past whole chunks at every
+            # split), equal to it (no row)
+            starts = [0, 0, valid[2] - 300, valid[3] // 2, valid[4] - 1, 37,
+                      valid[6], valid[7] - 700]
+            starts = [max(0, min(f, n)) for f, n in zip(starts, valid)]
+            kv_len = torch.tensor(lens, dtype=torch.int32, device=self.device)
+            first = torch.tensor(starts, dtype=torch.int32,
+                                 device=self.device)
+            for cache in FP8_CACHES:
+                dt = getattr(torch, cache)
+                k8, v8 = kc.to(dt), vc.to(dt)
+                tag = cache.split("_")[1][:4]           # e4m3, e5m2
+                for start in (None, first):
+                    plain, plain_lse = ref.decode_attention(
+                        q.float(), k8.float(), v8.float(), kv_len,
+                        kv_start=start, return_lse=True)
+                    worst, worst_lse = 0.0, 0.0
+                    for n_chunks in (1, 2, 4, None):
+                        chunk = (s_max // n_chunks if n_chunks
+                                 else kernel.chunk_rows(b, s_max, hkv))
+                        before = (da.launches, da.window_launches,
+                                  da.fp8_launches)
+                        with mock.patch.object(kernel, "chunk_rows",
+                                               lambda *a, c=chunk: c):
+                            got, lse = da(q, k8, v8, kv_len, kv_start=start,
+                                          return_lse=True)
+                        self.sync()
+                        if not self.rehearse:
+                            self.check(
+                                (da.launches, da.window_launches,
+                                 da.fp8_launches) == (
+                                    before[0] + 1,
+                                    before[1] + (start is not None),
+                                    before[2] + 1),
+                                f"decode {cache} launch counts")
+                        worst = max(worst, float(
+                            (got.float() - plain).abs().max()))
+                        same_inf = torch.equal(torch.isinf(lse),
+                                               torch.isinf(plain_lse))
+                        self.check(same_inf, f"decode {cache}: the heads "
+                                             f"with no row differ")
+                        fin = torch.isfinite(plain_lse)
+                        worst_lse = max(worst_lse, float(
+                            (lse[fin] - plain_lse[fin]).abs().max()))
+                    bound = ATTN_REL * max(1.0, float(plain.abs().max()))
+                    what = (f"decode {b}x{s_max} {hq}/{hkv} x {d}, {cache}"
+                            f"{', first rows' if start is not None else ''}")
+                    print(f"  {what}, 1/2/4 chunks and the wrapper's: "
+                          f"max|kernel-plain f32|={worst:.3e} (bound "
+                          f"{bound:.3e}), lse {worst_lse:.3e} (bound "
+                          f"{LSE_ATOL['bfloat16']:.0e})")
+                    self.check(worst <= bound
+                               and worst_lse <= LSE_ATOL["bfloat16"],
+                               f"{what} disagrees with plain")
+                    lo = start if start is not None else torch.zeros_like(
+                        kv_len)
+                    rows = torch.arange(s_max, device=self.device)[None, :]
+                    mask = ((rows >= lo[:, None])
+                            & (rows < kv_len.clamp(max=s_max)[:, None]))
+                    mask = mask[:, None, None, :]
+                    qt = q[:, :, None, :]
+                    kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
+
+                    def sdpa():
+                        return F.scaled_dot_product_attention(
+                            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+                    def fp8(s_=start):
+                        return da(q, k8, v8, kv_len, kv_start=s_)
+
+                    def bf16(s_=start):
+                        return da(q, kc, vc, kv_len, kv_start=s_)
+                    ks, ls = self.interleaved(fp8, sdpa, 50)
+                    ks2, bs = self.interleaved(fp8, bf16, 50)
+                    plain_ms = self.time_ms(lambda: ref.decode_attention(
+                        q, k8, v8, kv_len, kv_start=start), 10)
+                    n_rows = sum(max(0, n - (f if start is not None else 0))
+                                 for f, n in zip(starts, valid))
+                    nbytes = (2 * n_rows * hkv * d + 2 * b * hq * d * 2
+                              + b * 4 * (1 + (start is not None)))
+                    flops = 4 * n_rows * hq * d
+                    bound_ms = max(nbytes / PEAK_BYTES_PER_S,
+                                   flops / PEAK_BF16_FLOPS) * 1e3
+                    print(f"    in turns: {cache} {ks[0]:.4f}, {ks[1]:.4f} ms,"
+                          f" SDPA (bf16 cache, rows masked) {ls[0]:.4f}, "
+                          f"{ls[1]:.4f} ms; {cache} {ks2[0]:.4f}, "
+                          f"{ks2[1]:.4f} ms, bf16 cache {bs[0]:.4f}, "
+                          f"{bs[1]:.4f} ms; plain {plain_ms:.4f} ms; bound "
+                          f"{bound_ms:.5f} ms ({n_rows} rows, "
+                          f"{nbytes / 1e6:.2f} MB at one byte a cached "
+                          f"value: bound by bytes)")
+                    key = self.row_key(
+                        tag + ("_window" if start is not None else ""), arch)
+                    self.rows[("decode_attention", key)] = dict(
+                        ms=sum(ks) / 2, plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by="bytes", max_abs_err=worst,
+                        lse_max_abs_err=worst_lse, library_ms=sum(ls) / 2,
+                        library_computes="SDPA on the bfloat16 cache",
+                        bf16_cache_ms=sum(bs) / 2, turns_ms=ks + ks2,
+                        library_turns_ms=ls, bf16_cache_turns_ms=bs,
+                        rows=n_rows, cache=cache,
+                        shape=f"{b}x{s_max}x{hq}/{hkv}x{d}")
+
+    def train_step_window(self):
+        """One ``build_train_step_torch`` step of full-width qwen3_1_7b
+        with a sliding window of ``TRAIN_STEP_WINDOW`` (the training
+        step's shapes: B 2 x S 2,048 in 2 microbatches, remat, flash blocks
+        of 1,024), after a warm-up step: counts set to 0 before it, every
+        flash launch on the Hopper body with lse and the window; prints
+        its loss and wall."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch.models import model as tmodel
+        from repro_torch.train import (OptimizerConfig,
+                                       build_train_step_torch,
+                                       make_train_state_torch)
+        self.free_full_model()
+        window = 32 if self.rehearse else TRAIN_STEP_WINDOW
+        cfg = dataclasses.replace(self.llm_config(), remat="full",
+                                  attn_flash_block=16 if self.rehearse
+                                  else 1024, sliding_window=window)
+        b, s, micro = (2, 64, 2) if self.rehearse else (2, 2048, 2)
+        oc = OptimizerConfig()
+        rng = np.random.default_rng(4)
+        batches = []
+        for _ in range(2):
+            tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)),
+                                     device=self.device)
+            batches.append({"tokens": tokens, "labels": tokens.roll(-1, 1)})
+        state = make_train_state_torch(
+            cfg, tmodel.init_params(cfg, 0, device=self.device), oc,
+            device=self.device)
+        step = build_train_step_torch(cfg, oc, micro, device=self.device)
+        state, first = step(state, batches[0])
+        self.sync()
+        counters = wrappers()
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batches[1])
+        self.sync()
+        wall = time.perf_counter() - t0
+        fa = counters["flash_attention"]
+        launches = {n: fn.launches for n, fn in counters.items()}
+        flash = dict(hopper=fa.hopper_launches, lse=fa.lse_launches,
+                     window=fa.window_launches)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        del state
+        self.free_full_model()
+        print(f"  {cfg.name}: {cfg.num_layers} layers, window {window}, B "
+              f"{b} x S {s} in {micro} microbatches: step 2 "
+              f"{wall * 1e3:.1f} ms ({b * s / wall:.0f} tokens/s), loss "
+              f"{metrics['loss']:.5f}, grad_norm {metrics['grad_norm']:.5f} "
+              f"(step 1 loss {float(first['loss']):.5f}); launches "
+              f"{launches}; flash {flash}")
+        self.paths["train_step_window"] = dict(
+            launches=launches, flash=flash, wall_s=wall, window=window,
+            tokens_per_s=b * s / wall, metrics=metrics,
+            first_loss=float(first["loss"]))
+        ln_v = float(np.log(cfg.vocab_size))
+        self.check(all(np.isfinite(v) for v in metrics.values())
+                   and metrics["grad_norm"] > 0
+                   and abs(metrics["loss"] - ln_v) < 1.0,
+                   f"windowed training metrics {metrics}")
+        if not self.rehearse:
+            n_flash = cfg.num_layers * micro * 2
+            want = dict.fromkeys(counters, 0)
+            want["flash_attention"] = n_flash
+            self.check(launches == want and flash == dict(
+                hopper=n_flash, lse=n_flash, window=n_flash),
+                f"windowed training launches {launches}, flash {flash}")
+
     def train_grads(self, cfg, params, batch):
         """(loss, {name: gradient}) of one forward and backward."""
         from repro_torch.models.model import forward_train_torch
@@ -3347,12 +3740,13 @@ class Smoke:
             p.grad = None
         return float(loss.detach()), grads
 
-    def train_vs_plain(self, arch):
-        """A 2-layer full-width ``arch`` in float32, B 2 x S 2,048: the
-        training forward and backward with the kernels, then with the
-        plain versions (flash's and ssd_scan's, patched where the model
-        calls them); the loss and every gradient held to 1e-4 x max|.|,
-        each kernel launched twice a layer (the recompute)."""
+    def train_vs_plain(self, arch, window=0):
+        """A 2-layer full-width ``arch`` in float32, B 2 x S 2,048 (with a
+        sliding window of ``window`` where given): the training forward
+        and backward with the kernels, then with the plain versions
+        (flash's and ssd_scan's, patched where the model calls them); the
+        loss and every gradient held to 1e-4 x max|.|, each kernel launched
+        twice a layer (the recompute)."""
         import numpy as np
         from repro_torch.kernels.flash_attention import ref as flash_ref
         from repro_torch.kernels.ssd_scan import ref as ssd_ref
@@ -3361,7 +3755,8 @@ class Smoke:
         from repro_torch.models import ssm as ssm_mod
         self.free_full_model()
         cfg = dataclasses.replace(self.llm_config(layers=2, arch=arch),
-                                  dtype="float32", param_dtype="float32")
+                                  dtype="float32", param_dtype="float32",
+                                  sliding_window=window)
         b, s = (2, 64) if self.rehearse else (2, 2048)
         if self.rehearse:
             cfg = dataclasses.replace(cfg, attn_flash_block=16)
@@ -3382,6 +3777,7 @@ class Smoke:
         kern_s = time.perf_counter() - t0
         launches = {n: fn.launches for n, fn in counters.items()}
         lse = counters["flash_attention"].lse_launches
+        windowed = counters["flash_attention"].window_launches
         with mock.patch.object(attention_mod, "flash_attention",
                                flash_ref.flash_attention), \
                 mock.patch.object(ssm_mod, "ssd_chunked_train", plain_ssd):
@@ -3396,17 +3792,20 @@ class Smoke:
             if ratio >= worst:
                 worst, worst_name = ratio, name
         loss_rel = abs(loss - want_loss) / abs(want_loss)
-        print(f"  2-layer {cfg.name} float32, B {b} x S {s}: loss kernels "
+        print(f"  2-layer {cfg.name} float32, B {b} x S {s}, window "
+              f"{window}, flash blocks {cfg.attn_flash_block}: loss kernels "
               f"{loss:.6f}, plain {want_loss:.6f} (rel {loss_rel:.2e}); "
               f"worst gradient |kernels-plain| / max|plain| {worst:.2e} "
               f"({worst_name}) over {len(want)} tensors (bound "
               f"{TRAIN_F32_REL:.0e}); forward+backward {kern_s:.3f} s with "
               f"kernels, {plain_s:.3f} s plain; launches {launches}, "
-              f"flash with lse {lse}")
-        self.paths[f"train_{arch}_vs_plain"] = dict(
+              f"flash with lse {lse}, windowed {windowed}")
+        self.paths[f"train_{arch}_vs_plain"
+                   + (f"_window{window}" if window else "")] = dict(
             loss=loss, plain_loss=want_loss, loss_rel=loss_rel,
             grad_worst_rel=worst, grad_worst=worst_name, launches=launches,
-            lse_launches=lse, wall_s=kern_s, plain_wall_s=plain_s)
+            lse_launches=lse, window_launches=windowed, window=window,
+            wall_s=kern_s, plain_wall_s=plain_s)
         self.check(np.isfinite(loss) and loss_rel <= TRAIN_F32_REL
                    and worst <= TRAIN_F32_REL,
                    f"{arch} training gradients with the kernels disagree "
@@ -3418,10 +3817,11 @@ class Smoke:
                      for i in range(cfg.num_layers)]
             want_launches["flash_attention"] = 2 * kinds.count("attn")
             want_launches["ssd_scan"] = 2 * kinds.count("mamba")
-            self.check(launches == want_launches
-                       and lse == want_launches["flash_attention"],
-                       f"training launches {launches} (lse {lse}), "
-                       f"expected {want_launches}")
+            n_flash = want_launches["flash_attention"]
+            self.check(launches == want_launches and lse == n_flash
+                       and windowed == (n_flash if window else 0),
+                       f"training launches {launches} (lse {lse}, "
+                       f"windowed {windowed}), expected {want_launches}")
             self.check(plain_launches == launches,
                        "the plain run launched a kernel")
 
@@ -4081,13 +4481,27 @@ class Smoke:
                    "shape": main["shape"], "dtype": dtype}
             row.update({key: v for key, v in main.items() if key not in row})
             # the other shapes and dtypes the phases measured
+            # the windowed and float8 launches of the paths that made them
+            for attr in VARIANT_COUNTS:
+                counts = {p: path["variants"][f"{name}.{attr}"]
+                          for p, path in self.paths.items()
+                          if f"{name}.{attr}" in path.get("variants", {})}
+                if any(counts.values()):
+                    row[attr] = sum(counts.values())
+                    row[f"{attr}_by_path"] = counts
             for variant, prefix in (("float32", "f32"),
                                     ("bfloat16_lse", "lse"),
                                     ("float32_lse", "f32_lse"),
                                     ("bfloat16_ragged", "ragged"),
                                     ("bfloat16_long", "long"),
                                     ("bfloat16_s512", "s512"),
-                                    ("bfloat16_s128", "s128")):
+                                    ("bfloat16_s128", "s128"),
+                                    ("bfloat16_window", "window"),
+                                    ("float32_window", "f32_window"),
+                                    ("bfloat16_window_lse", "window_lse"),
+                                    ("e4m3", "e4m3"), ("e5m2", "e5m2"),
+                                    ("e4m3_window", "e4m3_window"),
+                                    ("e5m2_window", "e5m2_window")):
                 other = self.rows.get((name, variant))
                 if other and variant != dtype:
                     row.update({f"{prefix}_{key}": v
@@ -4204,13 +4618,33 @@ def main(argv=None) -> int:
         if smoke.llm_config(arch=arch).frontend != "none":
             smoke.phase(f"frontend stub, {arch}",
                         lambda a=arch: smoke.frontend_stub(a))
+    # sliding windows and float8 KV caches: the two attention kernels'
+    # new variants, then qwen3_1_7b served with a window and an e4m3 cache
+    smoke.phase("flash_attention vs plain, sliding window",
+                smoke.flash_window_vs_plain)
+    smoke.phase("decode_attention vs plain, float8 cache and window",
+                smoke.decode_fp8_vs_plain)
+    window = ("serving path, qwen3_1_7b, sliding window and float8 cache",
+              "serving_window_fp8", smoke.window_opts())
+    smoke.phase(window[0], lambda: smoke.serving(path=window[1],
+                                                 opts=window[2]))
+    if window[0] not in smoke.failed:
+        smoke.phase(f"serving profile, {window[1]}",
+                    lambda: smoke.serving_profile(window[1]))
+    smoke.phase(f"{window[1]} serving, kernel vs plain",
+                lambda: smoke.serving_vs_plain(opts=window[2],
+                                               key=f"{window[1]}_vs_plain"))
     # the training step: flash's lse output, the 2-layer float32 steps
-    # kernels vs plain, then one full-width qwen3_1_7b step
+    # kernels vs plain, then one full-width qwen3_1_7b step; the same with
+    # a sliding window
     smoke.phase("flash_attention lse vs plain", smoke.flash_lse_vs_plain)
     for arch in ("qwen3_1_7b", "mamba2_1_3b"):
         smoke.phase(f"training, kernel vs plain, {arch}",
                     lambda a=arch: smoke.train_vs_plain(a))
     smoke.phase("training step", smoke.train_step)
+    smoke.phase("training, kernel vs plain, sliding window",
+                lambda: smoke.train_vs_plain("qwen3_1_7b", TRAIN_WINDOW))
+    smoke.phase("training step, sliding window", smoke.train_step_window)
     # the training loop (checkpoint, restart) and the elastic re-solve of
     # the scheduler's fleet after pod failures
     smoke.phase("training loop", smoke.train_loop)

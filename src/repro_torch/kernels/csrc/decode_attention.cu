@@ -2,13 +2,25 @@
 //
 // Replaces the TPU kernel repro/kernels/decode_attention/kernel.py::
 // _decode_kernel (entry decode_attention_grouped). For q (B, Hq, D), the
-// caches k, v (B, S_max, Hkv, D) and kv_len (B,) int32 on the device:
-//     o[b, h] = sum_{j < L_b} softmax_j(scale * q[b, h] . k[b, j, hk]) v[b, j, hk]
-// with hk = h / (Hq / Hkv) and L_b = kv_len[b] clamped to [0, S_max], in
-// float32 with the output rounded once to q's type (float32 or bfloat16).
-// The TPU kernel takes one scalar kv_len; one length per sequence is what
-// the model's decode masks (repro/models/attention.py:316-317), and with
-// equal lengths it is the TPU kernel's function. L_b = 0 gives zeros.
+// caches k, v (B, S_max, Hkv, D), kv_len (B,) int32 and optionally kv_start
+// (B,) int32 on the device:
+//     o[b, h] = sum_{F_b <= j < L_b} softmax_j(scale * q[b, h] . k[b, j, hk]) v[b, j, hk]
+// with hk = h / (Hq / Hkv), L_b = kv_len[b] clamped to [0, S_max] and F_b =
+// kv_start[b] clamped to [0, L_b] (0 without kv_start), in float32 with the
+// output rounded once to q's type (float32 or bfloat16). The TPU kernel
+// takes one scalar kv_len; one length per sequence is what the model's
+// decode masks (repro/models/attention.py:316-317), and with equal lengths
+// it is the TPU kernel's function. A first valid row per sequence is the
+// model's sliding window (:88-89, the window measured from the batch's
+// largest position, as the reference's decode does). No valid row (F_b =
+// L_b) gives zeros.
+//
+// The caches are in q's type, or both float8 (e4m3 or e5m2) under a
+// bfloat16 or float32 q: the reference's quantized KV cache, dequantised
+// on read by a plain cast (:78-80). The kernel loads the float8 bytes and
+// converts them in registers (cvt to half pairs, then float32), which is
+// exact: every e4m3 and e5m2 value is a half, a bfloat16 and a float32
+// value. A float8 cache moves half the bytes of a bfloat16 one.
 //
 // What bounds it on an H100: reading the valid prefix of the cache once,
 // 2 L_b Hkv D elements per sequence, against 4 L_b Hq D operations: about
@@ -29,7 +41,9 @@
 // strides, 16 bytes a lane (8 bf16 or 4 float32 columns; 8 bytes for query
 // groups of 8 or more, for registers): LPR lanes cover one row, so a warp
 // reads 32 / LPR rows a load and keeps U loads of K and of V in flight per
-// lane. A row wider than a warp's packs (head dim 256 in float32, or in
+// lane (float8 caches: 16 bytes are 16 columns for groups of 1-2, and the
+// columns a lane holds stay bfloat16's, 8 or 4 bytes a load, for larger
+// groups, whose query and accumulator registers grow with the group). A row wider than a warp's packs (head dim 256 in float32, or in
 // bf16 at groups past 4: 64 packs of 4 columns) gives each of the 32 lanes
 // NPK = 2 packs of it, 32 packs apart, so every load of the warp stays one
 // contiguous span of the row. Each lane keeps the running max, sum and accumulator of its row
@@ -50,8 +64,12 @@
 // between it and its bound: each warp waits for its loads before it
 // computes on them, so with ~4 blocks of 4 warps per SM it reads 1.4-2.4 TB/s
 // (chip_smoke.py, H100 80GB HBM3 at 700 W); a cp.async or TMA ring in
-// shared memory would keep more bytes in flight.
+// shared memory would keep more bytes in flight. A block whose chunk
+// ends at or before F_b exits at once, as one past L_b does, and the merge
+// takes the chunks from the one holding F_b.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
@@ -81,8 +99,21 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// VEC consecutive elements held as 32-bit words (one float32 or two bf16
-// each), loaded as one 16- or 8-byte access where the address allows
+// the float8 storage types' interpretation for the converting cvt
+template <typename T>
+struct Fp8Kind;
+template <>
+struct Fp8Kind<__nv_fp8_e4m3> {
+  static constexpr __nv_fp8_interpretation_t value = __NV_E4M3;
+};
+template <>
+struct Fp8Kind<__nv_fp8_e5m2> {
+  static constexpr __nv_fp8_interpretation_t value = __NV_E5M2;
+};
+
+// VEC consecutive elements held as 32-bit words (one float32, two bf16 or
+// four float8 each), loaded as one 16-, 8- or 4-byte access where the
+// address allows
 __device__ __forceinline__ uint32_t word(const float* p, int w) {
   return __float_as_uint(p[w]);
 }
@@ -90,43 +121,77 @@ __device__ __forceinline__ uint32_t word(const __nv_bfloat16* p, int w) {
   return (uint32_t)__bfloat16_as_ushort(p[2 * w]) |
          ((uint32_t)__bfloat16_as_ushort(p[2 * w + 1]) << 16);
 }
+template <typename T>
+__device__ __forceinline__ uint32_t word(const T* p, int w) {  // float8
+  const uint8_t* b = reinterpret_cast<const uint8_t*>(p) + 4 * w;
+  return (uint32_t)b[0] | ((uint32_t)b[1] << 8) | ((uint32_t)b[2] << 16) |
+         ((uint32_t)b[3] << 24);
+}
+
+// two float8 values (the low 16 bits of x, the lower byte first) as
+// float32: float8 -> half pair (one cvt) -> float32 pair, both exact
+template <typename T>
+__device__ __forceinline__ float2 fp8x2_to_float2(uint32_t x) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      (__nv_fp8x2_storage_t)(x & 0xffffu), Fp8Kind<T>::value);
+  return __half22float2(__half2(h));
+}
 
 template <typename T, int VEC>
 struct Pack {
   static constexpr int WORDS = VEC * (int)sizeof(T) / 4;
-  static_assert(WORDS == 4 || WORDS == 2, "16- or 8-byte packs");
+  static_assert(WORDS == 4 || WORDS == 2 || WORDS == 1,
+                "16-, 8- or 4-byte packs");
   uint32_t w[WORDS];
 
   // vec: the address is aligned to the pack (one load); else element-wise
   __device__ __forceinline__ void load(const T* p, bool vec) {
-    if (vec && WORDS == 4) {
-      const uint4 x = *reinterpret_cast<const uint4*>(p);
-      w[0] = x.x;
-      w[1] = x.y;
-      w[WORDS - 2] = x.z;
-      w[WORDS - 1] = x.w;
-    } else if (vec) {
-      const uint2 x = *reinterpret_cast<const uint2*>(p);
-      w[0] = x.x;
-      w[WORDS - 1] = x.y;
+    if constexpr (WORDS == 4) {
+      if (vec) {
+        const uint4 x = *reinterpret_cast<const uint4*>(p);
+        w[0] = x.x;
+        w[1] = x.y;
+        w[2] = x.z;
+        w[3] = x.w;
+        return;
+      }
+    } else if constexpr (WORDS == 2) {
+      if (vec) {
+        const uint2 x = *reinterpret_cast<const uint2*>(p);
+        w[0] = x.x;
+        w[1] = x.y;
+        return;
+      }
     } else {
-#pragma unroll
-      for (int i = 0; i < WORDS; ++i) w[i] = word(p, i);
+      if (vec) {
+        w[0] = *reinterpret_cast<const uint32_t*>(p);
+        return;
+      }
     }
+#pragma unroll
+    for (int i = 0; i < WORDS; ++i) w[i] = word(p, i);
   }
   __device__ __forceinline__ void zero() {
 #pragma unroll
     for (int i = 0; i < WORDS; ++i) w[i] = 0u;
   }
-  // bf16 -> float32 is exact: the 16 bits become the high half
+  // bf16 -> float32 is exact: the 16 bits become the high half; float8 ->
+  // float32 too (fp8x2_to_float2)
   __device__ __forceinline__ void unpack(float* out) const {
 #pragma unroll
     for (int i = 0; i < WORDS; ++i) {
-      if (sizeof(T) == 4) {
+      if constexpr (sizeof(T) == 4) {
         out[i] = __uint_as_float(w[i]);
-      } else {
+      } else if constexpr (sizeof(T) == 2) {
         out[2 * i] = __uint_as_float(w[i] << 16);
         out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+      } else {
+        const float2 lo = fp8x2_to_float2<T>(w[i]);
+        const float2 hi = fp8x2_to_float2<T>(w[i] >> 16);
+        out[4 * i] = lo.x;
+        out[4 * i + 1] = lo.y;
+        out[4 * i + 2] = hi.x;
+        out[4 * i + 3] = hi.y;
       }
     }
   }
@@ -138,15 +203,26 @@ struct Shape {
   float qscale;                   // scale * log2 e
 };
 
+// the valid rows [first, len) of sequence b: len = kv_len[b] clamped to
+// [0, S_max], first = kv_start[b] (0 without it) clamped to [0, len]
+__device__ __forceinline__ int2 valid_rows(const int* kv_len,
+                                           const int* kv_start, int b,
+                                           int s_max) {
+  const int len = min(max(kv_len[b], 0), s_max);
+  const int first = kv_start == nullptr ? 0 : min(max(kv_start[b], 0), len);
+  return make_int2(first, len);
+}
+
 // rows of kv head `blockIdx.y` of sequence `blockIdx.z` in chunk
-// `blockIdx.x`; REP: a power of two >= rep (registers are sized for it);
-// NPK: packs of a row a lane holds (1, or 2 when lpr = 32 lanes of VEC
-// columns do not cover D)
-template <typename T, int REP, int VEC, int NPK>
+// `blockIdx.x`; TQ: q's type, T: the caches'; REP: a power of two >= rep
+// (registers are sized for it); NPK: packs of a row a lane holds (1, or 2
+// when lpr = 32 lanes of VEC columns do not cover D)
+template <typename TQ, typename T, int REP, int VEC, int NPK>
 __global__ void __launch_bounds__(NT) decode_split_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
+    const TQ* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const int* __restrict__ kv_len,
-    float* __restrict__ part, Shape sh, int vec) {
+    const int* __restrict__ kv_start, float* __restrict__ part, Shape sh,
+    int vec) {
   using P = Pack<T, VEC>;
   constexpr int NV = NPK * VEC;             // columns a lane holds
   // row loads in flight per lane: 4 packs of K and of V, 2 for wide groups
@@ -155,12 +231,12 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(
   float* smem = reinterpret_cast<float*>(smem4);   // [NWARP][rep][d + 2]
 
   const int c = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
-  const int len = min(max(kv_len[b], 0), sh.s_max);
-  const int r0 = c * sh.chunk;
+  const int2 rows = valid_rows(kv_len, kv_start, b, sh.s_max);
+  const int r0 = max(c * sh.chunk, rows.x);
+  const int r1 = min(c * sh.chunk + sh.chunk, rows.y);
   const int rep = sh.rep, d = sh.d, lpr = sh.lpr;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  if (r0 >= len) return;                     // nothing of this chunk is valid
-  const int r1 = min(r0 + sh.chunk, len);
+  if (r0 >= r1) return;                      // nothing of this chunk is valid
   const int rpw = 32 / lpr;                  // rows a warp reads per load
   // pack p of this lane covers columns col + p * pstride .. + VEC - 1
   const int grp = lane / lpr, col = (lane % lpr) * VEC;
@@ -302,7 +378,7 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(
     float mm = -INFINITY;
     for (int w = 0; w < NWARP; ++w)
       mm = fmaxf(mm, smem[(w * rep + r) * (d + 2)]);
-    float num = 0.f, den = 0.f;              // row r0 < len: mm is finite
+    float num = 0.f, den = 0.f;              // row r0 < r1: mm is finite
     for (int w = 0; w < NWARP; ++w) {
       const float* sr = smem + (w * rep + r) * (d + 2);
       const float f = exp2f(sr[0] - mm);     // an empty warp gives 0
@@ -326,14 +402,19 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(
 // through shared memory; many small blocks keep many loads in flight
 template <typename T>
 __global__ void __launch_bounds__(NT_MERGE) decode_merge_kernel(
-    const int* __restrict__ kv_len, const float* __restrict__ part,
-    T* __restrict__ o, float* __restrict__ lse, Shape sh) {
+    const int* __restrict__ kv_len, const int* __restrict__ kv_start,
+    const float* __restrict__ part, T* __restrict__ o,
+    float* __restrict__ lse, Shape sh) {
   constexpr int NW = NT_MERGE / MERGE_COLS;
   __shared__ float s_st[3][NW][MERGE_COLS];
   const int g = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, lc = tid % MERGE_COLS, w = tid / MERGE_COLS;
-  const int len = min(max(kv_len[b], 0), sh.s_max);
-  const int nv = (len + sh.chunk - 1) / sh.chunk;   // chunks that wrote
+  const int2 rows = valid_rows(kv_len, kv_start, b, sh.s_max);
+  // the chunks that wrote: c0 (holding the first valid row) .. nv - 1,
+  // none when no row is valid
+  const bool any = rows.x < rows.y;
+  const int c0 = any ? rows.x / sh.chunk : 0;
+  const int nv = any ? (rows.y + sh.chunk - 1) / sh.chunk : 0;
   const int rep = sh.rep, d = sh.d;
   const int idx = blockIdx.z * MERGE_COLS + lc;      // r * d + column
   const bool act = idx < rep * d;
@@ -344,7 +425,7 @@ __global__ void __launch_bounds__(NT_MERGE) decode_merge_kernel(
   float m = -INFINITY, num = 0.f, den = 0.f;
   if (act) {
 #pragma unroll 4
-    for (int c = w; c < nv; c += NW) {
+    for (int c = c0 + w; c < nv; c += NW) {
       const float mc = pr[c * cs], lcs = pr[c * cs + 1];
       const float ac = pr[c * cs + 2 + cc];
       const float mn = fmaxf(m, mc);               // finite: mc is
@@ -362,18 +443,18 @@ __global__ void __launch_bounds__(NT_MERGE) decode_merge_kernel(
     float mm = -INFINITY;
     for (int i = 0; i < NW; ++i) mm = fmaxf(mm, s_st[0][i][lc]);
     float tn = 0.f, td = 0.f;
-    if (nv)                                   // L_b = 0: the output is 0
+    if (any)                          // no valid row: the output is 0
       for (int i = 0; i < NW; ++i) {
         const float f = exp2f(s_st[0][i][lc] - mm);   // an idle warp: 0
         tn = fmaf(f, s_st[1][i][lc], tn);
         td = fmaf(f, s_st[2][i][lc], td);
       }
     o[b * sh.osb + (g * rep + r) * sh.osh + cc] =
-        from_f<T>(nv ? tn / td : 0.f);
+        from_f<T>(any ? tn / td : 0.f);
     // lse (B, Hq), contiguous: the scores are in log2 units
     if (lse != nullptr && cc == 0)
       lse[b * gridDim.x * rep + g * rep + r] =
-          nv ? (mm + log2f(td)) / LOG2E : -INFINITY;
+          any ? (mm + log2f(td)) / LOG2E : -INFINITY;
   }
 }
 
@@ -381,46 +462,77 @@ size_t smem_bytes(int rep, int d) {
   return sizeof(float) * (size_t)(NWARP * rep * (d + 2));
 }
 
-template <typename T, int REP, int VEC, int NPK>
-int launch_rep(const T* q, const T* k, const T* v, const int* kv_len, T* o,
-               float* lse, float* part, const Shape& sh, int batch, int hkv,
-               int vec, cudaStream_t stream) {
+template <typename TQ, typename T, int REP, int VEC, int NPK>
+int launch_rep(const TQ* q, const T* k, const T* v, const int* kv_len,
+               const int* kv_start, TQ* o, float* lse, float* part,
+               const Shape& sh, int batch, int hkv, int vec,
+               cudaStream_t stream) {
   const size_t smem = smem_bytes(sh.rep, sh.d);
-  auto split = decode_split_kernel<T, REP, VEC, NPK>;
+  auto split = decode_split_kernel<TQ, T, REP, VEC, NPK>;
   cudaError_t err = cudaFuncSetAttribute(
       split, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   split<<<dim3(sh.nchunk, hkv, batch), NT, smem, stream>>>(
-      q, k, v, kv_len, part, sh, vec);
+      q, k, v, kv_len, kv_start, part, sh, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 mgrid(hkv, batch, (sh.rep * sh.d + MERGE_COLS - 1) / MERGE_COLS);
-  decode_merge_kernel<T><<<mgrid, NT_MERGE, 0, stream>>>(kv_len, part, o,
-                                                         lse, sh);
+  decode_merge_kernel<TQ><<<mgrid, NT_MERGE, 0, stream>>>(
+      kv_len, kv_start, part, o, lse, sh);
   return (int)cudaGetLastError();
 }
 
 // NPK: 2 where 32 lanes of VEC columns do not cover D (VEC 4 past D 128)
-template <typename T, int REP, int VEC>
-int launch_npk(const T* q, const T* k, const T* v, const int* kv_len, T* o,
-               float* lse, float* part, const Shape& sh, int batch, int hkv,
-               int vec, cudaStream_t stream) {
+template <typename TQ, typename T, int REP, int VEC>
+int launch_npk(const TQ* q, const T* k, const T* v, const int* kv_len,
+               const int* kv_start, TQ* o, float* lse, float* part,
+               const Shape& sh, int batch, int hkv, int vec,
+               cudaStream_t stream) {
   if constexpr (32 * VEC < MAX_D) {
     if (sh.lpr * VEC < sh.d)
-      return launch_rep<T, REP, VEC, 2>(q, k, v, kv_len, o, lse, part, sh,
-                                        batch, hkv, vec, stream);
+      return launch_rep<TQ, T, REP, VEC, 2>(q, k, v, kv_len, kv_start, o,
+                                            lse, part, sh, batch, hkv, vec,
+                                            stream);
   }
-  return launch_rep<T, REP, VEC, 1>(q, k, v, kv_len, o, lse, part, sh, batch,
-                                    hkv, vec, stream);
+  return launch_rep<TQ, T, REP, VEC, 1>(q, k, v, kv_len, kv_start, o, lse,
+                                        part, sh, batch, hkv, vec, stream);
 }
 
-// VEC: 16 bytes a lane, but 8 for bf16 query groups of 8 or more, whose
-// per-lane query and accumulator registers grow with the group
+// VEC (columns a lane loads at once): 16 bytes of the cache's type, but 8
+// bytes for bf16 query groups of 8 or more, whose per-lane query and
+// accumulator registers grow with the group; a float8 cache keeps bf16's
+// columns (16 bytes, 16 columns, only for groups of 1-2 and head dims
+// that 16 divides: a lane's pack must not cross the row's end)
 template <typename T>
-int launch(const T* q, const T* k, const T* v, const int* kv_len, T* o,
-           float* lse, float* part, const long long* st, int batch,
-           int s_max, int hq, int hkv, int d, float scale, int chunk,
-           void* stream) {
+int vec_cols(int rep, int d) {
+  if (sizeof(T) == 4 || rep > 4) return 4;
+  return sizeof(T) == 1 && rep <= 2 && d % 16 == 0 ? 16 : 8;
+}
+
+template <typename TQ, typename T, int REP>
+int launch_vec(const TQ* q, const T* k, const T* v, const int* kv_len,
+               const int* kv_start, TQ* o, float* lse, float* part,
+               const Shape& sh, int batch, int hkv, int vec, int vec_el,
+               cudaStream_t stream) {
+#define DECODE_VEC(VV)                                                       \
+  return launch_npk<TQ, T, REP, VV>(q, k, v, kv_len, kv_start, o, lse, part, \
+                                    sh, batch, hkv, vec, stream)
+  if constexpr (sizeof(T) == 4 || REP > 4) {
+    DECODE_VEC(4);
+  } else if constexpr (sizeof(T) == 1 && REP <= 2) {
+    if (vec_el == 16) DECODE_VEC(16);
+    DECODE_VEC(8);
+  } else {
+    DECODE_VEC(8);
+  }
+#undef DECODE_VEC
+}
+
+template <typename TQ, typename T>
+int launch(const TQ* q, const T* k, const T* v, const int* kv_len,
+           const int* kv_start, TQ* o, float* lse, float* part,
+           const long long* st, int batch, int s_max, int hq, int hkv, int d,
+           float scale, int chunk, void* stream) {
   if (batch <= 0 || s_max <= 0 || hq <= 0 || hkv <= 0 || hq % hkv ||
       hq / hkv > MAX_REP || d <= 0 || d % 8 || d > MAX_D || batch > 65535 ||
       hkv > 65535 || chunk <= 0)
@@ -433,8 +545,7 @@ int launch(const T* q, const T* k, const T* v, const int* kv_len, T* o,
   sh.s_max = s_max; sh.rep = rep; sh.d = d; sh.chunk = chunk;
   sh.nchunk = (s_max + chunk - 1) / chunk;
   sh.qscale = scale * LOG2E;
-  const bool wide = sizeof(T) == 2 && rep > 4;
-  const int vec_el = sizeof(T) == 4 ? 4 : (wide ? 4 : 8);
+  const int vec_el = vec_cols<T>(rep, d);
   int lpr = 1;                 // lanes per row: a power of 2, at most 32
   while (lpr < 32 && lpr * vec_el < d) lpr <<= 1;
   sh.lpr = lpr;
@@ -446,46 +557,40 @@ int launch(const T* q, const T* k, const T* v, const int* kv_len, T* o,
                   st[4] % vec_el == 0 && st[5] % vec_el == 0 &&
                   st[6] % vec_el == 0 && st[7] % vec_el == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  constexpr int V16 = 16 / sizeof(T);
-#define DECODE_CASE(RR, VV)                                                  \
-  return launch_npk<T, RR, VV>(q, k, v, kv_len, o, lse, part, sh, batch,   \
-                               hkv, vec, s)
-  if (rep <= 1) DECODE_CASE(1, V16);
-  if (rep <= 2) DECODE_CASE(2, V16);
-  if (rep <= 4) DECODE_CASE(4, V16);
-  if (rep <= 8) DECODE_CASE(8, 4);
-  DECODE_CASE(16, 4);
+#define DECODE_CASE(RR)                                                      \
+  return launch_vec<TQ, T, RR>(q, k, v, kv_len, kv_start, o, lse, part, sh,  \
+                               batch, hkv, vec, vec_el, s)
+  if (rep <= 1) DECODE_CASE(1);
+  if (rep <= 2) DECODE_CASE(2);
+  if (rep <= 4) DECODE_CASE(4);
+  if (rep <= 8) DECODE_CASE(8);
+  DECODE_CASE(16);
 #undef DECODE_CASE
 }
 
 }  // namespace
 
 // strides: 10 values in elements: q (batch, head); k (batch, seq, head);
-// v (batch, seq, head); o (batch, head). Head dims have stride 1. lse:
-// null, or a contiguous float32 (batch, Hq) for each head's log-sum-exp
-// of its scaled scores (-inf at kv_len 0). part:
+// v (batch, seq, head); o (batch, head). Head dims have stride 1. kv_start:
+// null, or a contiguous int32 (batch,) of each sequence's first valid row.
+// lse: null, or a contiguous float32 (batch, Hq) for each head's
+// log-sum-exp of its scaled scores (-inf where no row is valid). part:
 // float32 scratch of B * Hkv * ceil(S_max / chunk) * (Hq / Hkv) * (D + 2)
-// values.
-extern "C" int decode_attention_f32(const float* q, const float* k,
-                                    const float* v, const int* kv_len,
-                                    float* o, float* lse, float* part,
-                                    const long long* strides, int batch,
-                                    int s_max, int hq, int hkv, int d,
-                                    float scale, int chunk, void* stream) {
-  return launch<float>(q, k, v, kv_len, o, lse, part, strides, batch, s_max,
-                       hq, hkv, d, scale, chunk, stream);
-}
-
-extern "C" int decode_attention_bf16(const __nv_bfloat16* q,
-                                     const __nv_bfloat16* k,
-                                     const __nv_bfloat16* v,
-                                     const int* kv_len, __nv_bfloat16* o,
-                                     float* lse, float* part,
-                                     const long long* strides,
-                                     int batch, int s_max, int hq, int hkv,
-                                     int d, float scale, int chunk,
-                                     void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, kv_len, o, lse, part, strides,
-                               batch, s_max, hq, hkv, d, scale, chunk,
-                               stream);
-}
+// values. decode_attention_<q>_<cache>: the caches in float8 e4m3 or e5m2
+// under a q (and output) of bfloat16 or float32.
+#define DECODE_ENTRY(NAME, TQ, T)                                            \
+  extern "C" int NAME(const TQ* q, const T* k, const T* v,                   \
+                      const int* kv_len, const int* kv_start, TQ* o,         \
+                      float* lse, float* part, const long long* strides,     \
+                      int batch, int s_max, int hq, int hkv, int d,          \
+                      float scale, int chunk, void* stream) {                \
+    return launch<TQ, T>(q, k, v, kv_len, kv_start, o, lse, part, strides,   \
+                         batch, s_max, hq, hkv, d, scale, chunk, stream);    \
+  }
+DECODE_ENTRY(decode_attention_f32, float, float)
+DECODE_ENTRY(decode_attention_bf16, __nv_bfloat16, __nv_bfloat16)
+DECODE_ENTRY(decode_attention_bf16_e4m3, __nv_bfloat16, __nv_fp8_e4m3)
+DECODE_ENTRY(decode_attention_bf16_e5m2, __nv_bfloat16, __nv_fp8_e5m2)
+DECODE_ENTRY(decode_attention_f32_e4m3, float, __nv_fp8_e4m3)
+DECODE_ENTRY(decode_attention_f32_e5m2, float, __nv_fp8_e5m2)
+#undef DECODE_ENTRY

@@ -4,7 +4,9 @@
 // _flash_kernel (entry flash_attention_bhsd). For q (B, S, Hq, D) and
 // k, v (B, S, Hkv, D), query head h reads kv head h / (Hq / Hkv) and
 //     o[b, i, h] = sum_j softmax_j(scale * q[b, i, h] . k[b, j, hk]) v[b, j, hk]
-// over j <= i (causal) or all j < S, with float32 scores, softmax
+// over j <= i (causal) or all j < S, and with a sliding window W > 0 (causal
+// only) over i - W < j <= i, as the reference's model masks it
+// (repro/models/attention.py:88-89, :128-129, :169-170), with float32 scores, softmax
 // statistics and accumulator, and the output rounded once to q's type
 // (float32 or bfloat16), as the TPU kernel computes it; the Hopper body
 // also rounds the softmax weights to bfloat16 for the second product.
@@ -47,6 +49,20 @@
 //   the launch raises) and each thread holds 4 x 16 accumulators.
 // Both mask ragged S themselves (rows >= S are not written, columns >= S
 // score -inf), so nothing is padded.
+//
+// Sliding window (window > 0): a block's kv loop starts at the tile that
+// holds column q0 - W + 1, its first row's first key, so the tiles wholly
+// below the window are neither loaded nor multiplied; at S 8,192 with W
+// 4,096 that halves the work of the causal loop. The tiles crossing the
+// window's lower edge test the mask (col <= row - W scores -inf) beside
+// those crossing the diagonal or the end of S. A row is never wholly
+// masked: its diagonal is inside its window. In the Hopper body the
+// producer's TMA loop and the consumers' loop both run over the block's
+// tiles t_first .. ntiles - 1, and each stage index and mbarrier phase is
+// counted from the loop's own iteration (t - t_first), not from the tile
+// index, so the ring starts at stage 0, phase 0, wherever the window
+// starts; a warpgroup whose rows lie wholly above a tile of the block's
+// range (causal) or wholly past its window only releases that tile.
 //
 // The log-sum-exp of each row's scaled scores, lse = m + log(l) in float32
 // (B, Hq, S), is written when the caller passes an lse pointer (the
@@ -111,7 +127,7 @@ __global__ void __launch_bounds__(NT) flash_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
     Strides qs, Strides ks, Strides vs, Strides os, int seq, int rep, int d,
-    float scale, int causal) {
+    float scale, int causal, int window) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int ld = d + 1;
@@ -147,7 +163,9 @@ __global__ void __launch_bounds__(NT) flash_kernel(
   }
 
   const int kv_end = causal ? min(seq, q0 + BQ) : seq;
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
+  // with a window, from the tile holding the block's first key q0 - W + 1
+  const int kv_begin = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
+  for (int k0 = kv_begin; k0 < kv_end; k0 += BK) {
     const int kn = min(BK, seq - k0);
     __syncthreads();              // the last tile's K, V and P are consumed
     for (int idx = tid; idx < BK * d; idx += NT) {
@@ -182,7 +200,9 @@ __global__ void __launch_bounds__(NT) flash_kernel(
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = k0 + tx + 16 * j;
-        if (col >= seq || (causal && col > row)) s[i][j] = -INFINITY;
+        if (col >= seq || (causal && col > row) ||
+            (window > 0 && col <= row - window))
+          s[i][j] = -INFINITY;
         mx = fmaxf(mx, s[i][j]);
       }
       // the 16 threads of a row group are lanes 16 apart: xor 1..8
@@ -485,7 +505,7 @@ __global__ void __launch_bounds__(Tile<D, NWG>::THREADS, 1)
                        const __grid_constant__ CUtensorMap vmap,
                        __nv_bfloat16* __restrict__ o,
                        float* __restrict__ lse, Strides os, int seq,
-                       int rep, float scale_log2, int causal) {
+                       int rep, float scale_log2, int causal, int window) {
   using T = Tile<D, NWG>;
   constexpr int BK = T::BK;  // (the CUDA-core body's BK is 64)
   extern __shared__ uint8_t smem_raw[];
@@ -502,6 +522,9 @@ __global__ void __launch_bounds__(Tile<D, NWG>::THREADS, 1)
   const int q0 = qt * T::BQ;
   const int kv_end = causal ? min(seq, q0 + T::BQ) : seq;
   const int ntiles = (kv_end + BK - 1) / BK;
+  // the block's tiles are t_first .. ntiles - 1: with a window, from the
+  // one holding its first key q0 - W + 1
+  const int t_first = window > 0 ? max(0, q0 - window + 1) / BK : 0;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -523,9 +546,10 @@ __global__ void __launch_bounds__(Tile<D, NWG>::THREADS, 1)
 #pragma unroll
       for (int x = 0; x < T::BOXES; ++x)
         tma_load_4d(qs + x * T::BQ * 128, &qmap, qbar, x * 64, h, q0, b);
-      for (int t = 0; t < ntiles; ++t) {
-        const int s = t % T::STAGES;
-        mbar_wait(&empty[s], ((t / T::STAGES) & 1) ^ 1);
+      // stage and phase from the iteration i, not the tile t
+      for (int t = t_first; t < ntiles; ++t) {
+        const int i = t - t_first, s = i % T::STAGES;
+        mbar_wait(&empty[s], ((i / T::STAGES) & 1) ^ 1);
         mbar_expect_tx(&full[s], 2 * T::KV_BYTES);
         uint8_t* ks = kvs + s * 2 * T::KV_BYTES;
         uint8_t* vs = ks + T::KV_BYTES;
@@ -581,16 +605,19 @@ __global__ void __launch_bounds__(Tile<D, NWG>::THREADS, 1)
     // and l updated
     auto softmax = [&](int k0) {
       // log2-domain scores; sc[4 j + i]: row i < 2 ? r0 : r1, column
-      // k0 + 8 j + 2 tig + (i & 1). Only tiles crossing my rows' diagonal
-      // or the end of S test the mask.
+      // k0 + 8 j + 2 tig + (i & 1). Only tiles crossing my rows' diagonal,
+      // the end of S or my rows' window's lower edge test the mask.
       float mx[2] = {-INFINITY, -INFINITY};
-      if ((causal && k0 + BK - 1 > first) || k0 + BK > seq) {
+      if ((causal && k0 + BK - 1 > first) || k0 + BK > seq ||
+          (window > 0 && k0 <= last - window)) {
 #pragma unroll
         for (int e = 0; e < BK / 2; ++e) {
           const int row = (e & 2) ? r1 : r0;
           const int col = k0 + 8 * (e / 4) + 2 * tig + (e & 1);
           float x = sc[e] * scale_log2;
-          if (col >= seq || (causal && col > row)) x = -INFINITY;
+          if (col >= seq || (causal && col > row) ||
+              (window > 0 && col <= row - window))
+            x = -INFINITY;
           sc[e] = x;
           mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], x);
         }
@@ -633,12 +660,15 @@ __global__ void __launch_bounds__(Tile<D, NWG>::THREADS, 1)
         pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
       }
     };
-    // Tiles wholly above my rows (causal) come last: I only release them.
+    // Tiles wholly above my rows (causal) come last, tiles wholly below
+    // my rows' window (every column <= first - W) first: I only release
+    // them. Stage and phase count the iteration, as the producer's do.
     mbar_wait(qbar, 0);
-    for (int t = 0; t < ntiles; ++t) {
-      const int s = t % T::STAGES;
-      mbar_wait(&full[s], (t / T::STAGES) & 1);
-      if (!(causal && t * BK > last)) {
+    for (int t = t_first; t < ntiles; ++t) {
+      const int i = t - t_first, s = i % T::STAGES;
+      mbar_wait(&full[s], (i / T::STAGES) & 1);
+      if (!(causal && t * BK > last) &&
+          !(window > 0 && t * BK + BK - 1 <= first - window)) {
         wgmma_fence();
         issue_qk(s);
         wgmma_wait<0>();
@@ -737,7 +767,7 @@ int launch_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
                  const __nv_bfloat16* v, __nv_bfloat16* o, float* lse,
                  Strides qs, Strides ks, Strides vs, Strides os, int batch,
                  int seq, int hq, int hkv, float scale, int causal,
-                 cudaStream_t stream) {
+                 int window, cudaStream_t stream) {
   using T = Tile<D, NWG>;
   CUtensorMap qm, km, vm;
   int err = tensor_map(&qm, q, qs, D, hq, seq, batch, T::BQ);
@@ -759,7 +789,7 @@ int launch_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
   const dim3 grid((seq + T::BQ - 1) / T::BQ, hq, batch);
   flash_wgmma_kernel<D, NWG, LSE><<<grid, T::THREADS, T::SMEM, stream>>>(
       qm, km, vm, o, lse, os, seq, hq / hkv, scale * 1.4426950408889634f,
-      causal);
+      causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -767,7 +797,7 @@ template <typename T, int NC>
 int launch_nc(const T* q, const T* k, const T* v, T* o, float* lse,
               Strides qs, Strides ks, Strides vs, Strides os, int batch,
               int seq, int hq, int hkv, int d, float scale, int causal,
-              cudaStream_t stream) {
+              int window, cudaStream_t stream) {
   const size_t smem = smem_bytes(d);
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<T, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -775,16 +805,18 @@ int launch_nc(const T* q, const T* k, const T* v, T* o, float* lse,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((seq + BQ - 1) / BQ, hq, batch);
   flash_kernel<T, NC><<<grid, NT, smem, stream>>>(
-      q, k, v, o, lse, qs, ks, vs, os, seq, hq / hkv, d, scale, causal);
+      q, k, v, o, lse, qs, ks, vs, os, seq, hq / hkv, d, scale, causal,
+      window);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const T* q, const T* k, const T* v, T* o, float* lse,
            const long long* st, int batch, int seq, int hq, int hkv, int d,
-           float scale, int causal, void* stream) {
+           float scale, int causal, int window, void* stream) {
   if (batch <= 0 || seq <= 0 || hq <= 0 || hkv <= 0 || hq % hkv ||
-      d <= 0 || d % 8 || d > MAX_D || batch > 65535 || hq > 65535)
+      d <= 0 || d % 8 || d > MAX_D || batch > 65535 || hq > 65535 ||
+      window < 0 || (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
       vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
@@ -792,7 +824,7 @@ int launch(const T* q, const T* k, const T* v, T* o, float* lse,
 #define FLASH_CASE(NC)                                                    \
   case NC:                                                                \
     return launch_nc<T, NC>(q, k, v, o, lse, qs, ks, vs, os, batch, seq, \
-                            hq, hkv, d, scale, causal, s);
+                            hq, hkv, d, scale, causal, window, s);
   switch ((d + 15) / 16) {
     FLASH_CASE(1)
     FLASH_CASE(2)
@@ -820,10 +852,11 @@ int launch(const T* q, const T* k, const T* v, T* o, float* lse,
 int launch_hopper(const __nv_bfloat16* q, const __nv_bfloat16* k,
                   const __nv_bfloat16* v, __nv_bfloat16* o, float* lse,
                   const long long* st, int batch, int seq, int hq, int hkv,
-                  int d, float scale, int causal, int bq, void* stream) {
+                  int d, float scale, int causal, int window, int bq,
+                  void* stream) {
   if (batch <= 0 || seq <= 0 || hq <= 0 || hkv <= 0 || hq % hkv ||
       batch > 65535 || hq > 65535 || (d != 64 && d != 128) ||
-      (bq != 64 && bq != 128))
+      (bq != 64 && bq != 128) || window < 0 || (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
   const void* ptrs[4] = {q, k, v, o};
   for (int i = 0; i < 4; ++i)
@@ -838,10 +871,10 @@ int launch_hopper(const __nv_bfloat16* q, const __nv_bfloat16* k,
   if (d == D && bq == 64 * NWG)                                            \
     return lse ? launch_wgmma<D, NWG, true>(q, k, v, o, lse, qs, ks, vs,   \
                                             os, batch, seq, hq, hkv, scale, \
-                                            causal, s)                      \
+                                            causal, window, s)              \
                : launch_wgmma<D, NWG, false>(q, k, v, o, lse, qs, ks, vs,  \
                                              os, batch, seq, hq, hkv,      \
-                                             scale, causal, s);
+                                             scale, causal, window, s);
   FLASH_HOPPER_CASE(128, 2)
   FLASH_HOPPER_CASE(128, 1)
   FLASH_HOPPER_CASE(64, 2)
@@ -854,7 +887,7 @@ int launch_hopper(const __nv_bfloat16* q, const __nv_bfloat16* k,
 
 // strides: 12 values, (batch, seq, head) for q, k, v and o, in elements.
 // lse: a float32 (B, Hq, S) tensor to write each row's log-sum-exp into,
-// or null (serving) for none.
+// or null (serving) for none. window: 0 (none), or W > 0 with causal.
 // flash_attention_f32 and flash_attention_bf16 run the CUDA-core body;
 // flash_attention_bf16_hopper the TMA + wgmma body with blocks of bq query
 // rows (64 or 128).
@@ -862,9 +895,10 @@ extern "C" int flash_attention_f32(const float* q, const float* k,
                                    const float* v, float* o, float* lse,
                                    const long long* strides, int batch,
                                    int seq, int hq, int hkv, int d,
-                                   float scale, int causal, void* stream) {
+                                   float scale, int causal, int window,
+                                   void* stream) {
   return launch<float>(q, k, v, o, lse, strides, batch, seq, hq, hkv, d,
-                       scale, causal, stream);
+                       scale, causal, window, stream);
 }
 
 extern "C" int flash_attention_bf16(const __nv_bfloat16* q,
@@ -873,16 +907,16 @@ extern "C" int flash_attention_bf16(const __nv_bfloat16* q,
                                     float* lse, const long long* strides,
                                     int batch, int seq, int hq, int hkv,
                                     int d, float scale, int causal,
-                                    void* stream) {
+                                    int window, void* stream) {
   return launch<__nv_bfloat16>(q, k, v, o, lse, strides, batch, seq, hq, hkv,
-                               d, scale, causal, stream);
+                               d, scale, causal, window, stream);
 }
 
 extern "C" int flash_attention_bf16_hopper(
     const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
     __nv_bfloat16* o, float* lse, const long long* strides, int batch,
-    int seq, int hq, int hkv, int d, float scale, int causal, int bq,
-    void* stream) {
+    int seq, int hq, int hkv, int d, float scale, int causal, int window,
+    int bq, void* stream) {
   return launch_hopper(q, k, v, o, lse, strides, batch, seq, hq, hkv, d,
-                       scale, causal, bq, stream);
+                       scale, causal, window, bq, stream);
 }

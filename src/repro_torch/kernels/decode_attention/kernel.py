@@ -5,7 +5,16 @@ The kernel (``csrc/decode_attention.cu``, CUDA C++ for sm_90a) replaces
 ``repro/kernels/decode_attention/kernel.py::_decode_kernel``. It is built
 with ``nvcc`` and loaded through ``ctypes`` on the first call with a CUDA
 tensor; CPU tensors take the plain version in ``ref.py``, and nothing else
-does. ``decode_attention.launches`` counts the kernel's launches.
+does. ``decode_attention.launches`` counts the kernel's launches,
+``decode_attention.window_launches`` those given a first valid row per
+sequence (``kv_start``, the model's sliding window) and
+``decode_attention.fp8_launches`` those over float8 caches.
+
+The caches are in q's dtype, or both ``float8_e4m3fn`` or both
+``float8_e5m2`` under a bfloat16 or float32 q (the reference's quantized
+KV cache): the kernel reads the float8 bytes and converts them in
+registers, exactly, as the reference dequantises by a plain cast. Any
+other mix raises; nothing is cast before the kernel.
 
 On CPU tensors the plain version runs as one operator,
 ``torch.ops.repro_torch.decode_attention_plain`` (``_plain_torch``), with a
@@ -36,8 +45,14 @@ from . import ref
 #: query heads that may share one kv head
 MAX_HEAD_DIM = 256
 MAX_GROUP = 16
-_ENTRY = {torch.float32: "decode_attention_f32",
-          torch.bfloat16: "decode_attention_bf16"}
+#: (q dtype, cache dtype) -> the kernel's entry
+_ENTRY = {(torch.float32, torch.float32): "decode_attention_f32",
+          (torch.bfloat16, torch.bfloat16): "decode_attention_bf16",
+          (torch.bfloat16, torch.float8_e4m3fn): "decode_attention_bf16_e4m3",
+          (torch.bfloat16, torch.float8_e5m2): "decode_attention_bf16_e5m2",
+          (torch.float32, torch.float8_e4m3fn): "decode_attention_f32_e4m3",
+          (torch.float32, torch.float8_e5m2): "decode_attention_f32_e5m2"}
+FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
 #: blocks the split grid aims at (4 per SM of an H100, about as many as
 #: are resident at once), and its chunks' least rows
 TARGET_BLOCKS = 4 * 132
@@ -55,17 +70,20 @@ def chunk_rows(batch: int, s_max: int, hkv: int) -> int:
     return chunk
 
 
-def decode_attention(q, k_cache, v_cache, kv_len, *,
+def decode_attention(q, k_cache, v_cache, kv_len, *, kv_start=None,
                      sm_scale: float | None = None, return_lse: bool = False):
-    """q: (B, Hq, D); k_cache, v_cache: (B, S_max, Hkv, D), one dtype
-    (float32 or bfloat16) with q, each with a contiguous head dim (other
-    strides free); kv_len: (B,) int32, contiguous, on the same device, read
-    there (no host sync) and clamped to [0, S_max]. Returns a contiguous
-    (B, Hq, D) tensor of q's dtype; with ``return_lse`` also each head's
-    log-sum-exp of its scaled scores over the valid rows, a contiguous
-    float32 (B, Hq) tensor (-inf where kv_len is 0)."""
+    """q: (B, Hq, D), float32 or bfloat16; k_cache, v_cache: (B, S_max,
+    Hkv, D), both of q's dtype or both one float8 dtype, each with a
+    contiguous head dim (other strides free); kv_len and (optionally)
+    kv_start: (B,) int32, contiguous, on the same device, read there (no
+    host sync). Sequence b attends rows [F_b, L_b): L_b = kv_len[b] clamped
+    to [0, S_max], F_b = kv_start[b] (0 without it) clamped to [0, L_b].
+    Returns a contiguous (B, Hq, D) tensor of q's dtype; with
+    ``return_lse`` also each head's log-sum-exp of its scaled scores over
+    the valid rows, a contiguous float32 (B, Hq) tensor (-inf where no row
+    is valid, whose output is 0)."""
     if q.device.type == "cpu":
-        outs = _plain_torch(q, k_cache, v_cache, kv_len, sm_scale,
+        outs = _plain_torch(q, k_cache, v_cache, kv_len, kv_start, sm_scale,
                             return_lse)
         return tuple(outs) if return_lse else outs[0]
     if q.device.type != "cuda":
@@ -74,30 +92,35 @@ def decode_attention(q, k_cache, v_cache, kv_len, *,
         raise ValueError(f"decode_attention: q must be (B, Hq, D): "
                          f"{tuple(q.shape)}")
     b, hq, d = q.shape
-    if q.dtype not in _ENTRY:
-        raise TypeError(f"decode_attention takes float32 or bfloat16: "
-                        f"{q.dtype}")
+    entry = _ENTRY.get((q.dtype, k_cache.dtype))
+    if entry is None or v_cache.dtype != k_cache.dtype:
+        raise TypeError(f"decode_attention takes a float32 or bfloat16 q "
+                        f"with caches of its dtype or both float8 "
+                        f"(e4m3fn or e5m2): q {q.dtype}, k_cache "
+                        f"{k_cache.dtype}, v_cache {v_cache.dtype}")
     if k_cache.dim() != 4 or k_cache.shape[0] != b or k_cache.shape[3] != d:
         raise ValueError(f"decode_attention: k_cache must be (B, S_max, Hkv,"
                          f" D) = ({b}, S_max, Hkv, {d}): "
                          f"{tuple(k_cache.shape)}")
     s_max, hkv = k_cache.shape[1], k_cache.shape[2]
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        if t.device != q.device or t.dtype != q.dtype:
-            raise ValueError(f"decode_attention: {name} is {t.dtype} on "
-                             f"{t.device}, q is {q.dtype} on {q.device}")
+        if t.device != q.device:
+            raise ValueError(f"decode_attention: {name} is on {t.device}, "
+                             f"q on {q.device}")
         if t.stride(-1) != 1:
             raise ValueError(f"decode_attention: {name} needs a contiguous "
                              f"head dim (stride 1): strides {t.stride()}")
     if tuple(v_cache.shape) != tuple(k_cache.shape):
         raise ValueError(f"decode_attention: v_cache {tuple(v_cache.shape)}"
                          f" != k_cache {tuple(k_cache.shape)}")
-    if kv_len.device != q.device or kv_len.dtype != torch.int32 \
-            or tuple(kv_len.shape) != (b,) or not kv_len.is_contiguous():
-        raise ValueError(f"decode_attention: kv_len must be a contiguous "
-                         f"int32 tensor of shape ({b},) on {q.device}, got "
-                         f"{kv_len.dtype} {tuple(kv_len.shape)} on "
-                         f"{kv_len.device}")
+    for name, t in (("kv_len", kv_len), ("kv_start", kv_start)):
+        if t is not None and (t.device != q.device or t.dtype != torch.int32
+                              or tuple(t.shape) != (b,)
+                              or not t.is_contiguous()):
+            raise ValueError(f"decode_attention: {name} must be a "
+                             f"contiguous int32 tensor of shape ({b},) on "
+                             f"{q.device}, got {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}")
     if hkv == 0 or hq % hkv or hq // hkv > MAX_GROUP:
         raise ValueError(f"decode_attention: Hq {hq} must be a multiple of "
                          f"Hkv {hkv} at most {MAX_GROUP} times it")
@@ -121,9 +144,11 @@ def decode_attention(q, k_cache, v_cache, kv_len, *,
         *q.stride()[:2], *k_cache.stride()[:3], *v_cache.stride()[:3],
         *out.stride()[:2])
     with torch.cuda.device(q.device):
-        err = _entry(_ENTRY[q.dtype])(
+        err = _entry(entry)(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            kv_len.data_ptr(), out.data_ptr(),
+            kv_len.data_ptr(),
+            kv_start.data_ptr() if kv_start is not None else None,
+            out.data_ptr(),
             lse.data_ptr() if return_lse else None, part.data_ptr(), strides,
             b, s_max, hq, hkv, d, float(sm_scale), chunk,
             torch.cuda.current_stream().cuda_stream)
@@ -131,26 +156,35 @@ def decode_attention(q, k_cache, v_cache, kv_len, *,
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")
     decode_attention.launches += 1
+    if kv_start is not None:
+        decode_attention.window_launches += 1
+    if k_cache.dtype in FP8:
+        decode_attention.fp8_launches += 1
     return (out, lse) if return_lse else out
 
 
 decode_attention.launches = 0
+decode_attention.window_launches = 0
+decode_attention.fp8_launches = 0
 
 
 @torch.library.custom_op(
     "repro_torch::decode_attention_plain", mutates_args=(),
     schema="(Tensor q, Tensor k_cache, Tensor v_cache, Tensor kv_len, "
-           "float? sm_scale, bool return_lse) -> Tensor[]")
-def _plain_torch(q, k_cache, v_cache, kv_len, sm_scale, return_lse):
+           "Tensor? kv_start, float? sm_scale, bool return_lse) -> Tensor[]")
+def _plain_torch(q, k_cache, v_cache, kv_len, kv_start, sm_scale,
+                 return_lse):
     """The plain version (``ref.py``) as one operator: [out] or [out,
     lse]."""
     outs = ref.decode_attention(q, k_cache, v_cache, kv_len,
-                                sm_scale=sm_scale, return_lse=return_lse)
+                                kv_start=kv_start, sm_scale=sm_scale,
+                                return_lse=return_lse)
     return list(outs) if return_lse else [outs]
 
 
 @_plain_torch.register_fake
-def _plain_fake_torch(q, k_cache, v_cache, kv_len, sm_scale, return_lse):
+def _plain_fake_torch(q, k_cache, v_cache, kv_len, kv_start, sm_scale,
+                      return_lse):
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if not return_lse:
         return [out]
@@ -161,7 +195,8 @@ def _plain_fake_torch(q, k_cache, v_cache, kv_len, sm_scale, return_lse):
 @register_flop_formula(torch.ops.repro_torch.decode_attention_plain)
 def _plain_flops_np(q_shape, k_shape, *args, **kwargs) -> int:
     """The kernel's operations over the whole cache: q.k and p.v, 4 D a
-    (query head, row)."""
+    (query head, row); the lengths and first rows are data a trace cannot
+    read."""
     b, hq, d = q_shape
     return 4 * b * hq * d * k_shape[1]
 
@@ -169,7 +204,7 @@ def _plain_flops_np(q_shape, k_shape, *args, **kwargs) -> int:
 @functools.lru_cache(maxsize=None)
 def _entry(name):
     fn = getattr(_build.load("decode_attention"), name)
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_longlong)] \
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_longlong)] \
         + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

@@ -10,18 +10,27 @@ import torch
 from .kernel import decode_attention as _kernel
 
 
-def decode_attention(q, k_cache, v_cache, kv_len, *,
+def _per_sequence(n, b, device):
+    return torch.as_tensor(n, device=device).to(torch.int32).expand(
+        b).contiguous()
+
+
+def decode_attention(q, k_cache, v_cache, kv_len, *, kv_start=None,
                      sm_scale: float | None = None, return_lse: bool = False):
-    """q: (B, 1, Hq, D); k_cache, v_cache: (B, S_max, Hkv, D); kv_len: (B,)
-    or () int tensor (valid cache rows per sequence, on q's device).
-    Returns (B, 1, Hq, D) in q's dtype; the caches must share it. With
+    """q: (B, 1, Hq, D); k_cache, v_cache: (B, S_max, Hkv, D); kv_len and
+    (optionally) kv_start: (B,) or () int tensors (each sequence's valid
+    cache rows are [kv_start, kv_len), on q's device). Returns (B, 1, Hq,
+    D) in q's dtype; the caches share it or are both float8. With
     ``return_lse`` also the heads' log-sum-exps, float32 (B, Hq)."""
     b = q.shape[0]
-    kv_len = torch.as_tensor(kv_len, device=q.device).to(torch.int32)
-    kv_len = kv_len.expand(b).contiguous()
+    kv_len = _per_sequence(kv_len, b, q.device)
+    if kv_start is not None:
+        kv_start = _per_sequence(kv_start, b, q.device)
     if return_lse:
         out, lse = _kernel(q[:, 0], k_cache, v_cache, kv_len,
-                           sm_scale=sm_scale, return_lse=True)
+                           kv_start=kv_start, sm_scale=sm_scale,
+                           return_lse=True)
         return out[:, None], lse
-    out = _kernel(q[:, 0], k_cache, v_cache, kv_len, sm_scale=sm_scale)
+    out = _kernel(q[:, 0], k_cache, v_cache, kv_len, kv_start=kv_start,
+                  sm_scale=sm_scale)
     return out[:, None]

@@ -15,13 +15,17 @@ body, gemma_2b's head dim 256 among them (the Hopper body at 256 is a
 later redesign). ``flash_attention.launches`` counts every launch,
 ``flash_attention.hopper_launches`` and ``flash_attention.cuda_core_launches``
 each body's, ``flash_attention.lse_launches`` those that also wrote the
-rows' log-sum-exp (``return_lse=True``, the training path's forward).
+rows' log-sum-exp (``return_lse=True``, the training path's forward),
+``flash_attention.window_launches`` those with a sliding window
+(``window=W > 0``: row i attends keys i - W < j <= i; both bodies skip the
+kv tiles wholly below a block's window).
 
 On CPU tensors the plain version runs as one operator,
 ``torch.ops.repro_torch.flash_attention_plain`` (``_plain_torch``), with a
 fake implementation and a FLOP formula: a trace under a ``FakeTensorMode``
 (``launch/dryrun.py``) sees the kernel's inputs, outputs and operations
-(the causal half of the products), not the plain version's S x S scores.
+(the causal half of the products, or the windowed pairs), not the plain
+version's S x S scores.
 """
 from __future__ import annotations
 
@@ -78,16 +82,23 @@ def takes_hopper_body(q, k, v) -> bool:
                 for t in (q, k, v)))
 
 
-def flash_attention(q, k, v, *, causal: bool = True,
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     sm_scale: float | None = None, return_lse: bool = False):
     """q: (B, S, Hq, D); k, v: (B, S, Hkv, D), one dtype (float32 or
     bfloat16), one device, each with a contiguous head dim (other strides
-    free). Returns a contiguous (B, S, Hq, D) tensor of q's dtype; with
+    free). ``window`` W > 0 (causal only) keeps keys i - W < j <= i for
+    query row i, as the reference's ``sliding_window``; 0 keeps them all.
+    Returns a contiguous (B, S, Hq, D) tensor of q's dtype; with
     ``return_lse`` also each row's log-sum-exp of its scaled, masked
     scores, a contiguous float32 (B, Hq, S) tensor (``m + log(l)``, as the
     reference's ``_flash_fwd_scan`` returns it)."""
+    window = int(window)
+    if window < 0 or (window and not causal):
+        raise ValueError(f"flash_attention: a window must be >= 0 and "
+                         f"needs causal=True: window={window}, "
+                         f"causal={causal}")
     if q.device.type == "cpu":
-        outs = _plain_torch(q, k, v, causal, sm_scale, return_lse)
+        outs = _plain_torch(q, k, v, causal, window, sm_scale, return_lse)
         return tuple(outs) if return_lse else outs[0]
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu: {q.device}")
@@ -132,7 +143,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
         stream = torch.cuda.current_stream().cuda_stream
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 lse.data_ptr() if return_lse else None, strides, b, s, hq,
-                hkv, d, float(sm_scale), int(bool(causal)))
+                hkv, d, float(sm_scale), int(bool(causal)), window)
         if hopper:
             err = _entry("flash_attention_bf16_hopper")(
                 *args, block_rows(b, s, hq), stream)
@@ -146,6 +157,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
         flash_attention.hopper_launches += 1
     else:
         flash_attention.cuda_core_launches += 1
+    if window:
+        flash_attention.window_launches += 1
     if return_lse:
         flash_attention.lse_launches += 1
         return out, lse
@@ -156,22 +169,23 @@ flash_attention.launches = 0
 flash_attention.hopper_launches = 0
 flash_attention.cuda_core_launches = 0
 flash_attention.lse_launches = 0
+flash_attention.window_launches = 0
 
 
 @torch.library.custom_op(
     "repro_torch::flash_attention_plain", mutates_args=(),
-    schema="(Tensor q, Tensor k, Tensor v, bool causal, float? sm_scale, "
-           "bool return_lse) -> Tensor[]")
-def _plain_torch(q, k, v, causal, sm_scale, return_lse):
+    schema="(Tensor q, Tensor k, Tensor v, bool causal, int window, "
+           "float? sm_scale, bool return_lse) -> Tensor[]")
+def _plain_torch(q, k, v, causal, window, sm_scale, return_lse):
     """The plain version (``ref.py``) as one operator: [out] or [out,
     lse]."""
-    outs = ref.flash_attention(q, k, v, causal=causal, sm_scale=sm_scale,
-                               return_lse=return_lse)
+    outs = ref.flash_attention(q, k, v, causal=causal, window=window,
+                               sm_scale=sm_scale, return_lse=return_lse)
     return list(outs) if return_lse else [outs]
 
 
 @_plain_torch.register_fake
-def _plain_fake_torch(q, k, v, causal, sm_scale, return_lse):
+def _plain_fake_torch(q, k, v, causal, window, sm_scale, return_lse):
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if not return_lse:
         return [out]
@@ -180,21 +194,30 @@ def _plain_fake_torch(q, k, v, causal, sm_scale, return_lse):
                              device=q.device)]
 
 
+def attended_pairs_np(s: int, causal: bool, window: int = 0) -> int:
+    """(query, key) pairs a head attends over S rows: S^2, the causal
+    S (S + 1) / 2, or with a window W the sum over rows i of min(i + 1,
+    W)."""
+    if not causal:
+        return s * s
+    w = min(window, s) if window > 0 else s
+    return w * (w + 1) // 2 + (s - w) * w
+
+
 @register_flop_formula(torch.ops.repro_torch.flash_attention_plain)
-def _plain_flops_np(q_shape, k_shape, v_shape, causal, *args,
+def _plain_flops_np(q_shape, k_shape, v_shape, causal, window, *args,
                     **kwargs) -> int:
     """The kernel's operations: q.k and p.v, 4 D a (query head, key) pair
-    it attends, the causal pairs only where ``causal``."""
+    it attends (``attended_pairs_np``)."""
     b, s, hq, d = q_shape
-    pairs = s * (s + 1) // 2 if causal else s * s
-    return 4 * b * hq * d * pairs
+    return 4 * b * hq * d * attended_pairs_np(s, causal, window)
 
 
 @functools.lru_cache(maxsize=None)
 def _entry(name):
     fn = getattr(_build.load("flash_attention"), name)
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.POINTER(ctypes.c_longlong)] \
-        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int] \
+        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_int] \
         + [ctypes.c_int] * (1 if name.endswith("hopper") else 0) \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int

@@ -1,6 +1,6 @@
-"""Grouped-query attention with optional QKV bias and qk-norm, RoPE, and a
-decode path over a preallocated KV cache — the port of
-``repro/models/attention.py``.
+"""Grouped-query attention with optional QKV bias, qk-norm, sliding window,
+RoPE, and a decode path over a preallocated (optionally float8) KV cache —
+the port of ``repro/models/attention.py``.
 
 Prefill goes through ``kernels/flash_attention`` and every decode step
 through ``kernels/decode_attention``: on the card those are the Hopper
@@ -16,7 +16,15 @@ Training (``attention_train_torch``) routes as the reference's
 ``torch.autograd.Function`` whose forward is the flash kernel (it also
 writes the rows' log-sum-exp) and whose backward is the reference's
 ``bwd`` in plain torch, one kv block at a time; else ``_attend`` under
-autograd. Sliding windows and a quantized cache wait for ROADMAP item 13.
+autograd.
+
+``cfg.sliding_window`` W reaches both kernels: flash masks keys j <= i - W
+and skips the kv tiles wholly below a block's window; a decode step passes
+each sequence a first valid row, measured as the reference measures it
+from the batch's largest position P (``q_offset=pos_b.max()``): rows (P -
+W, pos_b] (ROADMAP P17). A ``cfg.cache_dtype`` cache (float8) is written
+through ``common.to_cache_dtype_torch``, bit for bit the reference's cast,
+and read by the decode kernel as it is stored.
 
 On a mesh (DTensor params, the launcher's ``cfg.dp_axes``/``tp_axis``
 set) q, k and v are constrained as the reference constrains them, each
@@ -37,7 +45,7 @@ from ..kernels.decode_attention.ops import decode_attention
 from ..kernels.flash_attention.ops import flash_attention
 from .common import (RMSNorm, apply_mrope, apply_rope, constrain_torch,
                      dense_init, local_region_torch, shard_axes_torch,
-                     unshard_dp_torch)
+                     to_cache_dtype_torch, unshard_dp_torch)
 from .config import ModelConfig
 
 NEG_INF = -1e30
@@ -47,30 +55,12 @@ def _param(t):
     return torch.nn.Parameter(t, requires_grad=False)
 
 
-def check_supported(cfg: ModelConfig):
-    """Raise ``NotImplementedError`` for attention options the port has
-    not ported yet."""
-    if cfg.sliding_window:
-        raise NotImplementedError(
-            f"{cfg.name}: sliding-window attention is not in the port's "
-            f"kernels yet (no config the repository ships sets it; ROADMAP.md "
-            f"queue 1 item 13, options no shipped config sets: sliding "
-            f"window, quantized KV cache)")
-    if cfg.cache_dtype:
-        raise NotImplementedError(
-            f"{cfg.name}: a {cfg.cache_dtype} KV cache is not in the port's "
-            f"kernels yet (no config the repository ships sets it; ROADMAP.md "
-            f"queue 1 item 13, options no shipped config sets: sliding "
-            f"window, quantized KV cache)")
-
-
 class Attention(torch.nn.Module):
     """Projections stored flattened, (d_model, H*hd), in the reference's
     (in, out) layout and applied as ``x @ W``."""
 
     def __init__(self, cfg: ModelConfig, generator, dtype, device=None):
         super().__init__()
-        check_supported(cfg)
         self.wq = _param(dense_init(generator, (cfg.d_model, cfg.q_dim), dtype,
                                     device=device))
         self.wk = _param(dense_init(generator, (cfg.d_model, cfg.kv_dim),
@@ -151,25 +141,27 @@ def _attend(cfg: ModelConfig, q, k, v, q_offset, kv_len_mask=None):
 
 class _FlashTrain(torch.autograd.Function):
     """Causal GQA flash attention for training: q (B, S, Hq, D), k, v (B,
-    S, Hkv, D) -> (B, S, Hq, D). The forward is the flash kernel with its
-    log-sum-exp output (the plain version for CPU tensors) and saves (q, k,
-    v, out, lse); the backward recomputes each kv block's probabilities
-    from lse, as the reference's ``bwd`` (``attention.py:208-254``), in
+    S, Hkv, D) -> (B, S, Hq, D), with a sliding window where ``window`` >
+    0. The forward is the flash kernel with its log-sum-exp output (the
+    plain version for CPU tensors) and saves (q, k, v, out, lse); the
+    backward recomputes each kv block's probabilities from lse under the
+    same mask, as the reference's ``bwd`` (``attention.py:208-254``), in
     float32: delta = sum(dO O), P = exp(S - lse), dV = P^T dO, dP = dO V^T,
     dS = P (dP - delta), dQ = dS K scale, dK = dS^T Q scale, cast back to
     the inputs' dtypes. Its live memory is O(S x block), not O(S^2)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, block):
-        out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    def forward(ctx, q, k, v, block, window=0):
+        out, lse = flash_attention(q, k, v, causal=True, window=window,
+                                   return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.block = block
+        ctx.block, ctx.window = block, window
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        block = ctx.block
+        block, window = ctx.block, ctx.window
         b, sq, hq, d = q.shape
         skv, hkv = k.shape[1], k.shape[2]
         rep = hq // hkv
@@ -190,7 +182,10 @@ class _FlashTrain(torch.autograd.Function):
             v_i = v[:, j0:j0 + block].float()
             s_blk = torch.einsum("bqhrd,bkhd->bhrqk", qg, k_i)
             kpos = j0 + torch.arange(k_i.shape[1], device=q.device)[None, :]
-            s_blk = torch.where(kpos <= qpos, s_blk, NEG_INF)
+            mask = kpos <= qpos
+            if window:
+                mask &= kpos > qpos - window
+            s_blk = torch.where(mask, s_blk, NEG_INF)
             p_blk = torch.exp(s_blk - lse[..., None])       # (B,Hkv,rep,S,bk)
             dv[:, j0:j0 + block] = torch.einsum("bhrqk,bhrqd->bkhd", p_blk,
                                                 dog)
@@ -199,16 +194,17 @@ class _FlashTrain(torch.autograd.Function):
             dq += torch.einsum("bhrqk,bkhd->bqhrd", ds, k_i)
             dk[:, j0:j0 + block] = torch.einsum("bhrqk,bqhrd->bkhd", ds, qg)
         dq = (dq * scale).reshape(b, sq, hq, d).to(q.dtype)
-        return dq, dk.to(k.dtype), dv.to(v.dtype), None
+        return dq, dk.to(k.dtype), dv.to(v.dtype), None, None
 
 
 def _attend_any_torch(cfg: ModelConfig, q, k, v):
-    """Causal attention for training, routed as the reference's
-    ``_attend_any``: ``_FlashTrain`` where ``cfg.attn_flash_block``
-    divides S and S exceeds it, else ``_attend`` (autograd through it)."""
+    """Causal (optionally sliding-window) attention for training, routed
+    as the reference's ``_attend_any``: ``_FlashTrain`` where
+    ``cfg.attn_flash_block`` divides S and S exceeds it, else ``_attend``
+    (autograd through it)."""
     block = cfg.attn_flash_block
     if block and k.shape[1] % block == 0 and k.shape[1] > block:
-        return _FlashTrain.apply(q, k, v, block)
+        return _FlashTrain.apply(q, k, v, block, cfg.sliding_window)
     return _attend(cfg, q, k, v, 0)
 
 
@@ -247,11 +243,14 @@ def attention_train_torch(cfg: ModelConfig, p: Attention, x, positions):
 
 
 def attention_prefill(cfg: ModelConfig, p: Attention, x, positions):
-    """Full-sequence causal attention from position 0; x: (B, S, D).
-    Returns (y, {"k", "v"}: this layer's (B, S, Hkv, D) cache)."""
+    """Full-sequence causal (optionally sliding-window) attention from
+    position 0; x: (B, S, D). Returns (y, {"k", "v"}: this layer's (B, S,
+    Hkv, D) cache in the compute dtype, as the reference's)."""
     q, k, v = _project_qkv(cfg, p, x, positions)
-    out = _sharded_heads_torch("flash_attention", cfg, flash_attention, q,
-                               k, v)
+    out = _sharded_heads_torch(
+        "flash_attention", cfg,
+        lambda q, k, v: flash_attention(q, k, v, window=cfg.sliding_window),
+        q, k, v)
     y = out.reshape(out.shape[0], out.shape[1], -1) @ unshard_dp_torch(
         p.wo, cfg)
     return y, {"k": k, "v": v}
@@ -273,7 +272,42 @@ def _cache_axes_torch(cache_k):
     return axes[0], axes[1]
 
 
-def _decode_rows_torch(q, k_new, v_new, ck, cv, pos):
+def window_start_torch(cfg: ModelConfig, pos):
+    """Each sequence's first row of the sliding window in a decode step,
+    (B,) on pos's device, or None without a window: the reference's
+    ``_attend`` with ``q_offset=pos_b.max()`` keeps rows > P - W, P the
+    batch's largest position (not the sequence's own, ROADMAP P17)."""
+    if not cfg.sliding_window:
+        return None
+    first = (pos.max() + (1 - cfg.sliding_window)).clamp_min(0)
+    return first.expand(pos.shape[0])
+
+
+def _valid_rows_torch(q, pos, kv_start, s_max: int):
+    """(q, first row, length) of each sequence's decode over the whole
+    cache: rows [kv_start, min(pos + 1, S_max)) (first None without a
+    window). Where the window leaves a sequence no row, the reference's
+    masked softmax (every score -1e30) weighs all S_max rows alike; a
+    zeroed q over all of them gives the same, so that is what the kernel
+    runs there (no host sync)."""
+    length = (pos + 1).clamp(max=s_max)
+    if kv_start is None:
+        return q, None, length
+    empty = kv_start >= length
+    return (torch.where(empty[:, None, None, None], 0, q),
+            torch.where(empty, 0, kv_start),
+            torch.where(empty, s_max, length))
+
+
+def _write_row_torch(caches, news, rows, idx, inside):
+    """Writes each new (B, Hkv, D) row into its cache at ``idx`` where
+    ``inside``, cast into the cache's dtype as the reference casts it."""
+    for c, new in zip(caches, news):
+        c[rows, idx] = torch.where(inside, to_cache_dtype_torch(new, c.dtype),
+                                   c[rows, idx])
+
+
+def _decode_rows_torch(q, k_new, v_new, ck, cv, pos, kv_start=None):
     """One decode step on whole cache rows: writes row ``pos`` of each
     sequence in place and runs the decode kernel (see
     ``attention_decode``). Returns (B, 1, Hq, D) in q's dtype."""
@@ -281,69 +315,71 @@ def _decode_rows_torch(q, k_new, v_new, ck, cv, pos):
     inside = (pos < s_max)[:, None, None]
     rows = torch.arange(b, device=q.device)
     idx = pos.clamp(max=s_max - 1).long()
-    for c, new in ((ck, k_new), (cv, v_new)):
-        c[rows, idx] = torch.where(inside, new[:, 0].to(c.dtype), c[rows, idx])
-    kv_len = (pos + 1).clamp(max=s_max).to(torch.int32)
-    return decode_attention(q, ck, cv, kv_len)
+    _write_row_torch((ck, cv), (k_new[:, 0], v_new[:, 0]), rows, idx, inside)
+    q, first, length = _valid_rows_torch(q, pos, kv_start, s_max)
+    return decode_attention(q, ck, cv, length, kv_start=first)
 
 
-def _decode_sharded_torch(q, k_new, v_new, cache, pos):
+def _decode_sharded_torch(q, k_new, v_new, cache, pos, kv_start):
     """The decode step on a DTensor cache. Sharded on batch only, each
     device runs ``_decode_rows_torch`` on its own sequences. Sharded on
     the sequence too (split-KV, flash-decoding), each device writes the new
     row where it falls in its chunk and runs the decode kernel on its chunk
     (``_decode_chunk_torch``), which also gives each head's log-sum-exp;
     the chunks' outputs are then merged by their log-sum-exps with DTensor
-    reductions over the sequence axes. Returns (B, 1, Hq, D) in q's
-    dtype."""
+    reductions over the sequence axes. ``kv_start`` (the window's first
+    rows, from the whole batch's positions) is split on the batch as pos
+    is. Returns (B, 1, Hq, D) in q's dtype."""
     mesh = cache["k"].device_mesh
     dp, seq = _cache_axes_torch(cache["k"])
     row = (dp, (), (), ())
+    per_seq = ((dp,), None if kv_start is None else (dp,))
     if not seq:
         return local_region_torch(
-            "decode_attention", _decode_rows_torch, (row,) * 5 + ((dp,),),
-            (row,), q, k_new, v_new, cache["k"], cache["v"], pos)
+            "decode_attention", _decode_rows_torch, (row,) * 5 + per_seq,
+            (row,), q, k_new, v_new, cache["k"], cache["v"], pos, kv_start)
     s_max = cache["k"].shape[1]
     n_chunks = 1
     for a in seq:
         n_chunks *= mesh.size(mesh.mesh_dim_names.index(a))
     chunk = s_max // n_chunks
 
-    def part(q, k_new, v_new, ck, cv, pos):
+    def part(q, k_new, v_new, ck, cv, pos, kv_start):
         coord = mesh.get_coordinate() or [0] * mesh.ndim
         idx = 0
         for a in seq:
             i = mesh.mesh_dim_names.index(a)
             idx = idx * mesh.size(i) + coord[i]
-        return _decode_chunk_torch(q, k_new, v_new, ck, cv, pos,
-                                   idx * chunk, s_max)
+        return _decode_chunk_torch(q, k_new, v_new, ck, cv, pos, idx * chunk,
+                                   s_max, kv_start)
 
     kv = (dp, seq, (), ())
     o, lse = local_region_torch(
-        "decode_attention (split-KV)", part, (row, row, row, kv, kv, (dp,)),
+        "decode_attention (split-KV)", part, (row, row, row, kv, kv) + per_seq,
         ((seq, dp, (), (), ()), (seq, dp, ())),
-        q, k_new, v_new, cache["k"], cache["v"], pos)
+        q, k_new, v_new, cache["k"], cache["v"], pos, kv_start)
     return merge_chunks_torch(o, lse).to(q.dtype)
 
 
-def _decode_chunk_torch(q, k_new, v_new, ck, cv, pos, c0: int, s_max: int):
+def _decode_chunk_torch(q, k_new, v_new, ck, cv, pos, c0: int, s_max: int,
+                        kv_start=None):
     """One device's part of the split-KV decode on local tensors: q (B, 1,
     Hq, D), the new rows (B, 1, Hkv, D), its cache chunk (B, C, Hkv, D)
-    holding rows [c0, c0 + C), pos (B,). Writes row ``pos`` where it falls
-    in the chunk (a row past the cache is written nowhere, as on one card)
-    and runs the decode kernel over the chunk's valid rows (< min(pos + 1,
-    S_max)). Returns (out (1, B, 1, Hq, D), lse (1, B, Hq))."""
+    holding rows [c0, c0 + C), pos (B,), kv_start (B,) or None. Writes row
+    ``pos`` where it falls in the chunk (a row past the cache is written
+    nowhere, as on one card) and runs the decode kernel over the chunk's
+    share of the valid rows [kv_start, min(pos + 1, S_max)), translated to
+    its own rows. Returns (out (1, B, 1, Hq, D), lse (1, B, Hq))."""
     b, c = ck.shape[0], ck.shape[1]
     rows = torch.arange(b, device=q.device)
     local = pos.long() - c0
     inside = ((local >= 0) & (local < c) & (pos < s_max))[:, None, None]
     idx = local.clamp(0, c - 1)
-    for cache, new in ((ck, k_new), (cv, v_new)):
-        cache[rows, idx] = torch.where(inside, new[:, 0].to(cache.dtype),
-                                       cache[rows, idx])
-    kv_len = ((pos.long() + 1).clamp(max=s_max) - c0).clamp(0, c)
-    out, lse = decode_attention(q, ck, cv, kv_len.to(torch.int32),
-                                return_lse=True)
+    _write_row_torch((ck, cv), (k_new[:, 0], v_new[:, 0]), rows, idx, inside)
+    q, first, length = _valid_rows_torch(q, pos, kv_start, s_max)
+    start = None if first is None else (first - c0).clamp(0, c)
+    out, lse = decode_attention(q, ck, cv, (length - c0).clamp(0, c),
+                                kv_start=start, return_lse=True)
     return out[None], lse[None]
 
 
@@ -369,17 +405,20 @@ def attention_decode(cfg: ModelConfig, p: Attention, x, cache: dict, pos):
     As the reference's masked-select write, a sequence whose ``pos`` is
     past the cache writes nothing and attends its whole row: the write
     index is clamped and the old row kept there (``torch.where``), and the
-    kernel's length is ``min(pos + 1, S_max)`` — all on the device, no
-    host sync. Returns (y, cache)."""
+    kernel's length is ``min(pos + 1, S_max)``; with a sliding window its
+    first row is ``window_start_torch``'s — all on the device, no host
+    sync. The new rows are cast into the cache's dtype as the reference
+    casts them (``to_cache_dtype_torch``). Returns (y, cache)."""
     b = x.shape[0]
     positions = pos[:, None]
     if cfg.rope_type == "mrope":        # (3, B, 1): t == h == w
         positions = positions[None].expand(3, b, 1)
     q, k_new, v_new = _project_qkv(cfg, p, x, positions)
+    kv_start = window_start_torch(cfg, pos)
     if isinstance(cache["k"], DTensor):
-        out = _decode_sharded_torch(q, k_new, v_new, cache, pos)
+        out = _decode_sharded_torch(q, k_new, v_new, cache, pos, kv_start)
     else:
         out = _decode_rows_torch(q, k_new, v_new, cache["k"], cache["v"],
-                                 pos)
+                                 pos, kv_start)
     y = out.reshape(b, 1, -1) @ unshard_dp_torch(p.wo, cfg)
     return y, cache

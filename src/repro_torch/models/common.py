@@ -170,6 +170,39 @@ def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
+#: float8_e4m3fn's overflow edge: the reference's cast (XLA's) rounds
+#: |x| <= 464 to at most 448 and makes every larger |x|, inf included, NaN
+_E4M3_NAN_ABOVE = 464.0
+
+
+def to_cache_dtype_torch(x: torch.Tensor, dtype: torch.dtype):
+    """``x`` cast into a KV cache's storage dtype bit for bit as the
+    reference's ``x.astype(dtype)`` casts it (``repro/serve/engine.py:99``,
+    ``repro/models/attention.py:299-315``). torch's float8 casts differ from
+    XLA's in two places (ROADMAP P18): into ``float8_e4m3fn`` torch
+    saturates an overflowing value to +-448 (0x7e with the sign bit) where
+    XLA gives NaN (0x7f with the sign bit), and into ``float8_e5m2`` a NaN
+    keeps its low payload bit in torch (0x7f with the sign) where XLA
+    writes 0x7e with the sign from float32 and 0x7f without it from
+    bfloat16. Both are patched on torch's float8 bytes; any other dtype is
+    a plain ``.to()``. Float8 casts read float32 or bfloat16 (another
+    floating dtype is widened to float32 first, exactly)."""
+    if x.dtype == dtype or dtype not in (torch.float8_e4m3fn,
+                                         torch.float8_e5m2):
+        return x.to(dtype)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        x = x.float()
+    out = x.to(dtype).view(torch.uint8)
+    if dtype == torch.float8_e4m3fn:
+        # saturated 0x7e | sign -> NaN 0x7f | sign; a NaN input fails the
+        # test and is already NaN
+        out = out | (x.abs() > _E4M3_NAN_ABOVE).to(torch.uint8)
+    else:
+        keep = 0xfe if x.dtype == torch.float32 else 0x7f
+        out = torch.where(torch.isnan(x), out & keep, out)
+    return out.view(dtype)
+
+
 # -- initializers -------------------------------------------------------------
 
 def _truncated_normal(shape, std, dtype, generator, device):

@@ -299,14 +299,17 @@ def forward_decode(cfg: ModelConfig, params: Transformer, caches, token,
 
 def _cache_layout_torch(cfg: ModelConfig, batch: int, max_len: int):
     """One dict a layer, name -> (shape, dtype), as ``init_caches`` fills
-    them."""
+    them: attention K/V in ``cfg.cache_dtype`` where it is set (the
+    reference's ``init_group_cache``, ``blocks.py:55-57``), else the
+    compute dtype."""
     dtype = dtype_of(cfg.dtype)
+    kv_dtype = dtype_of(cfg.cache_dtype) if cfg.cache_dtype else dtype
     pattern = cfg.block_pattern
     layout = []
     for i in range(cfg.num_layers):
         if pattern[i % len(pattern)][0] == "attn":
             shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-            layout.append({"k": (shape, dtype), "v": (shape, dtype)})
+            layout.append({"k": (shape, kv_dtype), "v": (shape, kv_dtype)})
         else:
             conv = (batch, cfg.ssm_conv - 1, cfg.d_inner + 2 * cfg.ssm_state)
             ssm = (batch, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state)
@@ -318,9 +321,10 @@ def _cache_layout_torch(cfg: ModelConfig, batch: int, max_len: int):
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 device: DeviceLike = None):
     """Zeroed decode caches, one dict per layer as ``init_group_cache``
-    builds them: {"k", "v"} (batch, max_len, Hkv, D) in the compute dtype
-    for attention; for mamba {"conv": (batch, ssm_conv - 1, d_inner + 2 N)
-    in the compute dtype, "ssm": (batch, H, P, N) float32}."""
+    builds them: {"k", "v"} (batch, max_len, Hkv, D) in ``cfg.cache_dtype``
+    (the compute dtype where it is unset) for attention; for mamba
+    {"conv": (batch, ssm_conv - 1, d_inner + 2 N) in the compute dtype,
+    "ssm": (batch, H, P, N) float32}."""
     dev = resolve_device(device)
     return [{k: torch.zeros(shape, dtype=dt, device=dev)
              for k, (shape, dt) in layer.items()}

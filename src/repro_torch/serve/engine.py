@@ -9,8 +9,11 @@ order (``active / weight``, stable), then advances every slot one token.
 
 Unlike the reference, whose caches are immutable arrays rebuilt on every
 step, the port keeps one cache per layer and updates it IN PLACE. An
-attention layer's is a (max_slots, max_len, Hkv, D) tensor pair: a prefill
-writes its slot's rows, a decode step each slot's row at its position.
+attention layer's is a (max_slots, max_len, Hkv, D) tensor pair (in
+``cfg.cache_dtype`` where set, float8 among them): a prefill writes its
+slot's rows, cast into the pool's dtype as the reference's ``astype(pool.
+dtype)`` casts them (``common.to_cache_dtype_torch``), a decode step each
+slot's row at its position.
 ``pos`` advances for every slot, free ones too, as in the reference; a slot
 past ``max_len`` writes nothing. A mamba layer's is its conv tail and SSM
 state per slot: a prefill replaces the slot's whole, with the conv tail
@@ -39,6 +42,7 @@ from typing import Dict, List, Optional
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..models.common import to_cache_dtype_torch
 from ..models.config import ModelConfig
 from ..models.model import (forward_decode, forward_prefill, init_caches,
                             init_params)
@@ -114,7 +118,8 @@ class ServingEngine:
         for pool, one in zip(self.caches, caches):
             if "k" in pool:
                 for key in ("k", "v"):
-                    pool[key][slot, :n] = one[key][0]
+                    pool[key][slot, :n] = to_cache_dtype_torch(
+                        one[key][0], pool[key].dtype)
                     pool[key][slot, n:] = 0
             else:       # the tail arrives right-aligned (models/ssm.py)
                 for key in ("conv", "ssm"):

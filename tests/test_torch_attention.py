@@ -7,6 +7,7 @@ Inputs come from a numpy seed. Bounds: float32 2e-5 and bfloat16 2e-2
 (rtol and atol), the JAX kernel tests' own (tests/test_kernel_flash_
 attention.py); against the model's ``_attend`` 3e-5, that file's bound for
 the same comparison."""
+import dataclasses
 import math
 
 import jax.numpy as jnp
@@ -175,12 +176,14 @@ from repro_torch.kernels.decode_attention import kernel as decode_kernel  # noqa
 from repro_torch.kernels.decode_attention import ref as decode_ref  # noqa: E402
 
 
-def _split_kv(q, k_cache, v_cache, kv_len, chunk):
+def _split_kv(q, k_cache, v_cache, kv_len, chunk, kv_start=None):
     """What ``csrc/decode_attention.cu`` computes, step for step: each
-    (sequence, kv head)'s valid rows in chunks of ``chunk``, one float32
-    partial (max, sum, unnormalised accumulator) per chunk that holds a
-    valid row, then the partials merged by their log-sum-exp; a length of
-    0 leaves no partial and gives zeros."""
+    (sequence, kv head)'s valid rows [first, n) in chunks of ``chunk``, one
+    float32 partial (max, sum, unnormalised accumulator) per chunk that
+    holds a valid row (a chunk that ends at or before the first row writes
+    none, and the merge starts at the chunk holding it), then the partials
+    merged by their log-sum-exp; no valid row leaves no partial and gives
+    zeros."""
     b, hq, d = q.shape
     s_max, hkv = k_cache.shape[1], k_cache.shape[2]
     rep = hq // hkv
@@ -188,10 +191,16 @@ def _split_kv(q, k_cache, v_cache, kv_len, chunk):
     out = torch.zeros(b, hkv, rep, d)
     for i in range(b):
         n = min(max(int(kv_len[i]), 0), s_max)
+        first = 0 if kv_start is None else min(max(int(kv_start[i]), 0), n)
         parts = []
-        for r0 in range(0, n, chunk):
-            kc = k_cache[i, r0:min(r0 + chunk, n)].float()   # (rows, Hkv, D)
-            vc = v_cache[i, r0:min(r0 + chunk, n)].float()
+        for c in range(-(-s_max // chunk)):
+            r0, r1 = max(c * chunk, first), min(c * chunk + chunk, n)
+            if r0 >= r1:                       # the block exits at once
+                assert c < first // chunk or c * chunk >= n or first == n
+                continue
+            assert first // chunk <= c < -(-n // chunk)   # merged chunks
+            kc = k_cache[i, r0:r1].float()                # (rows, Hkv, D)
+            vc = v_cache[i, r0:r1].float()
             s = torch.einsum("hrd,jhd->hrj", qg[i], kc)
             m = s.amax(dim=-1, keepdim=True)
             p = torch.exp(s - m)
@@ -233,6 +242,36 @@ def test_split_kv_plan_matches_plain_and_jax(chunk, dtype):
                                    rtol=TOL[dtype], atol=TOL[dtype])
 
 
+@pytest.mark.parametrize("chunk", [7, 32, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_kv_plan_with_first_rows(chunk, dtype):
+    # first rows 0, inside the first chunk, past whole chunks (which then
+    # write no partial), on a chunk edge, equal to the length (no row) and
+    # past it; held against the plain version and the reference model's
+    # masked _attend on the rows [first, length)
+    b, s_max, hq, hkv, d = 7, 100, 8, 2, 32
+    lens = np.array([100, 63, 63, 100, 40, 40, 70], np.int32)
+    starts = np.array([0, 3, 2 * chunk + 1, chunk, 40, 55, 69], np.int32)
+    (q, kc, vc), (tq, tkc, tvc) = _both(
+        _arrays([(b, hq, d), (b, s_max, hkv, d), (b, s_max, hkv, d)],
+                seed=chunk + 1), dtype)
+    got = _split_kv(tq, tkc, tvc, torch.from_numpy(lens), chunk,
+                    torch.from_numpy(starts))
+    plain = decode_ref.decode_attention(tq, tkc, tvc, torch.from_numpy(lens),
+                                        kv_start=torch.from_numpy(starts))
+    np.testing.assert_allclose(_f32(got), _f32(plain), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+    empty = starts >= lens
+    assert not got[empty].float().any() and not plain[empty].float().any()
+    rows = np.arange(s_max)[None, :]
+    valid = (rows >= starts[:, None]) & (rows < lens[:, None])
+    cfg = get_smoke_config("qwen3_1_7b")
+    want = jax_attend(cfg, q[:, None], kc, vc, q_offset=s_max,
+                      kv_len_mask=jnp.asarray(valid))[:, 0]
+    np.testing.assert_allclose(_f32(got)[~empty], _f32(want)[~empty],
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
 def test_split_kv_plan_matches_pallas_interpret_at_serving_heads():
     # qwen3_1_7b's heads, a length on a chunk boundary of the wrapper's
     # own chunk, the Pallas kernel in interpret mode with the same length
@@ -269,43 +308,67 @@ from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa: 
 from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
 
 
-def _flash_tiles(q, k, v, causal, bq, bk):
+def _flash_tiles(q, k, v, causal, bq, bk, window=0, stats=None):
     """What the Hopper body of ``csrc/flash_attention.cu`` computes, tile
     for tile: blocks of ``bq`` query rows, a warpgroup per 64 of them, kv
-    tiles of ``bk`` rows up to the block's causal limit; a warpgroup skips
-    the tiles wholly above its rows and tests the mask only on tiles that
-    cross its diagonal or the end of S (asserting that every other tile
-    needs no mask); online softmax in the log2 domain in float32, P
-    rounded to bfloat16 for P V, the output rounded once."""
+    tiles of ``bk`` rows up to the block's causal limit, from the tile
+    holding the block's first key q0 - W + 1 with a window W (asserting
+    that the tiles before it are wholly masked for the block); a warpgroup
+    skips the tiles wholly above its rows or wholly below its rows'
+    window (asserting both are wholly masked) and tests the mask only on
+    tiles that cross its diagonal, the end of S or its window's lower edge
+    (asserting that every other tile needs no mask); online softmax in the
+    log2 domain in float32, P rounded to bfloat16 for P V, the output
+    rounded once. ``stats`` counts the tiles each case took."""
     b, s, hq, d = q.shape
     rep = hq // k.shape[2]
     scale_log2 = 1.0 / math.sqrt(d) * math.log2(math.e)
     qf = q.float().transpose(1, 2)                              # (B, H, S, D)
     kf = k.float().repeat_interleave(rep, dim=2).transpose(1, 2)
     vf = v.float().repeat_interleave(rep, dim=2).transpose(1, 2)
+    stats = {} if stats is None else stats
     out = torch.zeros(b, hq, s, d)
+
+    def valid_at(rows, cols):
+        ok = (cols[None, :] < s) & (~torch.tensor(causal)
+                                    | (cols[None, :] <= rows[:, None]))
+        if window:
+            ok &= cols[None, :] > rows[:, None] - window
+        return ok
+
     for q0 in range(0, s, bq):
         kv_end = min(s, q0 + bq) if causal else s
+        k_first = max(0, q0 - window + 1) // bk * bk if window else 0
+        block_rows = torch.arange(q0, min(q0 + bq, s))
+        for k0 in range(0, k_first, bk):       # never loaded
+            assert not bool(valid_at(block_rows,
+                                     torch.arange(k0, k0 + bk)).any())
+            stats["not loaded"] = stats.get("not loaded", 0) + 1
         for first in range(q0, min(q0 + bq, s), 64):
             last = first + 63
             rows = torch.arange(first, min(first + 64, s))
             m = torch.full((b, hq, len(rows), 1), -math.inf)
             l = torch.zeros(b, hq, len(rows), 1)
             acc = torch.zeros(b, hq, len(rows), d)
-            for k0 in range(0, kv_end, bk):
-                if causal and k0 > last:
-                    continue
+            for k0 in range(k_first, kv_end, bk):
                 cols = torch.arange(k0, k0 + bk)
+                valid = valid_at(rows, cols)
+                if (causal and k0 > last) or (
+                        window and k0 + bk - 1 <= first - window):
+                    assert not bool(valid.any()), (q0, first, k0)
+                    stats["skipped"] = stats.get("skipped", 0) + 1
+                    continue
                 kt = torch.zeros(b, hq, bk, d)
                 vt = torch.zeros(b, hq, bk, d)
                 n = min(bk, s - k0)        # rows past S arrive as zeros
                 kt[:, :, :n], vt[:, :, :n] = kf[:, :, k0:k0 + n], \
                     vf[:, :, k0:k0 + n]
                 sc = qf[:, :, rows] @ kt.transpose(-1, -2) * scale_log2
-                valid = (cols[None, :] < s) & (
-                    ~torch.tensor(causal) | (cols[None, :] <= rows[:, None]))
-                if (causal and k0 + bk - 1 > first) or k0 + bk > s:
+                lower = bool(window) and k0 <= last - window
+                if (causal and k0 + bk - 1 > first) or k0 + bk > s or lower:
                     sc = sc.masked_fill(~valid, -math.inf)
+                    if lower:
+                        stats["lower edge"] = stats.get("lower edge", 0) + 1
                 else:
                     assert bool(valid.all()), (q0, first, k0)
                 m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
@@ -345,6 +408,36 @@ def test_flash_tile_plan_matches_plain_and_jax(bq, rep, edge):
                              causal=causal)
         np.testing.assert_allclose(_f32(got), _f32(jnp.swapaxes(want, 1, 2)),
                                    rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("bq", flash_kernel.BLOCK_ROWS)
+@pytest.mark.parametrize("window", [1, 40, 128, 200, 700])
+def test_flash_tile_plan_with_window(bq, window):
+    # S 600 (ragged), GQA 2:1, head dim 64; windows of one key, inside a kv
+    # tile, one tile, across tiles and past S: the tiles before the
+    # block's first key are not loaded, those crossing a warpgroup's lower
+    # edge masked, and (blocks of 128 rows, where the block's first key
+    # lies in the upper half of its tile: W 40) the second warpgroup skips
+    # the first tile; held against the plain version and the reference
+    # model's _attend with that window, at the bf16 bound
+    bk, s, hq, hkv, d = flash_kernel.KV_ROWS, 600, 4, 2, 64
+    (q, k, v), (tq, tk, tv) = _both(
+        _arrays([(1, s, hq, d), (1, s, hkv, d), (1, s, hkv, d)],
+                seed=window), "bfloat16")
+    stats = {}
+    got = _flash_tiles(tq, tk, tv, True, bq, bk, window, stats)
+    plain = flash_ref.flash_attention(tq, tk, tv, window=window)
+    np.testing.assert_allclose(_f32(got), _f32(plain), rtol=TOL["bfloat16"],
+                               atol=TOL["bfloat16"])
+    cfg = dataclasses.replace(get_smoke_config("qwen3_1_7b"),
+                              sliding_window=window)
+    want = jax_attend(cfg, *(a.astype(jnp.float32) for a in (q, k, v)),
+                      q_offset=0)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=TOL["bfloat16"],
+                               atol=TOL["bfloat16"])
+    assert (stats.get("lower edge", 0) > 0) == (window < s)
+    assert (stats.get("not loaded", 0) > 0) == (window <= 385)
+    assert (stats.get("skipped", 0) > 0) == (bq == 128 and window == 40)
 
 
 @pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (8, 2)])

@@ -25,7 +25,6 @@ from repro.models.common import apply_mrope as ref_apply_mrope
 from repro.serve import ServingEngine as RefEngine
 from repro_torch.configs import get_config as torch_get_config
 from repro_torch.configs import get_smoke_config as torch_get_smoke_config
-from repro_torch.models import attention as tattention
 from repro_torch.models import model as tmodel
 from repro_torch.models.common import apply_mrope, apply_rope
 from repro_torch.models.config import ModelConfig as PortConfig
@@ -257,17 +256,6 @@ def test_embed_ignores_extras_without_a_frontend():
     want, _ = tmodel.forward_prefill(pcfg, model, torch.from_numpy(tokens),
                                      device="cpu")
     assert torch.equal(got, want)
-
-
-@pytest.mark.parametrize("option,value", [("sliding_window", 64),
-                                          ("cache_dtype", "float8_e4m3fn")])
-def test_unsupported_options_name_their_roadmap_item(option, value):
-    cfg = dataclasses.replace(torch_get_smoke_config("gemma_2b"),
-                              **{option: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tattention.check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.init_params(cfg, 0, device="cpu")
 
 
 # -- engines ------------------------------------------------------------------

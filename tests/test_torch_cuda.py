@@ -1575,3 +1575,171 @@ def test_bf16_train_step_on_card_is_finite(cuda, arch):
     assert any(not torch.equal(p, before[n])
                for n, p in state["params"].named_parameters())
     assert state["opt"]["mu"]["embed"].dtype == torch.float32
+
+
+# -- sliding window (flash) and float8 caches with first rows (decode) -------
+
+def _window_counts():
+    fa = flash_kernel.flash_attention
+    return (fa.launches, fa.hopper_launches, fa.cuda_core_launches,
+            fa.window_launches)
+
+
+@pytest.mark.parametrize("s,window", [(1000, 1), (1000, 48), (1000, 128),
+                                      (1000, 129), (1000, 600), (1000, 1000),
+                                      (200, 1000)])
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128),
+                                     (torch.bfloat16, 64),
+                                     (torch.bfloat16, 256),
+                                     (torch.float32, 128)])
+def test_flash_window_matches_plain(cuda, monkeypatch, s, window, dtype, d):
+    # both block sizes of the Hopper body (bf16 at head dims 64 and 128),
+    # the CUDA-core body (float32, and bf16 at head dim 256), windows of
+    # one key, inside, on and across the kv tiles, past S; out and lse
+    # against the plain version; each call counted on its body and as
+    # windowed
+    hopper = dtype == torch.bfloat16 and d in flash_kernel.HOPPER_HEAD_DIMS
+    q = _randn((1, s, 8, d), dtype, cuda, s + window)
+    k = _randn((1, s, 4, d), dtype, cuda, s + window + 1)
+    v = _randn((1, s, 4, d), dtype, cuda, s + window + 2)
+    want, want_lse = flash_ref.flash_attention(q.float(), k.float(),
+                                               v.float(), window=window,
+                                               return_lse=True)
+    tol = ATTN_TOL[dtype]
+    for bq in flash_kernel.BLOCK_ROWS if hopper else (64,):
+        monkeypatch.setattr(flash_kernel, "block_rows",
+                            lambda b, s_, h, _bq=bq: _bq)
+        for lse in (False, True):
+            before = _window_counts()
+            got = flash_kernel.flash_attention(q, k, v, window=window,
+                                               return_lse=lse)
+            torch.cuda.synchronize()
+            assert _window_counts() == (before[0] + 1, before[1] + hopper,
+                                        before[2] + (not hopper),
+                                        before[3] + 1)
+            out = got[0] if lse else got
+            torch.testing.assert_close(out.float(), want, rtol=tol,
+                                       atol=tol)
+            if lse:
+                torch.testing.assert_close(got[1], want_lse, rtol=0,
+                                           atol=1e-3)
+
+
+@pytest.mark.parametrize("hq,hkv", [(16, 8), (32, 8)])
+def test_flash_window_long_prompt(cuda, hq, hkv):
+    # qwen3_1_7b's and Mistral-7B-v0.1's heads at S 8,192 with its published
+    # window of 4,096, on the Hopper body
+    s, d, window = 8192, 128, 4096
+    q = _randn((1, s, hq, d), torch.bfloat16, cuda, 40)
+    k = _randn((1, s, hkv, d), torch.bfloat16, cuda, 41)
+    v = _randn((1, s, hkv, d), torch.bfloat16, cuda, 42)
+    before = _window_counts()
+    got = flash_kernel.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert _window_counts() == (before[0] + 1, before[1] + 1, before[2],
+                                before[3] + 1)
+    want = flash_ref.flash_attention(q.float(), k.float(), v.float(),
+                                     window=window)
+    torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+
+
+FP8_CACHES = (torch.float8_e4m3fn, torch.float8_e5m2)
+
+
+@pytest.mark.parametrize("hq,hkv,d", [(16, 8, 128), (40, 8, 128),
+                                      (8, 1, 256), (4, 4, 64), (32, 8, 128),
+                                      (4, 2, 136)])
+@pytest.mark.parametrize("qdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("cache", [None, *FP8_CACHES])
+@pytest.mark.parametrize("n_chunks", [1, 2, 4])
+def test_decode_fp8_and_first_rows_match_plain(cuda, monkeypatch, hq, hkv, d,
+                                               qdt, cache, n_chunks):
+    # q in bf16 or f32 over a cache of its dtype or float8; first rows 0,
+    # inside the length, on a chunk edge, past whole chunks, equal to the
+    # length (no row: zeros, lse -inf) and past it; 1, 2 and 4 chunks a
+    # sequence; out and lse against the plain version on the same bytes
+    b, s_max = 8, 512
+    chunk = s_max // n_chunks
+    monkeypatch.setattr(decode_kernel, "chunk_rows", lambda *a: chunk)
+    q = _randn((b, hq, d), qdt, cuda, 30)
+    kc = _randn((b, s_max, hkv, d), qdt, cuda, 31)
+    vc = _randn((b, s_max, hkv, d), qdt, cuda, 32)
+    if cache is not None:
+        kc, vc = kc.to(cache), vc.to(cache)
+    lens = torch.tensor([512, 300, 300, 512, 200, 200, 511, 1],
+                        dtype=torch.int32, device=cuda)
+    starts = torch.tensor([0, 17, chunk, 2 * chunk + 3, 200, 260, 510, 0],
+                          dtype=torch.int32, device=cuda)
+    before = (decode_kernel.decode_attention.launches,
+              decode_kernel.decode_attention.window_launches,
+              decode_kernel.decode_attention.fp8_launches)
+    got, lse = decode_kernel.decode_attention(q, kc, vc, lens,
+                                              kv_start=starts,
+                                              return_lse=True)
+    torch.cuda.synchronize()
+    assert (decode_kernel.decode_attention.launches,
+            decode_kernel.decode_attention.window_launches,
+            decode_kernel.decode_attention.fp8_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + (cache is not None))
+    want, want_lse = decode_ref.decode_attention(
+        q.float(), kc.float(), vc.float(), lens, kv_start=starts,
+        return_lse=True)
+    tol = ATTN_TOL[qdt]
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-3)
+    empty = starts >= lens
+    assert not got[empty].any() and torch.isneginf(lse[empty]).all()
+    # without first rows: the rows [0, len) of the same cache
+    plain = decode_ref.decode_attention(q.float(), kc.float(), vc.float(),
+                                        lens)
+    torch.testing.assert_close(
+        decode_kernel.decode_attention(q, kc, vc, lens).float(), plain,
+        rtol=tol, atol=tol)
+
+
+def test_decode_refuses_other_dtype_mixes(cuda):
+    q = _randn((1, 4, 16), torch.bfloat16, cuda, 0)
+    k = _randn((1, 8, 2, 16), torch.bfloat16, cuda, 1)
+    n = torch.tensor([5], dtype=torch.int32, device=cuda)
+    for kc, vc in ((k.half(), k.half()), (k.float(), k.float()),
+                   (k.to(torch.float8_e4m3fn), k.to(torch.float8_e5m2)),
+                   (k.to(torch.float8_e4m3fn), k)):
+        with pytest.raises(TypeError, match="float8"):
+            decode_kernel.decode_attention(q, kc, vc, n)
+    with pytest.raises(ValueError, match="kv_start"):
+        decode_kernel.decode_attention(q, k, k, n, kv_start=n.long())
+
+
+def test_windowed_fp8_serving_engine_on_card_matches_cpu(cuda):
+    # the smoke config in float32 with a window of 4 and an e4m3 cache:
+    # the tokens on the card (through both kernels' windowed and float8
+    # entries) equal those of the plain versions on the CPU
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import ServingEngine
+    cfg = dataclasses.replace(get_smoke_config("qwen3_1_7b"),
+                              sliding_window=4, cache_dtype="float8_e4m3fn")
+    params = init_params(cfg, 0, device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServingEngine(cfg, params=params.to(dev), max_slots=3,
+                            max_len=16, tenant_weights={"gold": 2.0},
+                            device=dev)
+        rng = np.random.default_rng(0)
+        for i in range(6):
+            eng.submit("gold" if i % 3 else "free",
+                       [int(t) for t in rng.integers(0, cfg.vocab_size, 7)],
+                       max_new_tokens=5)
+        fa, da = flash_kernel.flash_attention, decode_kernel.decode_attention
+        before = (fa.window_launches, da.window_launches, da.fp8_launches)
+        done = eng.run(max_steps=40)
+        launched = tuple(a - b for a, b in zip(
+            (fa.window_launches, da.window_launches, da.fp8_launches),
+            before))
+        out[dev] = [(r.rid, r.out_tokens) for r in done]
+        assert eng.caches[0]["k"].dtype == torch.float8_e4m3fn
+        if dev == "cuda":
+            steps = cfg.num_layers * eng._steps
+            assert launched == (cfg.num_layers * len(done), steps, steps)
+    assert out["cuda"] == out["cpu"]
