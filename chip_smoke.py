@@ -200,6 +200,20 @@ Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
    (every flash and decode launch windowed, every decode launch float8),
    profiles a window, and holds a 2-layer model of that config with the
    kernels against the plain versions (2^-5 x max|logit|);
+24d. holds ``decode_attention``'s float32-query, bfloat16-cache entry
+   (float32 params over bfloat16 activations), without and with first
+   rows, at qwen3_1_7b's and qwen2_5_32b's widths (8 slots x 2,048 rows),
+   split into 1, 2 and 4 chunks and the wrapper's own, out and lse against
+   the plain version at the float32 entry's bounds; timed in turns with
+   SDPA on the float32 q over the cache widened to float32, with the
+   float32 entry over that widened cache and with the bfloat16-cache
+   kernel on a bfloat16 q, beside the byte bound;
+24e. drives the serving path the same way, counts set to 0 again, on
+   full-width qwen3_1_7b with float32 params over bfloat16 activations
+   (every decode launch on the mixed entry, every prefill on flash's
+   float32 CUDA-core body), profiles a window, and holds a 2-layer model
+   of that config with the kernels against the plain versions (2^-5 x
+   max|logit|);
 25. holds the flash kernel's log-sum-exp output (``return_lse=True``, the
    training path's forward) against its plain version at qwen3_1_7b's 16/8
    x 128 and gemma_2b's 8/1 x 256, S 2,048, in bfloat16 and float32 (out
@@ -230,6 +244,16 @@ Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
    mask with the window), then one full-width qwen3_1_7b step with a window
    of 1,024: 112 flash launches, each windowed with lse on the Hopper
    body; its loss and wall;
+27b. one full-width qwen3_1_7b step with float32 params over bfloat16
+   activations (step 27's shapes, float32 moments): 112 flash launches on
+   the float32 CUDA-core body with lse; its wall, tokens/s and peak device
+   memory; then step 26's 2-layer check in that config (every gradient
+   float32, 1e-4 x max|.|);
+27c. step 27's bfloat16 step under ``remat`` "full", "dots" (a selective
+   checkpoint that saves the products with a weight) and "none", each
+   from the same seeded params: the walls and peak device memory, which
+   must be ordered full <= dots <= none, and the first steps' losses
+   within step 27's 2^-6;
 28. drives the training loop with every launch count set to 0 before each
    run: ``Trainer`` on full-width qwen3_1_7b (28 layers, the training
    step's shapes) for 3 steps with a checkpoint every 2 into a temporary
@@ -406,7 +430,7 @@ DENSE_PROFILE_WINDOW = (4, 4)
 BODY_COUNTS = ("hopper_launches", "cuda_core_launches", "lse_launches")
 #: the attention wrappers' counts of their windowed and float8 launches
 #: (flash_attention: window; decode_attention: first rows, float8 caches)
-VARIANT_COUNTS = ("window_launches", "fp8_launches")
+VARIANT_COUNTS = ("window_launches", "fp8_launches", "mixed_launches")
 
 
 #: the sliding-window and float8-cache phases: qwen3_1_7b served with a
@@ -423,6 +447,17 @@ TRAIN_STEP_WINDOW = 1024
 MISTRAL_ATTN = (32, 8, 128, 4096, 8192)
 #: the float8 cache dtypes the decode kernel reads
 FP8_CACHES = ("float8_e4m3fn", "float8_e5m2")
+# params and activations in different dtypes: float32 params (master
+# weights) over bfloat16 activations; the projections promote q, k and v
+# to float32, the KV cache stays bfloat16
+SPLIT_DTYPES = {"param_dtype": "float32", "dtype": "bfloat16"}
+# under it, the gradients that pass through a bfloat16 activation's
+# cotangent (rounded, and added in bfloat16), held to two bfloat16
+# roundings of their largest value (tests/test_torch_dtype_split.py)
+SPLIT_BF16_PATH = ("embed", "layers.0.norm_mixer.scale")
+SPLIT_ROUNDED_REL = 2.0 ** -7
+# the training step under each remat policy, in the order of their peaks
+REMATS = ("full", "dots", "none")
 
 
 #: the training loop phase: depth of its full-width qwen3_1_7b (None: all
@@ -2442,10 +2477,15 @@ class Smoke:
 
     @staticmethod
     def flash_body(cfg):
-        """The flash body ``cfg``'s bfloat16 prefills take: its counter's
-        name on the wrapper."""
+        """The flash body ``cfg``'s prefills take: its counter's name on the
+        wrapper. q, k and v come out of the projections in the params' dtype
+        promoted with the activations': bfloat16 at a Hopper head dim takes
+        the Hopper body, float32 (a dtype split with float32 params) the
+        CUDA-core body."""
         from repro_torch.kernels.flash_attention import kernel
-        return ("hopper_launches" if cfg.head_dim in kernel.HOPPER_HEAD_DIMS
+        bf16 = cfg.dtype == cfg.param_dtype == "bfloat16"
+        return ("hopper_launches" if bf16
+                and cfg.head_dim in kernel.HOPPER_HEAD_DIMS
                 else "cuda_core_launches")
 
     def flash_plans(self):
@@ -2616,6 +2656,10 @@ class Smoke:
         if cfg.sliding_window or cfg.cache_dtype:
             parts.append(f"sliding window {cfg.sliding_window}, KV cache "
                          f"{cfg.cache_dtype or cfg.dtype}")
+        if cfg.param_dtype != cfg.dtype:
+            parts.append(f"params {cfg.param_dtype} over {cfg.dtype} "
+                         f"activations, KV cache "
+                         f"{cfg.cache_dtype or cfg.dtype}")
         widths = "; ".join(parts)
         full = self.llm_config(arch=arch)
         cut = (f" (the config's {full.num_layers}: {full.param_count()} "
@@ -2685,8 +2729,8 @@ class Smoke:
               f"{st['decode_tokens'] / st['decode_steps']:.2f} active slots "
               f"per step)")
         print(f"  tokens per tenant: {per_tenant}; launches: {launches}; "
-              f"flash_attention by body: {bodies}; windowed and float8 "
-              f"launches: {variants}"
+              f"flash_attention by body: {bodies}; windowed, float8 and "
+              f"mixed-dtype launches: {variants}"
               + (f"; peak device memory {peak:.2f} GiB" if peak else ""))
         self.paths[path] = dict(
             launches=launches, flash_bodies=bodies, variants=variants,
@@ -2722,18 +2766,24 @@ class Smoke:
                        f"flash_attention bodies {bodies}, expected every "
                        f"launch on the {body[:-9]} body")
             # a window reaches every flash and decode launch, a float8
-            # cache every decode launch; neither reaches any otherwise
+            # cache every decode launch, a float32 q over a bfloat16 cache
+            # (float32 params over bfloat16 activations) every decode
+            # launch; none reaches any otherwise
             fp8 = cfg.cache_dtype in FP8_CACHES
+            mixed = (not cfg.cache_dtype and cfg.dtype == "bfloat16"
+                     and cfg.param_dtype == "float32")
             want_variants = {
                 "flash_attention.window_launches":
                     want["flash_attention"] if cfg.sliding_window else 0,
                 "decode_attention.window_launches":
                     want["decode_attention"] if cfg.sliding_window else 0,
                 "decode_attention.fp8_launches":
-                    want["decode_attention"] if fp8 else 0}
+                    want["decode_attention"] if fp8 else 0,
+                "decode_attention.mixed_launches":
+                    want["decode_attention"] if mixed else 0}
             self.check(variants == want_variants,
-                       f"windowed and float8 launches {variants}, expected "
-                       f"{want_variants}")
+                       f"windowed, float8 and mixed-dtype launches "
+                       f"{variants}, expected {want_variants}")
 
     def serving_profile(self, path="serving", requests=8, new_tokens=8):
         """Device busy and idle share over a short serving window of the
@@ -3666,6 +3716,176 @@ class Smoke:
         of 1,024), after a warm-up step: counts set to 0 before it, every
         flash launch on the Hopper body with lse and the window; prints
         its loss and wall."""
+        window = 32 if self.rehearse else TRAIN_STEP_WINDOW
+        cfg = dataclasses.replace(self.llm_config(), remat="full",
+                                  attn_flash_block=16 if self.rehearse
+                                  else 1024, sliding_window=window)
+        b, s, micro = (2, 64, 2) if self.rehearse else (2, 2048, 2)
+        first, metrics, wall, _, launches, flash = self.train_two_steps(
+            cfg, micro, b, s)
+        print(f"  {cfg.name}: {cfg.num_layers} layers, window {window}, B "
+              f"{b} x S {s} in {micro} microbatches: step 2 "
+              f"{wall * 1e3:.1f} ms ({b * s / wall:.0f} tokens/s), loss "
+              f"{metrics['loss']:.5f}, grad_norm {metrics['grad_norm']:.5f} "
+              f"(step 1 loss {first['loss']:.5f}); launches "
+              f"{launches}; flash {flash}")
+        self.paths["train_step_window"] = dict(
+            launches=launches, flash=flash, wall_s=wall, window=window,
+            tokens_per_s=b * s / wall, metrics=metrics,
+            first_loss=first["loss"])
+        if not self.rehearse:
+            n_flash = cfg.num_layers * micro * 2
+            want = dict.fromkeys(launches, 0)
+            want["flash_attention"] = n_flash
+            self.check(launches == want and flash == dict(
+                hopper_launches=n_flash, cuda_core_launches=0,
+                lse_launches=n_flash, window_launches=n_flash),
+                f"windowed training launches {launches}, flash {flash}")
+
+    def decode_mixed_vs_plain(self):
+        """The decode kernel's float32-query, bfloat16-cache entry (float32
+        params over bfloat16 activations), with and without first rows,
+        against its plain version: 8 slots x 2,048 rows at qwen3_1_7b's
+        16/8 x 128 and qwen2_5_32b's 40/8 x 128 (groups of 5), each split
+        into 1, 2 and 4 chunks a sequence and into the wrapper's own; out
+        and lse held to the plain version's on the same bytes at the
+        float32 entry's bounds, every call counted as mixed. Timed at the
+        wrapper's chunk in turns with the float32 entry over the same cache
+        widened to float32, with the bfloat16-cache kernel on a bfloat16 q
+        and with SDPA on the float32 q over the widened cache, beside the
+        byte bound (two bytes a cached value, four a q and output
+        value)."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from repro_torch.kernels.decode_attention import kernel, ref
+        self.free_full_model()
+        da = kernel.decode_attention
+        for arch in ("qwen3_1_7b", "qwen2_5_32b"):
+            cfg = self.llm_config(arch=arch)
+            hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+            b, s_max = (8, 64) if self.rehearse else (8, 2048)
+            q, kc, vc = self.attn_inputs([(b, hq, d), (b, s_max, hkv, d),
+                                          (b, s_max, hkv, d)],
+                                         torch.bfloat16, seed=11)
+            q32 = self.attn_inputs([(b, hq, d)], torch.float32, seed=12)[0]
+            k32, v32 = kc.float(), vc.float()
+            lens = [1, s_max, s_max + 37, s_max // 2 + 3, s_max // 4 + 1, 64,
+                    3 * s_max // 4 - 5, s_max - 1]
+            valid = [min(n, s_max) for n in lens]
+            starts = [0, 0, valid[2] - 300, valid[3] // 2, valid[4] - 1, 37,
+                      valid[6], valid[7] - 700]
+            starts = [max(0, min(f, n)) for f, n in zip(starts, valid)]
+            kv_len = torch.tensor(lens, dtype=torch.int32, device=self.device)
+            first = torch.tensor(starts, dtype=torch.int32,
+                                 device=self.device)
+            for start in (None, first):
+                plain, plain_lse = ref.decode_attention(
+                    q32, kc, vc, kv_len, kv_start=start, return_lse=True)
+                worst, worst_lse = 0.0, 0.0
+                for n_chunks in (1, 2, 4, None):
+                    chunk = (s_max // n_chunks if n_chunks
+                             else kernel.chunk_rows(b, s_max, hkv))
+                    before = (da.launches, da.mixed_launches,
+                              da.fp8_launches)
+                    with mock.patch.object(kernel, "chunk_rows",
+                                           lambda *a, c=chunk: c):
+                        got, lse = da(q32, kc, vc, kv_len, kv_start=start,
+                                      return_lse=True)
+                    self.sync()
+                    if not self.rehearse:
+                        self.check(
+                            (da.launches, da.mixed_launches,
+                             da.fp8_launches) == (
+                                before[0] + 1, before[1] + 1, before[2]),
+                            "decode float32/bfloat16 launch counts")
+                    self.check(got.dtype == torch.float32,
+                               f"the mixed entry's output is {got.dtype}")
+                    worst = max(worst, float((got - plain).abs().max()))
+                    self.check(torch.equal(torch.isinf(lse),
+                                           torch.isinf(plain_lse)),
+                               "decode float32/bfloat16: the heads with no "
+                               "row differ")
+                    fin = torch.isfinite(plain_lse)
+                    worst_lse = max(worst_lse, float(
+                        (lse[fin] - plain_lse[fin]).abs().max()))
+                bound = ATTN_F32_REL * max(1.0, float(plain.abs().max()))
+                what = (f"decode {b}x{s_max} {hq}/{hkv} x {d}, float32 q over "
+                        f"a bfloat16 cache"
+                        f"{', first rows' if start is not None else ''}")
+                print(f"  {what}, 1/2/4 chunks and the wrapper's: "
+                      f"max|kernel-plain|={worst:.3e} (bound {bound:.3e}), "
+                      f"lse {worst_lse:.3e} (bound "
+                      f"{LSE_ATOL['float32']:.0e})")
+                self.check(worst <= bound and worst_lse <= LSE_ATOL["float32"],
+                           f"{what} disagrees with plain")
+                lo = start if start is not None else torch.zeros_like(kv_len)
+                rows = torch.arange(s_max, device=self.device)[None, :]
+                mask = ((rows >= lo[:, None])
+                        & (rows < kv_len.clamp(max=s_max)[:, None]))
+                mask = mask[:, None, None, :]
+                qt = q32[:, :, None, :]
+                kt, vt = k32.transpose(1, 2), v32.transpose(1, 2)
+
+                def sdpa():
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+                def mixed(s_=start):
+                    return da(q32, kc, vc, kv_len, kv_start=s_)
+
+                def f32(s_=start):
+                    return da(q32, k32, v32, kv_len, kv_start=s_)
+
+                def bf16(s_=start):
+                    return da(q, kc, vc, kv_len, kv_start=s_)
+                ks, ls = self.interleaved(mixed, sdpa, 50)
+                ks2, fs = self.interleaved(mixed, f32, 50)
+                ks3, bs = self.interleaved(mixed, bf16, 50)
+                plain_ms = self.time_ms(lambda: ref.decode_attention(
+                    q32, kc, vc, kv_len, kv_start=start), 10)
+                n_rows = sum(max(0, n - (f if start is not None else 0))
+                             for f, n in zip(starts, valid))
+                nbytes = (2 * n_rows * hkv * d * 2 + 2 * b * hq * d * 4
+                          + b * 4 * (1 + (start is not None)))
+                flops = 4 * n_rows * hq * d
+                bound_ms = max(nbytes / PEAK_BYTES_PER_S,
+                               flops / PEAK_FLOPS["float32"]) * 1e3
+                bound_by = ("bytes" if nbytes / PEAK_BYTES_PER_S
+                            >= flops / PEAK_FLOPS["float32"]
+                            else "operations")
+                print(f"    in turns: mixed {ks[0]:.4f}, {ks[1]:.4f} ms, SDPA "
+                      f"(float32 q and widened cache, rows masked) "
+                      f"{ls[0]:.4f}, {ls[1]:.4f} ms; mixed {ks2[0]:.4f}, "
+                      f"{ks2[1]:.4f} ms, float32 entry over the widened cache "
+                      f"{fs[0]:.4f}, {fs[1]:.4f} ms; mixed {ks3[0]:.4f}, "
+                      f"{ks3[1]:.4f} ms, bfloat16 q over the bfloat16 cache "
+                      f"{bs[0]:.4f}, {bs[1]:.4f} ms; plain {plain_ms:.4f} ms;"
+                      f" bound {bound_ms:.5f} ms ({n_rows} rows, "
+                      f"{nbytes / 1e6:.2f} MB: bound by {bound_by})")
+                self.check(self.rehearse or min(ks + ks2 + ks3) >= bound_ms,
+                           f"{what}: a measured time under its bound")
+                key = self.row_key(
+                    "f32_bf16" + ("_window" if start is not None else ""),
+                    arch)
+                self.rows[("decode_attention", key)] = dict(
+                    ms=sum(ks) / 2, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, max_abs_err=worst,
+                    lse_max_abs_err=worst_lse, library_ms=sum(ls) / 2,
+                    library_computes="SDPA on the float32 q over the cache "
+                                     "widened to float32",
+                    f32_entry_ms=sum(fs) / 2, bf16_cache_ms=sum(bs) / 2,
+                    turns_ms=ks + ks2 + ks3, library_turns_ms=ls,
+                    f32_entry_turns_ms=fs, bf16_cache_turns_ms=bs,
+                    rows=n_rows, shape=f"{b}x{s_max}x{hq}/{hkv}x{d}")
+
+    def train_two_steps(self, cfg, micro, b, s, seed=4):
+        """Two ``build_train_step_torch`` steps of ``cfg`` (float32
+        moments) from its seeded init: a warm-up step, then one with every
+        count set to 0 and the peak device memory reset just before it;
+        fails unless both steps' metrics are finite, grad_norm > 0 and the
+        loss near ln V. Returns (step 1's metrics, step 2's, step 2's wall,
+        its peak GiB, launches, flash launches by body, lse and
+        window)."""
         import numpy as np
         torch = self.torch
         from repro_torch.models import model as tmodel
@@ -3673,13 +3893,8 @@ class Smoke:
                                        build_train_step_torch,
                                        make_train_state_torch)
         self.free_full_model()
-        window = 32 if self.rehearse else TRAIN_STEP_WINDOW
-        cfg = dataclasses.replace(self.llm_config(), remat="full",
-                                  attn_flash_block=16 if self.rehearse
-                                  else 1024, sliding_window=window)
-        b, s, micro = (2, 64, 2) if self.rehearse else (2, 2048, 2)
         oc = OptimizerConfig()
-        rng = np.random.default_rng(4)
+        rng = np.random.default_rng(seed)
         batches = []
         for _ in range(2):
             tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)),
@@ -3690,42 +3905,114 @@ class Smoke:
             device=self.device)
         step = build_train_step_torch(cfg, oc, micro, device=self.device)
         state, first = step(state, batches[0])
+        first = {k: float(v) for k, v in first.items()}
         self.sync()
         counters = wrappers()
         reset_counts(counters)
+        if self.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         state, metrics = step(state, batches[1])
         self.sync()
         wall = time.perf_counter() - t0
-        fa = counters["flash_attention"]
+        peak = (torch.cuda.max_memory_allocated() / 2**30
+                if self.device.type == "cuda" else None)
         launches = {n: fn.launches for n, fn in counters.items()}
-        flash = dict(hopper=fa.hopper_launches, lse=fa.lse_launches,
-                     window=fa.window_launches)
+        bodies = {a: getattr(counters["flash_attention"], a)
+                  for a in BODY_COUNTS + ("window_launches",)}
         metrics = {k: float(v) for k, v in metrics.items()}
         del state
         self.free_full_model()
-        print(f"  {cfg.name}: {cfg.num_layers} layers, window {window}, B "
-              f"{b} x S {s} in {micro} microbatches: step 2 "
+        ln_v = float(np.log(cfg.vocab_size))
+        for m in (first, metrics):
+            self.check(all(np.isfinite(v) for v in m.values())
+                       and m["grad_norm"] > 0
+                       and abs(m["loss"] - ln_v) < 1.0,
+                       f"training metrics {m}: expected finite, grad_norm "
+                       f"> 0, loss near ln V = {ln_v:.3f}")
+        return first, metrics, wall, peak, launches, bodies
+
+    def train_step_split(self):
+        """One full-width qwen3_1_7b step with float32 params over bfloat16
+        activations (``SPLIT_DTYPES``; the training step's shapes: B 2 x S
+        2,048 in 2 microbatches, remat="full", flash blocks of 1,024,
+        float32 moments), after a warm-up step: every flash launch on the
+        float32 CUDA-core body with lse; prints the wall, tokens/s and the
+        peak device memory."""
+        cfg = dataclasses.replace(self.llm_config(), remat="full",
+                                  attn_flash_block=16 if self.rehearse
+                                  else 1024, **SPLIT_DTYPES)
+        b, s, micro = (2, 64, 2) if self.rehearse else (2, 2048, 2)
+        first, metrics, wall, peak, launches, bodies = self.train_two_steps(
+            cfg, micro, b, s)
+        print(f"  {cfg.name}: {cfg.num_layers} layers, params "
+              f"{cfg.param_dtype} over {cfg.dtype} activations, moments "
+              f"float32; B {b} x S {s} in {micro} microbatches: step 2 "
               f"{wall * 1e3:.1f} ms ({b * s / wall:.0f} tokens/s), loss "
               f"{metrics['loss']:.5f}, grad_norm {metrics['grad_norm']:.5f} "
-              f"(step 1 loss {float(first['loss']):.5f}); launches "
-              f"{launches}; flash {flash}")
-        self.paths["train_step_window"] = dict(
-            launches=launches, flash=flash, wall_s=wall, window=window,
-            tokens_per_s=b * s / wall, metrics=metrics,
-            first_loss=float(first["loss"]))
-        ln_v = float(np.log(cfg.vocab_size))
-        self.check(all(np.isfinite(v) for v in metrics.values())
-                   and metrics["grad_norm"] > 0
-                   and abs(metrics["loss"] - ln_v) < 1.0,
-                   f"windowed training metrics {metrics}")
+              f"(step 1 loss {first['loss']:.5f}); launches {launches}; "
+              f"flash by body {bodies}"
+              + (f"; peak device memory {peak:.2f} GiB" if peak else ""))
+        self.paths["train_step_split"] = dict(
+            launches=launches, flash_bodies=bodies, wall_s=wall,
+            tokens_per_s=b * s / wall, peak_gib=peak, metrics=metrics,
+            first=first, microbatches=micro)
         if not self.rehearse:
             n_flash = cfg.num_layers * micro * 2
-            want = dict.fromkeys(counters, 0)
+            want = dict.fromkeys(launches, 0)
             want["flash_attention"] = n_flash
-            self.check(launches == want and flash == dict(
-                hopper=n_flash, lse=n_flash, window=n_flash),
-                f"windowed training launches {launches}, flash {flash}")
+            self.check(launches == want and bodies == {
+                "hopper_launches": 0, "cuda_core_launches": n_flash,
+                "lse_launches": n_flash, "window_launches": 0},
+                f"split training launches {launches}, flash {bodies}: "
+                f"expected every launch on the float32 CUDA-core body")
+
+    def train_step_remat(self):
+        """The bfloat16 full-width qwen3_1_7b step (the training step's
+        shapes) under remat "full", "dots" and "none" in turn, each from
+        the same seeded params and batches: step 2's wall and peak device
+        memory under each; fails unless the peaks are ordered full <= dots
+        <= none and step 1's losses (the same params and batch) agree
+        within the bfloat16 step's bound."""
+        base = dataclasses.replace(self.llm_config(),
+                                   attn_flash_block=16 if self.rehearse
+                                   else 1024)
+        b, s, micro = (2, 64, 2) if self.rehearse else (2, 2048, 2)
+        runs = {}
+        for remat in REMATS:
+            cfg = dataclasses.replace(base, remat=remat)
+            first, metrics, wall, peak, launches, _ = self.train_two_steps(
+                cfg, micro, b, s)
+            runs[remat] = dict(first_loss=first["loss"],
+                               loss=metrics["loss"], wall_s=wall,
+                               tokens_per_s=b * s / wall, peak_gib=peak,
+                               launches=launches)
+            print(f"  remat {remat}: step 2 {wall * 1e3:.1f} ms "
+                  f"({b * s / wall:.0f} tokens/s), loss "
+                  f"{metrics['loss']:.5f} (step 1 {first['loss']:.5f}); "
+                  f"flash launches {launches['flash_attention']}"
+                  + (f"; peak device memory {peak:.2f} GiB" if peak
+                     else ""))
+            if not self.rehearse:
+                recompute = 2 if remat != "none" else 1
+                self.check(launches["flash_attention"]
+                           == cfg.num_layers * micro * recompute,
+                           f"remat {remat}: flash launched "
+                           f"{launches['flash_attention']} times")
+        ref_loss = runs["full"]["first_loss"]
+        gaps = {r: abs(v["first_loss"] - ref_loss) / abs(ref_loss)
+                for r, v in runs.items()}
+        print(f"  step 1 loss gaps to remat full: "
+              + ", ".join(f"{r} {g:.2e}" for r, g in gaps.items())
+              + f" (bound {TRAIN_BF16_LOSS_REL:.2e})")
+        self.paths["train_step_remat"] = dict(runs=runs, loss_rel_gaps=gaps)
+        self.check(all(g <= TRAIN_BF16_LOSS_REL for g in gaps.values()),
+                   "the remat policies' losses disagree")
+        if not self.rehearse:
+            peaks = [runs[r]["peak_gib"] for r in REMATS]
+            self.check(peaks == sorted(peaks),
+                       f"peaks {dict(zip(REMATS, peaks))} not ordered full "
+                       f"<= dots <= none")
 
     def train_grads(self, cfg, params, batch):
         """(loss, {name: gradient}) of one forward and backward."""
@@ -3740,10 +4027,12 @@ class Smoke:
             p.grad = None
         return float(loss.detach()), grads
 
-    def train_vs_plain(self, arch, window=0):
-        """A 2-layer full-width ``arch`` in float32, B 2 x S 2,048 (with a
-        sliding window of ``window`` where given): the training forward
-        and backward with the kernels, then with the plain versions
+    def train_vs_plain(self, arch, window=0, dtypes=None):
+        """A 2-layer full-width ``arch`` in float32 (or with the params'
+        and activations' dtypes ``dtypes`` sets: float32 params over
+        bfloat16 activations keep every gradient float32), B 2 x S 2,048
+        (with a sliding window of ``window`` where given): the training
+        forward and backward with the kernels, then with the plain versions
         (flash's and ssd_scan's, patched where the model calls them); the
         loss and every gradient held to 1e-4 x max|.|, each kernel launched
         twice a layer (the recompute)."""
@@ -3755,7 +4044,8 @@ class Smoke:
         from repro_torch.models import ssm as ssm_mod
         self.free_full_model()
         cfg = dataclasses.replace(self.llm_config(layers=2, arch=arch),
-                                  dtype="float32", param_dtype="float32",
+                                  **(dtypes or dict(dtype="float32",
+                                                    param_dtype="float32")),
                                   sliding_window=window)
         b, s = (2, 64) if self.rehearse else (2, 2048)
         if self.rehearse:
@@ -3785,29 +4075,45 @@ class Smoke:
             want_loss, want = self.train_grads(cfg, params, batch)
             plain_s = time.perf_counter() - t0
         plain_launches = {n: fn.launches for n, fn in counters.items()}
-        worst, worst_name = 0.0, None
+        # with float32 params over bfloat16 activations, the gradients
+        # that pass through a bfloat16 activation's cotangent (the
+        # embedding's, layer 0's mixer norm's) carry its roundings: held to
+        # two bfloat16 roundings of their largest value, the rest to 1e-4
+        split = cfg.param_dtype == "float32" and cfg.dtype == "bfloat16"
+        rounded = {n for n in want if split and n in SPLIT_BF16_PATH}
+        worst, worst_name, worst_rounded = 0.0, None, 0.0
         for name, w in want.items():
-            err = float((grads[name] - w).abs().max())
+            err = float((grads[name].float() - w.float()).abs().max())
             ratio = err / max(float(w.abs().max()), 1e-30)
-            if ratio >= worst:
+            if name in rounded:
+                worst_rounded = max(worst_rounded, ratio)
+            elif ratio >= worst:
                 worst, worst_name = ratio, name
         loss_rel = abs(loss - want_loss) / abs(want_loss)
-        print(f"  2-layer {cfg.name} float32, B {b} x S {s}, window "
+        print(f"  2-layer {cfg.name} params {cfg.param_dtype}, "
+              f"activations {cfg.dtype}, B {b} x S {s}, window "
               f"{window}, flash blocks {cfg.attn_flash_block}: loss kernels "
               f"{loss:.6f}, plain {want_loss:.6f} (rel {loss_rel:.2e}); "
               f"worst gradient |kernels-plain| / max|plain| {worst:.2e} "
               f"({worst_name}) over {len(want)} tensors (bound "
-              f"{TRAIN_F32_REL:.0e}); forward+backward {kern_s:.3f} s with "
+              f"{TRAIN_F32_REL:.0e})"
+              + (f", through bfloat16 cotangents "
+                 f"({', '.join(sorted(rounded))}) {worst_rounded:.2e} "
+                 f"(bound {SPLIT_ROUNDED_REL:.2e})" if rounded else "")
+              + f"; forward+backward {kern_s:.3f} s with "
               f"kernels, {plain_s:.3f} s plain; launches {launches}, "
               f"flash with lse {lse}, windowed {windowed}")
         self.paths[f"train_{arch}_vs_plain"
-                   + (f"_window{window}" if window else "")] = dict(
+                   + (f"_window{window}" if window else "")
+                   + ("_split" if dtypes else "")] = dict(
             loss=loss, plain_loss=want_loss, loss_rel=loss_rel,
-            grad_worst_rel=worst, grad_worst=worst_name, launches=launches,
+            grad_worst_rel=worst, grad_worst=worst_name,
+            grad_rounded_worst_rel=worst_rounded, launches=launches,
             lse_launches=lse, window_launches=windowed, window=window,
             wall_s=kern_s, plain_wall_s=plain_s)
         self.check(np.isfinite(loss) and loss_rel <= TRAIN_F32_REL
-                   and worst <= TRAIN_F32_REL,
+                   and worst <= TRAIN_F32_REL
+                   and worst_rounded <= SPLIT_ROUNDED_REL,
                    f"{arch} training gradients with the kernels disagree "
                    f"with the plain versions'")
         if not self.rehearse:
@@ -4501,7 +4807,9 @@ class Smoke:
                                     ("bfloat16_window_lse", "window_lse"),
                                     ("e4m3", "e4m3"), ("e5m2", "e5m2"),
                                     ("e4m3_window", "e4m3_window"),
-                                    ("e5m2_window", "e5m2_window")):
+                                    ("e5m2_window", "e5m2_window"),
+                                    ("f32_bf16", "mixed"),
+                                    ("f32_bf16_window", "mixed_window")):
                 other = self.rows.get((name, variant))
                 if other and variant != dtype:
                     row.update({f"{prefix}_{key}": v
@@ -4634,6 +4942,21 @@ def main(argv=None) -> int:
     smoke.phase(f"{window[1]} serving, kernel vs plain",
                 lambda: smoke.serving_vs_plain(opts=window[2],
                                                key=f"{window[1]}_vs_plain"))
+    # params and activations in different dtypes: the decode kernel's
+    # float32-query, bfloat16-cache entry, then qwen3_1_7b served with
+    # float32 params over bfloat16 activations
+    smoke.phase("decode_attention vs plain, float32 query over a bfloat16 "
+                "cache", smoke.decode_mixed_vs_plain)
+    split = ("serving path, qwen3_1_7b, float32 params over bfloat16 "
+             "activations", "serving_split")
+    smoke.phase(split[0], lambda: smoke.serving(path=split[1],
+                                                opts=SPLIT_DTYPES))
+    if split[0] not in smoke.failed:
+        smoke.phase(f"serving profile, {split[1]}",
+                    lambda: smoke.serving_profile(split[1]))
+    smoke.phase(f"{split[1]} serving, kernel vs plain",
+                lambda: smoke.serving_vs_plain(opts=SPLIT_DTYPES,
+                                               key=f"{split[1]}_vs_plain"))
     # the training step: flash's lse output, the 2-layer float32 steps
     # kernels vs plain, then one full-width qwen3_1_7b step; the same with
     # a sliding window
@@ -4645,6 +4968,12 @@ def main(argv=None) -> int:
     smoke.phase("training, kernel vs plain, sliding window",
                 lambda: smoke.train_vs_plain("qwen3_1_7b", TRAIN_WINDOW))
     smoke.phase("training step, sliding window", smoke.train_step_window)
+    smoke.phase("training step, float32 params over bfloat16 activations",
+                smoke.train_step_split)
+    smoke.phase("training, kernel vs plain, float32 params over bfloat16 "
+                "activations", lambda: smoke.train_vs_plain(
+                    "qwen3_1_7b", dtypes=SPLIT_DTYPES))
+    smoke.phase("training step, remat dots", smoke.train_step_remat)
     # the training loop (checkpoint, restart) and the elastic re-solve of
     # the scheduler's fleet after pod failures
     smoke.phase("training loop", smoke.train_loop)

@@ -20,7 +20,12 @@
 // on read by a plain cast (:78-80). The kernel loads the float8 bytes and
 // converts them in registers (cvt to half pairs, then float32), which is
 // exact: every e4m3 and e5m2 value is a half, a bfloat16 and a float32
-// value. A float8 cache moves half the bytes of a bfloat16 one.
+// value. A float8 cache moves half the bytes of a bfloat16 one. A float32
+// q over bfloat16 caches (float32 params over bfloat16 activations: the
+// projections promote q to float32, the cache is allocated in the compute
+// dtype) reads the bf16 rows as stored and widens them in registers, as
+// the reference's astype widens them, exactly; it moves the bf16 cache's
+// bytes and writes a float32 output.
 //
 // What bounds it on an H100: reading the valid prefix of the cache once,
 // 2 L_b Hkv D elements per sequence, against 4 L_b Hq D operations: about
@@ -576,8 +581,8 @@ int launch(const TQ* q, const T* k, const T* v, const int* kv_len,
 // lse: null, or a contiguous float32 (batch, Hq) for each head's
 // log-sum-exp of its scaled scores (-inf where no row is valid). part:
 // float32 scratch of B * Hkv * ceil(S_max / chunk) * (Hq / Hkv) * (D + 2)
-// values. decode_attention_<q>_<cache>: the caches in float8 e4m3 or e5m2
-// under a q (and output) of bfloat16 or float32.
+// values. decode_attention_<q>_<cache>: the caches in float8 e4m3 or e5m2,
+// or in bfloat16, under a q (and output) of bfloat16 or float32.
 #define DECODE_ENTRY(NAME, TQ, T)                                            \
   extern "C" int NAME(const TQ* q, const T* k, const T* v,                   \
                       const int* kv_len, const int* kv_start, TQ* o,         \
@@ -593,4 +598,5 @@ DECODE_ENTRY(decode_attention_bf16_e4m3, __nv_bfloat16, __nv_fp8_e4m3)
 DECODE_ENTRY(decode_attention_bf16_e5m2, __nv_bfloat16, __nv_fp8_e5m2)
 DECODE_ENTRY(decode_attention_f32_e4m3, float, __nv_fp8_e4m3)
 DECODE_ENTRY(decode_attention_f32_e5m2, float, __nv_fp8_e5m2)
+DECODE_ENTRY(decode_attention_f32_bf16, float, __nv_bfloat16)
 #undef DECODE_ENTRY

@@ -7,14 +7,18 @@ with ``nvcc`` and loaded through ``ctypes`` on the first call with a CUDA
 tensor; CPU tensors take the plain version in ``ref.py``, and nothing else
 does. ``decode_attention.launches`` counts the kernel's launches,
 ``decode_attention.window_launches`` those given a first valid row per
-sequence (``kv_start``, the model's sliding window) and
-``decode_attention.fp8_launches`` those over float8 caches.
+sequence (``kv_start``, the model's sliding window),
+``decode_attention.fp8_launches`` those over float8 caches and
+``decode_attention.mixed_launches`` those of a float32 q over bfloat16
+caches.
 
 The caches are in q's dtype, or both ``float8_e4m3fn`` or both
 ``float8_e5m2`` under a bfloat16 or float32 q (the reference's quantized
-KV cache): the kernel reads the float8 bytes and converts them in
-registers, exactly, as the reference dequantises by a plain cast. Any
-other mix raises; nothing is cast before the kernel.
+KV cache), or both bfloat16 under a float32 q (float32 params over
+bfloat16 activations: q comes out of the projections float32, the cache
+is kept in the compute dtype): the kernel reads the stored bytes and
+widens them in registers, exactly, as the reference dequantises by a
+plain cast. Any other mix raises; nothing is cast before the kernel.
 
 On CPU tensors the plain version runs as one operator,
 ``torch.ops.repro_torch.decode_attention_plain`` (``_plain_torch``), with a
@@ -51,7 +55,8 @@ _ENTRY = {(torch.float32, torch.float32): "decode_attention_f32",
           (torch.bfloat16, torch.float8_e4m3fn): "decode_attention_bf16_e4m3",
           (torch.bfloat16, torch.float8_e5m2): "decode_attention_bf16_e5m2",
           (torch.float32, torch.float8_e4m3fn): "decode_attention_f32_e4m3",
-          (torch.float32, torch.float8_e5m2): "decode_attention_f32_e5m2"}
+          (torch.float32, torch.float8_e5m2): "decode_attention_f32_e5m2",
+          (torch.float32, torch.bfloat16): "decode_attention_f32_bf16"}
 FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
 #: blocks the split grid aims at (4 per SM of an H100, about as many as
 #: are resident at once), and its chunks' least rows
@@ -73,7 +78,8 @@ def chunk_rows(batch: int, s_max: int, hkv: int) -> int:
 def decode_attention(q, k_cache, v_cache, kv_len, *, kv_start=None,
                      sm_scale: float | None = None, return_lse: bool = False):
     """q: (B, Hq, D), float32 or bfloat16; k_cache, v_cache: (B, S_max,
-    Hkv, D), both of q's dtype or both one float8 dtype, each with a
+    Hkv, D), both of q's dtype, both one float8 dtype or, under a float32
+    q, both bfloat16, each with a
     contiguous head dim (other strides free); kv_len and (optionally)
     kv_start: (B,) int32, contiguous, on the same device, read there (no
     host sync). Sequence b attends rows [F_b, L_b): L_b = kv_len[b] clamped
@@ -95,8 +101,9 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, kv_start=None,
     entry = _ENTRY.get((q.dtype, k_cache.dtype))
     if entry is None or v_cache.dtype != k_cache.dtype:
         raise TypeError(f"decode_attention takes a float32 or bfloat16 q "
-                        f"with caches of its dtype or both float8 "
-                        f"(e4m3fn or e5m2): q {q.dtype}, k_cache "
+                        f"with caches of its dtype, both float8 (e4m3fn or "
+                        f"e5m2) or, under a float32 q, both bfloat16: q "
+                        f"{q.dtype}, k_cache "
                         f"{k_cache.dtype}, v_cache {v_cache.dtype}")
     if k_cache.dim() != 4 or k_cache.shape[0] != b or k_cache.shape[3] != d:
         raise ValueError(f"decode_attention: k_cache must be (B, S_max, Hkv,"
@@ -160,12 +167,15 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, kv_start=None,
         decode_attention.window_launches += 1
     if k_cache.dtype in FP8:
         decode_attention.fp8_launches += 1
+    if k_cache.dtype != q.dtype and k_cache.dtype not in FP8:
+        decode_attention.mixed_launches += 1
     return (out, lse) if return_lse else out
 
 
 decode_attention.launches = 0
 decode_attention.window_launches = 0
 decode_attention.fp8_launches = 0
+decode_attention.mixed_launches = 0
 
 
 @torch.library.custom_op(

@@ -6,8 +6,9 @@ float32 with the output cast to q's dtype — what
 scalar length, with one length (and first row: the model's sliding window)
 per sequence. No valid row gives zeros, as the kernel does. A float8 cache
 is read through ``.float()``, exactly, as the reference's model
-dequantises it. The wrapper uses it for CPU tensors; ``chip_smoke.py``
-holds the kernel against it."""
+dequantises it, and so is a bfloat16 cache under a float32 q. The
+wrapper uses it for CPU tensors; ``chip_smoke.py`` holds the kernel
+against it."""
 from __future__ import annotations
 
 import math

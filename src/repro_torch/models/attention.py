@@ -44,8 +44,9 @@ from torch.distributed.tensor import DTensor, Shard
 from ..kernels.decode_attention.ops import decode_attention
 from ..kernels.flash_attention.ops import flash_attention
 from .common import (RMSNorm, apply_mrope, apply_rope, constrain_torch,
-                     dense_init, local_region_torch, shard_axes_torch,
-                     to_cache_dtype_torch, unshard_dp_torch)
+                     dense_init, local_region_torch, mm_promoted_torch,
+                     shard_axes_torch, to_cache_dtype_torch,
+                     unshard_dp_torch)
 from .config import ModelConfig
 
 NEG_INF = -1e30
@@ -81,9 +82,9 @@ class Attention(torch.nn.Module):
 
 def _project_qkv(cfg: ModelConfig, p: Attention, x, positions):
     b, s, _ = x.shape
-    q = x @ unshard_dp_torch(p.wq, cfg)
-    k = x @ unshard_dp_torch(p.wk, cfg)
-    v = x @ unshard_dp_torch(p.wv, cfg)
+    q = mm_promoted_torch(x, unshard_dp_torch(p.wq, cfg))
+    k = mm_promoted_torch(x, unshard_dp_torch(p.wk, cfg))
+    v = mm_promoted_torch(x, unshard_dp_torch(p.wv, cfg))
     if cfg.qkv_bias:
         q = q + p.bq
         k = k + p.bk
@@ -238,8 +239,8 @@ def attention_train_torch(cfg: ModelConfig, p: Attention, x, positions):
     out = _sharded_heads_torch(
         "attention_train", cfg,
         lambda q, k, v: _attend_any_torch(cfg, q, k, v), q, k, v)
-    return out.reshape(out.shape[0], out.shape[1], -1) @ unshard_dp_torch(
-        p.wo, cfg)
+    return mm_promoted_torch(out.reshape(out.shape[0], out.shape[1], -1),
+                             unshard_dp_torch(p.wo, cfg))
 
 
 def attention_prefill(cfg: ModelConfig, p: Attention, x, positions):
@@ -251,8 +252,8 @@ def attention_prefill(cfg: ModelConfig, p: Attention, x, positions):
         "flash_attention", cfg,
         lambda q, k, v: flash_attention(q, k, v, window=cfg.sliding_window),
         q, k, v)
-    y = out.reshape(out.shape[0], out.shape[1], -1) @ unshard_dp_torch(
-        p.wo, cfg)
+    y = mm_promoted_torch(out.reshape(out.shape[0], out.shape[1], -1),
+                          unshard_dp_torch(p.wo, cfg))
     return y, {"k": k, "v": v}
 
 
@@ -420,5 +421,5 @@ def attention_decode(cfg: ModelConfig, p: Attention, x, cache: dict, pos):
     else:
         out = _decode_rows_torch(q, k_new, v_new, cache["k"], cache["v"],
                                  pos, kv_start)
-    y = out.reshape(b, 1, -1) @ unshard_dp_torch(p.wo, cfg)
+    y = mm_promoted_torch(out.reshape(b, 1, -1), unshard_dp_torch(p.wo, cfg))
     return y, cache

@@ -10,14 +10,18 @@ params on a leading axis and ``lax.scan``s over them; the port keeps one
 the reference's serving paths drop it). ``_group_train`` becomes
 ``Block.train_torch``, which returns the MoE aux beside h, and
 ``stack_train_torch`` runs the layers group by group under the
-reference's ``_remat`` rule (``blocks.py:148-153``).
+reference's ``_remat`` rule (``blocks.py:148-153``): ``"full"`` recomputes
+a group in the backward, ``"dots"`` recomputes it but for the outputs of
+its products with a weight (a selective checkpoint,
+``dots_saveable_policy_torch``), ``"none"`` keeps everything.
 """
 from __future__ import annotations
 
 import functools
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .attention import (Attention, attention_decode, attention_prefill,
                         attention_train_torch)
@@ -120,23 +124,60 @@ def _group_train_torch(layers, h, positions):
     return h, aux
 
 
+#: the matrix products the selective checkpoint looks at
+_MM_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_BMM_OPS = (torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _broadcast_batch_torch(t) -> bool:
+    """Whether a bmm operand is one matrix broadcast along the batch: dim
+    0 of stride 0 (how ``torch.matmul`` passes a 2-D weight when it does
+    not fold the activation's leading dims into an ``mm``)."""
+    return t.dim() == 3 and t.shape[0] > 1 and t.stride(0) == 0
+
+
+def dots_saveable_policy_torch(ctx, op, *args, **kwargs):
+    """The reference's ``dots_with_no_batch_dims_saveable`` as a selective
+    checkpoint policy: the output of a matrix product without batch dims
+    is saved, everything else is recomputed in the backward. Decided by
+    the product's operands, not by the operator's name alone: a 3-D
+    activation times a 2-D weight reaches ``aten.mm`` (leading dims
+    folded) or ``aten.bmm`` with the weight broadcast along the batch
+    (stride 0), and both have no batch dims; a ``bmm`` whose operands
+    both vary along the batch (the attention scores, the MoE experts'
+    stacks, the dense MoE's dispatch) has batch dims and is recomputed, as
+    are the norms, the elementwise ops and the kernels' operators
+    (``_FlashTrain``, ``_SsdTrain``)."""
+    if op in _MM_OPS:
+        return CheckpointPolicy.MUST_SAVE
+    if op in _BMM_OPS:
+        a, b = args[-2], args[-1]
+        if _broadcast_batch_torch(a) or _broadcast_batch_torch(b):
+            return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context_torch():
+    return create_selective_checkpoint_contexts(dots_saveable_policy_torch)
+
+
 def stack_train_torch(cfg: ModelConfig, layers, h, positions):
     """The layers group by group, as the reference's ``stack_train``:
-    ``cfg.remat == "none"`` keeps every activation; any other value but
-    ``"dots"`` (``"full"``, every config's default) recomputes each group in
-    the backward (``torch.utils.checkpoint``, non-reentrant). Returns (h, the summed MoE aux loss)."""
-    if cfg.remat == "dots":
-        raise NotImplementedError(
-            f"{cfg.name}: remat='dots' (save the matrix products' outputs) "
-            f"is not in the port yet (no config the repository ships sets "
-            f"it; ROADMAP.md queue 1 item 13, options no shipped config "
-            f"sets)")
+    ``cfg.remat == "none"`` keeps every activation; ``"dots"`` recomputes
+    each group in the backward but for the outputs of its products with a
+    weight (``dots_saveable_policy_torch``); any other value (``"full"``,
+    every config's default) recomputes each group whole
+    (``torch.utils.checkpoint``, non-reentrant). Returns (h, the summed MoE
+    aux loss)."""
     width = len(cfg.block_pattern)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for g0 in range(0, len(layers), width):
         fn = functools.partial(_group_train_torch, layers[g0:g0 + width])
         if cfg.remat == "none":
             h, a = fn(h, positions)
+        elif cfg.remat == "dots":
+            h, a = checkpoint(fn, h, positions, use_reentrant=False,
+                              context_fn=_dots_context_torch)
         else:
             h, a = checkpoint(fn, h, positions, use_reentrant=False)
         aux = aux + a

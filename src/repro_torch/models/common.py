@@ -2,12 +2,14 @@
 M-RoPE — the port of ``repro/models/common.py``.
 
 The same mixed-precision policy as the reference: params are stored in
-``cfg.param_dtype``, matmuls run in the params' dtype, reductions (norms,
-softmax) and the RoPE rotation run in float32. ``constrain_torch`` is the
-reference's ``constrain``: on a DTensor, with the launcher's
-``cfg.dp_axes``/``cfg.tp_axis`` set (``launch/dryrun.py`` and a sharded
-run set them), it redistributes the activation to the placements its
-logical dims name; on one card it returns its input.
+``cfg.param_dtype``, the embedding's output is cast to ``cfg.dtype``, every
+product of an activation and a weight runs in the dtype jnp promotes the
+two to (``mm_promoted_torch``: torch's products refuse mixed dtypes), and
+reductions (norms, softmax) and the RoPE rotation run in float32.
+``constrain_torch`` is the reference's ``constrain``: on a DTensor, with
+the launcher's ``cfg.dp_axes``/``cfg.tp_axis`` set (``launch/dryrun.py``
+and a sharded run set them), it redistributes the activation to the
+placements its logical dims name; on one card it returns its input.
 """
 from __future__ import annotations
 
@@ -168,6 +170,31 @@ def local_region_torch(name: str, fn, layouts_in, layouts_out, *args):
 
 def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
+
+
+def promoted_torch(*xs):
+    """``xs`` cast to the one dtype jnp promotes them to, for a product.
+    ``jnp.einsum`` of a bfloat16 and a float32 array widens the bfloat16
+    one (exactly) and multiplies in float32; ``torch.matmul``, ``bmm`` and
+    ``einsum`` refuse mixed dtypes, so every product of the model casts
+    its operands here first. Between dimensioned tensors of floating
+    dtypes jnp and torch promote alike (bfloat16 with float32 gives
+    float32); a 0-d tensor does not: a float32 0-d array promotes a
+    bfloat16 one in jnp and not in torch (a Python scalar is weak in
+    both), so an elementwise site that mixes one casts by hand. A
+    weight is cast per product, as the reference's promotion casts it,
+    never once up front. On one dtype this returns ``xs`` as they are."""
+    dtype = xs[0].dtype
+    for x in xs[1:]:
+        dtype = torch.promote_types(dtype, x.dtype)
+    return tuple(x if x.dtype == dtype else x.to(dtype) for x in xs)
+
+
+def mm_promoted_torch(x, w):
+    """``x @ w`` (an activation (..., K) by a weight (K, N), or any
+    matmul) in the dtype jnp promotes the two to (``promoted_torch``)."""
+    x, w = promoted_torch(x, w)
+    return x @ w
 
 
 #: float8_e4m3fn's overflow edge: the reference's cast (XLA's) rounds

@@ -1,11 +1,12 @@
 """Dense MLPs — SwiGLU / GeGLU (gated) and plain GELU — the port of
 ``repro/models/mlp.py``. Weights keep the reference's (in, out) layout and
-are applied as ``x @ W``."""
+are applied as ``x @ W``, in the dtype jnp promotes the two to."""
 from __future__ import annotations
 
 import torch
 
-from .common import act_fn, constrain_torch, dense_init, unshard_dp_torch
+from .common import (act_fn, constrain_torch, dense_init, mm_promoted_torch,
+                     unshard_dp_torch)
 from .config import ModelConfig
 
 
@@ -35,9 +36,10 @@ class MLP(torch.nn.Module):
     def forward(self, x):
         cfg = self.cfg
         if self.gated:
-            h = self.act(x @ unshard_dp_torch(self.wi_gate, cfg)) * (
-                x @ unshard_dp_torch(self.wi_up, cfg))
+            h = self.act(mm_promoted_torch(
+                x, unshard_dp_torch(self.wi_gate, cfg))) * mm_promoted_torch(
+                    x, unshard_dp_torch(self.wi_up, cfg))
         else:
-            h = self.act(x @ unshard_dp_torch(self.wi, cfg))
-        return constrain_torch(h, cfg, "dp", None, "tp") @ unshard_dp_torch(
-            self.wo, cfg)
+            h = self.act(mm_promoted_torch(x, unshard_dp_torch(self.wi, cfg)))
+        return mm_promoted_torch(constrain_torch(h, cfg, "dp", None, "tp"),
+                                 unshard_dp_torch(self.wo, cfg))

@@ -46,8 +46,8 @@ from torch.distributed.tensor import DTensor
 from ..device import DeviceLike, resolve_device
 from .blocks import Block, stack_train_torch
 from .common import (RMSNorm, constrain_torch, dtype_of, embed_init,
-                     layout_of_torch, local_region_torch, rmsnorm,
-                     unshard_dp_torch)
+                     layout_of_torch, local_region_torch, mm_promoted_torch,
+                     rmsnorm, unshard_dp_torch)
 from .config import ModelConfig
 
 
@@ -60,12 +60,6 @@ class Transformer(torch.nn.Module):
 
     def __init__(self, cfg: ModelConfig, generator=None, device=None):
         super().__init__()
-        if cfg.dtype != cfg.param_dtype:
-            raise NotImplementedError(
-                f"{cfg.name}: the port runs params and activations in one "
-                f"dtype ({cfg.param_dtype} != {cfg.dtype}; no config the "
-                f"repository ships splits them; ROADMAP.md queue 1 item 13, "
-                f"options no shipped config sets)")
         self.cfg = cfg
         dtype = dtype_of(cfg.param_dtype)
         self.embed = torch.nn.Parameter(
@@ -181,7 +175,8 @@ def _logits(cfg: ModelConfig, params: Transformer, h):
     w = unshard_dp_torch(params.embed if cfg.tie_embeddings
                          else params.unembed, cfg)
     w = w.T if cfg.tie_embeddings else w
-    logits = constrain_torch((h @ w).float(), cfg, "dp", None, "tp")
+    logits = constrain_torch(mm_promoted_torch(h, w).float(), cfg, "dp",
+                             None, "tp")
     if cfg.vocab_padded == cfg.vocab_size:
         return logits
     if isinstance(logits, DTensor):     # no slice write on a sharded dim
@@ -301,9 +296,14 @@ def _cache_layout_torch(cfg: ModelConfig, batch: int, max_len: int):
     """One dict a layer, name -> (shape, dtype), as ``init_caches`` fills
     them: attention K/V in ``cfg.cache_dtype`` where it is set (the
     reference's ``init_group_cache``, ``blocks.py:55-57``), else the
-    compute dtype."""
+    compute dtype; the mamba conv tail in the dtype the reference's decode
+    step leaves it in, the compute dtype promoted with the params' (its
+    step concatenates the cache with the in-projection's new row and
+    returns that: with float32 params over bfloat16 activations the
+    reference's cache is float32 from its first step on, ROADMAP P19)."""
     dtype = dtype_of(cfg.dtype)
     kv_dtype = dtype_of(cfg.cache_dtype) if cfg.cache_dtype else dtype
+    conv_dtype = torch.promote_types(dtype, dtype_of(cfg.param_dtype))
     pattern = cfg.block_pattern
     layout = []
     for i in range(cfg.num_layers):
@@ -313,7 +313,7 @@ def _cache_layout_torch(cfg: ModelConfig, batch: int, max_len: int):
         else:
             conv = (batch, cfg.ssm_conv - 1, cfg.d_inner + 2 * cfg.ssm_state)
             ssm = (batch, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state)
-            layout.append({"conv": (conv, dtype),
+            layout.append({"conv": (conv, conv_dtype),
                            "ssm": (ssm, torch.float32)})
     return layout
 
@@ -323,8 +323,9 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     """Zeroed decode caches, one dict per layer as ``init_group_cache``
     builds them: {"k", "v"} (batch, max_len, Hkv, D) in ``cfg.cache_dtype``
     (the compute dtype where it is unset) for attention; for mamba
-    {"conv": (batch, ssm_conv - 1, d_inner + 2 N) in the compute dtype,
-    "ssm": (batch, H, P, N) float32}."""
+    {"conv": (batch, ssm_conv - 1, d_inner + 2 N) in the compute dtype
+    (promoted with the params' dtype where the two differ), "ssm": (batch,
+    H, P, N) float32}."""
     dev = resolve_device(device)
     return [{k: torch.zeros(shape, dtype=dt, device=dev)
              for k, (shape, dt) in layer.items()}

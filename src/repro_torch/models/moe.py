@@ -32,7 +32,8 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
 from .common import (act_fn, constrain_torch, dense_init, local_region_torch,
-                     shard_axes_torch, unshard_dp_torch)
+                     mm_promoted_torch, promoted_torch, shard_axes_torch,
+                     unshard_dp_torch)
 from .config import ModelConfig
 
 MOE_GROUP = 256          # tokens per routing group
@@ -85,7 +86,7 @@ def _route_torch(cfg: ModelConfig, p: MoE, xt, expert_idx=None):
     then the probabilities there): a comparison can force one run's
     routing on another. Returns (gate_vals, expert_idx, aux)."""
     e, k = cfg.moe_experts, cfg.moe_top_k
-    probs = torch.softmax(xt.float() @ p.router, dim=-1)
+    probs = torch.softmax(mm_promoted_torch(xt.float(), p.router), dim=-1)
     if expert_idx is None:
         vals, order = torch.sort(probs, dim=-1, descending=True, stable=True)
         gate_vals, expert_idx = vals[..., :k], order[..., :k]
@@ -106,13 +107,14 @@ def _expert_ffn_torch(cfg: ModelConfig, p: MoE, xin):
     xe = xin.transpose(0, 1).reshape(e, g * c, d)
     act = act_fn(cfg.mlp_type)
     if cfg.mlp_type in ("swiglu", "geglu"):
-        h = act(torch.bmm(xe, unshard_dp_torch(p.wi_gate, cfg))) * torch.bmm(
-            xe, unshard_dp_torch(p.wi_up, cfg))
+        h = act(torch.bmm(*promoted_torch(
+            xe, unshard_dp_torch(p.wi_gate, cfg)))) * torch.bmm(
+                *promoted_torch(xe, unshard_dp_torch(p.wi_up, cfg)))
     else:
-        h = act(torch.bmm(xe, unshard_dp_torch(p.wi, cfg)))
+        h = act(torch.bmm(*promoted_torch(xe, unshard_dp_torch(p.wi, cfg))))
     # (E, G*C, F), G-major: a shard holds whole groups
     h = constrain_torch(h, cfg, None, "dp", "tp", granule=(1, c, 1))
-    return torch.bmm(h, unshard_dp_torch(p.wo, cfg)).reshape(
+    return torch.bmm(*promoted_torch(h, unshard_dp_torch(p.wo, cfg))).reshape(
         e, g, c, d).transpose(0, 1)
 
 
@@ -128,7 +130,9 @@ def moe_apply_gather_torch(cfg: ModelConfig, p: MoE, x):
         xt = constrain_torch(x.reshape(g, gsz, d), cfg, "dp", None, None)
         xin, row, w, _, aux = _gather_dispatch_torch(cfg, p, cap, xt)
         yout = _expert_ffn_torch(cfg, p, xin).reshape(g, e * cap, d)
-        return _gather_combine_torch(yout, row, w).reshape(b, s, d), aux
+        # in x's dtype, as the reference's scatter-add into zeros of it
+        return _gather_combine_torch(yout, row, w).reshape(b, s, d).to(
+            x.dtype), aux
     # sharded: the grouping and the index work run on each device's rows
     # (local_map), the batch over the dp axes that divide both B and G so
     # a device holds whole groups (DTensor's own view of a batch shard as
@@ -150,13 +154,13 @@ def moe_apply_gather_torch(cfg: ModelConfig, p: MoE, x):
     xin, row, w, idx0 = local_region_torch(
         "moe gather dispatch", dispatch, (((), ()), lay3),
         ((dp, (), (), ()), lay2, lay3, lay2), router, x)
-    probs = torch.softmax(x.float() @ router, dim=-1)        # (B, S, E)
+    probs = torch.softmax(mm_promoted_torch(x.float(), router), dim=-1)
     ce = (idx0[..., None] == torch.arange(e, device=idx0.device)).float()
     aux = e * torch.sum(probs.mean(dim=(0, 1)) * ce.mean(dim=(0, 1)))
     yout = _expert_ffn_torch(cfg, p, xin).reshape(g, e * cap, d)
     y = local_region_torch("moe gather combine", combine,
                            (lay3, lay2, lay3), (lay3,), yout, row, w)
-    return y, aux
+    return y.to(x.dtype), aux
 
 
 def _gather_dispatch_torch(cfg: ModelConfig, p, cap: int, xt):
@@ -228,7 +232,8 @@ def moe_apply_dense_torch(cfg: ModelConfig, p: MoE, x):
         torch.einsum("gtec,gtd->gecd", dispatch.to(x.dtype), xt), cfg,
         "dp", None, None, None)
     yout = _expert_ffn_torch(cfg, p, xin)
-    y = torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), yout)
+    y = torch.einsum("gtec,gecd->gtd",
+                     *promoted_torch(combine.to(x.dtype), yout))
     return y.reshape(b, s, d), aux
 
 

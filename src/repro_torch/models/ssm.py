@@ -25,8 +25,8 @@ from torch.distributed.tensor import DTensor
 
 from ..kernels.ssd_scan.ops import ssd_chunked, ssd_chunked_train
 from .common import (constrain_torch, dense_init, layout_of_torch,
-                     local_region_torch, placements_of_torch,
-                     shard_axes_torch, unshard_dp_torch)
+                     local_region_torch, mm_promoted_torch,
+                     placements_of_torch, shard_axes_torch, unshard_dp_torch)
 from .config import ModelConfig
 
 
@@ -109,8 +109,8 @@ def mamba_train(cfg: ModelConfig, p: Mamba, x, return_state: bool = False):
     the card too)."""
     bsz, s, _ = x.shape
     di, n, nh, ph = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
-    proj = constrain_torch(x @ unshard_dp_torch(p.in_proj, cfg), cfg, "dp",
-                           None, "tp")
+    proj = constrain_torch(mm_promoted_torch(
+        x, unshard_dp_torch(p.in_proj, cfg)), cfg, "dp", None, "tp")
     z, xbc_in, dt = _split_proj(cfg, proj)
     xbc = _causal_conv(p, xbc_in)
     xin = xbc[..., :di].reshape(bsz, s, nh, ph)
@@ -128,7 +128,7 @@ def mamba_train(cfg: ModelConfig, p: Mamba, x, return_state: bool = False):
                 *t, chunk=cfg.ssm_chunk), True, xin, dt, a, b_mat, c_mat)
     y = y + xin * p.D[None, None, :, None].to(x.dtype)
     y = y.reshape(bsz, s, di) * F.silu(z)
-    out = y @ unshard_dp_torch(p.out_proj, cfg)
+    out = mm_promoted_torch(y, unshard_dp_torch(p.out_proj, cfg))
     if return_state:
         k = cfg.ssm_conv
         tail = F.pad(xbc_in, (0, 0, max(0, k - 1 - s), 0))[:, -(k - 1):]
@@ -153,7 +153,7 @@ def mamba_decode(cfg: ModelConfig, p: Mamba, x, cache: dict):
     reference returns a new cache). Returns (y (B, 1, D), cache)."""
     bsz = x.shape[0]
     di, n, nh, ph = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
-    proj = x @ unshard_dp_torch(p.in_proj, cfg)
+    proj = mm_promoted_torch(x, unshard_dp_torch(p.in_proj, cfg))
     z, xbc_new, dt = _split_proj(cfg, proj)
     window = torch.cat([cache["conv"], xbc_new], dim=1)      # (B, k, C)
     conv_out = (window * p.conv_w).sum(dim=1) + p.conv_b
@@ -179,4 +179,4 @@ def mamba_decode(cfg: ModelConfig, p: Mamba, x, cache: dict):
         y = _ssm_step_torch(state, xin, dt1, a, b_mat, c_mat, p.D)
     y = y.reshape(bsz, 1, di).to(x.dtype) * F.silu(z)
     cache["conv"].copy_(window[:, 1:])
-    return y @ unshard_dp_torch(p.out_proj, cfg), cache
+    return mm_promoted_torch(y, unshard_dp_torch(p.out_proj, cfg)), cache

@@ -1743,3 +1743,78 @@ def test_windowed_fp8_serving_engine_on_card_matches_cpu(cuda):
             steps = cfg.num_layers * eng._steps
             assert launched == (cfg.num_layers * len(done), steps, steps)
     assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.parametrize("hq,hkv,d", [(16, 8, 128), (40, 8, 128),
+                                      (8, 1, 256), (4, 4, 64), (4, 2, 136)])
+@pytest.mark.parametrize("n_chunks", [1, 4])
+def test_decode_f32_q_over_bf16_cache_matches_plain(cuda, monkeypatch, hq,
+                                                    hkv, d, n_chunks):
+    # a float32 q over bfloat16 caches (float32 params over bfloat16
+    # activations): the mixed entry, with and without first rows and the
+    # lse, against the plain version on the same bytes at the float32
+    # entry's bound, and counted in mixed_launches
+    b, s_max = 8, 512
+    monkeypatch.setattr(decode_kernel, "chunk_rows",
+                        lambda *a: s_max // n_chunks)
+    q = _randn((b, hq, d), torch.float32, cuda, 40)
+    kc = _randn((b, s_max, hkv, d), torch.bfloat16, cuda, 41)
+    vc = _randn((b, s_max, hkv, d), torch.bfloat16, cuda, 42)
+    lens = torch.tensor([512, 300, 300, 512, 200, 200, 511, 1],
+                        dtype=torch.int32, device=cuda)
+    starts = torch.tensor([0, 17, 128, 259, 200, 260, 510, 0],
+                          dtype=torch.int32, device=cuda)
+    da = decode_kernel.decode_attention
+    before = (da.launches, da.mixed_launches, da.fp8_launches)
+    got, lse = da(q, kc, vc, lens, kv_start=starts, return_lse=True)
+    got_all = da(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    assert (da.launches, da.mixed_launches, da.fp8_launches) == (
+        before[0] + 2, before[1] + 2, before[2])
+    assert got.dtype == torch.float32 and lse.dtype == torch.float32
+    want, want_lse = decode_ref.decode_attention(q, kc, vc, lens,
+                                                 kv_start=starts,
+                                                 return_lse=True)
+    tol = ATTN_TOL[torch.float32]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-5)
+    torch.testing.assert_close(
+        got_all, decode_ref.decode_attention(q, kc, vc, lens), rtol=tol,
+        atol=tol)
+
+
+def test_split_dtype_serving_engine_on_card_matches_cpu(cuda):
+    # the smoke config with float32 params over bfloat16 activations: every
+    # decode launch takes the mixed entry, every prefill flash's float32
+    # body, and the tokens equal the plain versions' on the CPU
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serve import ServingEngine
+    cfg = dataclasses.replace(get_smoke_config("qwen3_1_7b"),
+                              param_dtype="float32", dtype="bfloat16")
+    params = init_params(cfg, 0, device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = ServingEngine(cfg, params=params.to(dev), max_slots=3,
+                            max_len=16, tenant_weights={"gold": 2.0},
+                            device=dev)
+        rng = np.random.default_rng(1)
+        for i in range(6):
+            eng.submit("gold" if i % 3 else "free",
+                       [int(t) for t in rng.integers(0, cfg.vocab_size, 7)],
+                       max_new_tokens=5)
+        fa, da = flash_kernel.flash_attention, decode_kernel.decode_attention
+        before = (fa.launches, fa.cuda_core_launches, da.launches,
+                  da.mixed_launches)
+        done = eng.run(max_steps=40)
+        launched = tuple(a - b for a, b in zip(
+            (fa.launches, fa.cuda_core_launches, da.launches,
+             da.mixed_launches), before))
+        out[dev] = [(r.rid, r.out_tokens) for r in done]
+        assert eng.caches[0]["k"].dtype == torch.bfloat16
+        if dev == "cuda":
+            prefills = cfg.num_layers * len(done)
+            steps = cfg.num_layers * eng._steps
+            assert launched == (prefills, prefills, steps, steps)
+    assert out["cuda"] == out["cpu"]

@@ -51,7 +51,11 @@ def test_port_modules_listed():
                  "ckpt.manager", "ft.failures", "train.compression",
                  "train.trainer", "launch.train", "launch.mesh",
                  "launch.sharding", "launch.specs", "launch.collectives",
-                 "launch.dryrun", "launch.roofline"):
+                 "launch.dryrun", "launch.roofline", "analysis.__main__",
+                 "analysis.findings", "analysis.model", "analysis.contracts",
+                 "analysis.axis_threading", "analysis.host_sync",
+                 "analysis.kernel_triples", "analysis.observability",
+                 "analysis.docstrings", "analysis.runner"):
         assert f"repro_torch.{name}" in PORT_MODULES, name
 
 
@@ -556,3 +560,27 @@ def test_launch_functions_take_names_of_their_own():
     # ``main`` is every launch module's CLI entry, as in the reference
     shared = sorted((added & reference) - {"main"})
     assert not shared, f"port functions named like the reference's: {shared}"
+
+
+def test_analysis_definitions_take_names_of_their_own():
+    # the port's lint is a copy of the reference's: every definition in it
+    # (function, method, nested helper, class) takes a name no definition
+    # of src/repro/ has, but ``main`` (each CLI's entry, as in the launch
+    # modules) and ``__init__``, so the reference's lint, which grounds by
+    # base name across the whole of src/, sees nothing of it as its own
+    # (ROADMAP P2)
+    reference = set()
+    for path in (ROOT / "src" / "repro").rglob("*.py"):
+        reference |= _all_definitions(path)
+    assert {"run", "load", "RepoModel", "Finding", "run_analysis",
+            "validates", "_collect_scope"} <= reference
+    port = set()
+    for path in (ROOT / "src" / "repro_torch" / "analysis").glob("*.py"):
+        port |= _all_definitions(path)
+    assert {"run_axis_threading_torch", "run_host_sync_torch",
+            "run_kernel_triples_torch", "run_observability_torch",
+            "run_docstrings_torch", "run_analysis_torch", "PortRepoModel",
+            "LintFinding", "main"} <= port
+    shared = sorted(port & reference - {"main", "__init__"})
+    assert not shared, f"lint definitions named like the reference's: " \
+                       f"{shared}"

@@ -164,10 +164,18 @@ def test_init_caches_match_reference():
     for key, dtype in (("conv", torch.float32), ("ssm", torch.float32)):
         assert ref["0"][key].shape[1:] == tuple(port[0][key].shape)
         assert port[0][key].dtype == dtype and not port[0][key].any()
-    bf = tmodel.init_caches(dataclasses.replace(_port(cfg), dtype="bfloat16"),
+    bf = tmodel.init_caches(dataclasses.replace(_port(cfg), dtype="bfloat16",
+                                                param_dtype="bfloat16"),
                             2, 8, device="cpu")
     assert bf[0]["conv"].dtype == torch.bfloat16
     assert bf[0]["ssm"].dtype == torch.float32
+    # float32 params over bfloat16 activations: the conv tail in the
+    # promoted dtype, the one the reference's decode step leaves it in
+    split = tmodel.init_caches(dataclasses.replace(_port(cfg),
+                                                   dtype="bfloat16"),
+                               2, 8, device="cpu")
+    assert split[0]["conv"].dtype == torch.float32
+    assert split[0]["ssm"].dtype == torch.float32
 
 
 def test_bf16_params_keep_float32_leaves():

@@ -222,25 +222,7 @@ def test_ssd_train_grads_equal_plain_autograd():
         assert torch.allclose(got.grad, want.grad, rtol=1e-6, atol=1e-6)
 
 
-def test_mixed_dtypes_name_their_roadmap_item():
-    cfg = dataclasses.replace(_port(get_smoke_config("qwen3_1_7b")),
-                              dtype="bfloat16", param_dtype="float32")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item "
-                                                  "13"):
-        tmodel.init_params(cfg, device="cpu")
-
-
-def test_remat_dots_names_its_roadmap_item():
-    cfg = dataclasses.replace(_port(get_smoke_config("qwen3_1_7b")),
-                              remat="dots")
-    model = tmodel.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item "
-                                                  "13"):
-        tmodel.forward_train_torch(cfg, model, make_batch(cfg),
-                                   device="cpu")
-
-
-@pytest.mark.parametrize("remat", ["none", "full"])
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
 def test_remat_keeps_loss_and_grads(remat):
     # recomputing each group in the backward changes nothing
     cfg = dataclasses.replace(get_smoke_config("jamba_v0_1_52b"),
