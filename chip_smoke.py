@@ -102,6 +102,34 @@ Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
    with tenant departures, on the card and on the CPU, and its
    ``min_vds`` against the plain version; one ``schedule_detail``
    profiled for the idle share;
+14a. "properties": solves the pin for psdsf-rdm and psdsf-tdm with
+   ``engine.solve`` (float64, Jacobi rounds of the bisect fill, the
+   buckets) until ``SolveInfo.converged`` at tol 1e-9 within 256 rounds
+   and checks every checker of ``core/properties.py`` that the reference
+   tests' guarantee matrix lists for it (and Theorem 1's bottleneck
+   structure for RDM) at the reference tests' tolerance, max(1e-5, 10 x
+   residual), printing each verdict with its margin and its time; one
+   rule for every solve: the verdicts gate where the solve reached its
+   tol, and an iterate stopped in the loose band (no fixed point) has
+   them printed, not gated; gates drf's and uniform's; times the envy
+   check's float64 product against its bound at the float64 tensor-core
+   rate; plants one violation of each kind (a server over capacity, a
+   user below its uniform share, an envied user, a server whose time
+   shares sum below 1, users with no bottleneck) in a copy of the pin's
+   allocations, each caught at the planted index; holds every checker on
+   the card against the same checker on the CPU on a 2,000 x 64 cut
+   (equal verdicts, texts and offenders); the bucketed fill's launches 5
+   x the RDM rounds plus the TDM rounds, one ``psdsf_vds`` launch a
+   Pareto check;
+14b. "gamma-direct": Section IV's co-processor scenario at the pin's
+   scale (the pin's gamma; an eighth of the servers get a co-processor a
+   quarter of the users can use at 4x): ``solve_psdsf_gamma_tdm_torch``
+   with Jacobi rounds of the bisect fill, 32 at tol 0, on the dense layout
+   and on the buckets (one TDM event of the layout's fill kernel a round),
+   each held against its plain-driven solve (1e-9, equal rounds); then
+   Anderson-mixed rounds to tol 1e-6 x max gamma, certified by the TDM
+   feasibility, sharing-incentive and Pareto checkers; then one TDM event
+   of ``psdsf_fill`` against its plain version, timed beside its bound;
 15. holds the attention kernels against their plain versions at
    qwen3_1_7b's widths (16 query and 8 kv heads, head_dim 128, bfloat16):
    ``flash_attention`` at S 1,024, a ragged S 1,000, 512 and 128 (each call
@@ -272,6 +300,17 @@ Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
    allocation held against the same controller driven with the plain
    versions (1e-9 a job, equal rounds); prints both solve walls and the
    jobs whose replicas fell;
+29a. "headdim decode": a 2-layer full-width qwen3_1_7b (bf16, seeded
+   init) decodes on a 2 x 2 ("data", "model") mesh of 4 gloo ranks on the
+   one card (spawned as step 30's ranks; gloo's all-gathers and the like
+   go through host copies, ``host_collectives_for_gloo``): batch 16, a
+   2,048-row cache, a 1,024-token prefill and 8 decode steps with the
+   cache sharded on its head dim (``decode_cache_shard="headdim"``) and,
+   as its twin, on its sequence; each run's logits against the same steps
+   unsharded in the main process (flash and the decode kernel) within
+   2^-5 x max|logit|, its greedy tokens equal wherever the top two logits
+   differ by more; prints the step times, which over gloo through the
+   host say nothing of NVLink;
 30. "pod mean": ``train/compression.py::compressed_cross_pod_mean_torch``
    on two ranks (a spawn context, a ``file://`` store in a temporary
    directory): NCCL with a card a rank where there are two cards, else
@@ -479,6 +518,41 @@ ELASTIC_SILENT = 8
 #: does not converge in raises, and is raised here, never caught)
 SCHED_ROUNDS = 32
 
+#: the "properties" phase: the pin's PS-DSF solves (float64, Jacobi
+#: rounds of the bisect fill, ``layout="auto"``: the buckets) run to
+#: ``SolveInfo.converged`` at tol 1e-9 within ``PROPERTY_ROUNDS``
+PROPERTY_TOL = 1e-9
+PROPERTY_ROUNDS = 256
+#: the reference's property tests' tolerance: max(1e-5, 10 x residual)
+PROPERTY_CHECK_TOL = 1e-5
+#: the checkers' card-vs-CPU cut of the pin's generator
+PROPERTY_CUT = dict(num_users=2000, num_servers=64, cells=4)
+#: NVIDIA H100 SXM data sheet: float64 on the tensor cores (DMMA), the
+#: rate of the envy check's float64 product
+PEAK_F64_TENSOR_FLOPS = 67e12
+#: the "gamma-direct" phase: Section IV's co-processor scenario at the
+#: pin's scale: an eighth of the servers get a co-processor that a
+#: quarter of the users can use at ``extensions.COPROCESSOR_SPEEDUP``;
+#: Jacobi rounds of the bisect fill, 32 at tol 0 against the plain-driven
+#: solve, then Anderson-mixed rounds to the engine's default tol (1e-6 x
+#: max gamma) within ``GAMMA_ROUNDS``
+GAMMA_SEED = 31
+GAMMA_TOL = 1e-6
+GAMMA_ROUNDS = 2048
+#: the "headdim decode" phase: a 2-layer full-width qwen3_1_7b in bf16 on
+#: a 2 x 2 ("data", "model") mesh of 4 gloo ranks on the one card: batch
+#: 16 (``shard_cache_seq_threshold``, so the cache shards on the batch and
+#: on its head dim or its sequence), a 2,048-row cache, a 1,024-token
+#: prefill and 8 decode steps, seeded params (the port's init) and tokens
+HEADDIM_LAYERS = 2
+HEADDIM_BATCH = 16
+HEADDIM_ROWS = 2048
+HEADDIM_PROMPT = 1024
+HEADDIM_STEPS = 8
+HEADDIM_SEED = 5
+HEADDIM_RANKS = 4
+HEADDIM_TIMEOUT = 300
+
 #: the launch tooling's phases: the cross-pod mean's ranks, the dry run's
 #: cells (two chains of CLI runs) and their time limits (seconds)
 POD_RANKS = 2
@@ -588,6 +662,222 @@ def pod_mean_rank(rank, world, init, out_dir, backend, rehearse):
         (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
     finally:
         dist.destroy_process_group()
+
+
+def headdim_config(rehearse):
+    """The "headdim decode" phase's model: qwen3_1_7b at full width (its
+    smoke config in a rehearsal), ``HEADDIM_LAYERS`` layers, bf16; and
+    the same with the mesh's axes set, as the launcher sets them."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config, get_smoke_config
+    cfg = (get_smoke_config if rehearse else get_config)("qwen3_1_7b")
+    cfg = dataclasses.replace(cfg, num_layers=HEADDIM_LAYERS)
+    return cfg, dataclasses.replace(cfg, dp_axes=("data",),
+                                    tp_axis="model")
+
+
+def headdim_inputs(cfg, rehearse):
+    """(prompt (B, S), the tokens fed at each decode step (steps, B), rows
+    of the cache), seeded."""
+    import numpy as np
+    b, s, steps, rows = ((4, 24, 3, 32) if rehearse else (
+        HEADDIM_BATCH, HEADDIM_PROMPT, HEADDIM_STEPS, HEADDIM_ROWS))
+    rng = np.random.default_rng(HEADDIM_SEED)
+    return (rng.integers(0, cfg.vocab_size, (b, s)),
+            rng.integers(0, cfg.vocab_size, (steps, b)), rows)
+
+
+#: the ``torch.library`` registrations of ``host_collectives_for_gloo``
+_HOST_COLLECTIVES = []
+
+
+def host_collectives_for_gloo():
+    """Route the functional collectives DTensor issues on CUDA tensors
+    through host copies, in this process: the ranks of "headdim decode"
+    share one card over gloo, and gloo's all-gather on CUDA tensors
+    (``_allgather_base``) kills the process with a segmentation fault in
+    the card's torch (2.11; its all-reduce works). Each CUDA kernel of
+    ``_c10d_functional``'s all-gather, reduce-scatter and all-to-all, and
+    of DTensor's ``_dtensor.shard_dim_alltoall``, is replaced by the same
+    op on a host copy (gloo's CPU path, which the CPU tests run), waited
+    for and copied back; the port's code is untouched. With a card a rank
+    (NCCL) nothing of this is needed."""
+    import torch
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    ops = torch.ops._c10d_functional
+
+    def on_host(op):
+        def run(tensor, *args):
+            out = ops.wait_tensor(op(tensor.cpu(), *args))
+            return out.to(tensor.device)
+        return run
+
+    def shard_dim_alltoall(tensor, gather_dim, shard_dim, group_name):
+        group = _resolve_process_group(group_name)
+        whole = ops.wait_tensor(ops.all_gather_into_tensor(
+            tensor.cpu().contiguous(), group.size(), group_name))
+        whole = torch.cat(whole.chunk(group.size()), dim=gather_dim)
+        part = whole.chunk(group.size(), dim=shard_dim)[group.rank()]
+        return part.contiguous().to(tensor.device)
+
+    if _HOST_COLLECTIVES:
+        return
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    for name in ("all_gather_into_tensor", "reduce_scatter_tensor",
+                 "all_to_all_single"):
+        lib.impl(name, on_host(getattr(ops, name).default), "CUDA")
+    dtensor = torch.library.Library("_dtensor", "IMPL")
+    dtensor.impl("shard_dim_alltoall", shard_dim_alltoall, "CUDA")
+    _HOST_COLLECTIVES.extend((lib, dtensor))
+
+
+def headdim_decode_rank(rank, world, init, out_dir, shards, rehearse):
+    """A process of the "headdim decode" phase: the 2-layer model's params
+    from the seeded init on the card, sharded on a 2 x 2 mesh over gloo;
+    for each ``decode_cache_shard`` value of ``shards``, a sharded prefill,
+    then ``HEADDIM_STEPS`` decode steps over a cache laid out by
+    ``cache_specs_np`` with it. Writes ``<shard>_rank<r>.json`` (its
+    launches and step walls) and, on rank 0, ``<shard>.pt`` (every step's
+    logits, gathered); a fault's Python stack goes to ``fault<r>.txt``,
+    which the phase prints."""
+    import datetime
+    import faulthandler
+    fault = open(Path(out_dir) / f"fault{rank}.txt", "w")
+    faulthandler.enable(file=fault)
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.mesh import make_debug_mesh_torch
+    from repro_torch.models import model as tmodel
+    if rehearse:
+        dev = torch.device("cpu")
+    else:
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        host_collectives_for_gloo()
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(
+                                seconds=HEADDIM_TIMEOUT))
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    try:
+        counters = wrappers()
+        _, cfg = headdim_config(rehearse)
+        prompt, feed, rows = headdim_inputs(cfg, rehearse)
+        b, s = prompt.shape
+        mesh = make_debug_mesh_torch(2, 2, device_type=dev.type)
+        params = tmodel.init_params(cfg, HEADDIM_SEED, device=dev)
+        S.distribute_state_torch(cfg, mesh, params)
+        for shard in shards:
+            reset_counts(counters)
+            opts = S.ShardingOptions(decode_cache_shard=shard,
+                                     shard_cache_seq_threshold=b)
+            tspec = S.token_specs_np(mesh, b, opts)
+            walls = []
+            with implicit_replication():
+                tokens = S.distribute_tensor_torch(
+                    torch.as_tensor(prompt, device=dev),
+                    S.Spec(("data",), None), mesh)
+                sync()
+                t0 = time.perf_counter()
+                logits, pre = tmodel.forward_prefill(cfg, params, tokens,
+                                                     device=dev)
+                out = [logits.full_tensor().cpu()]
+                sync()
+                prefill_s = time.perf_counter() - t0
+                full = tmodel.init_caches(cfg, b, rows, device=dev)
+                for c, p in zip(full, pre):
+                    for key in ("k", "v"):
+                        c[key][:, :s] = p[key].full_tensor()
+                del pre
+                cspec = S.sanitize_specs_np(
+                    S.cache_specs_np(cfg, mesh, b, opts), full, mesh)
+                caches = [{k: S.distribute_tensor_torch(t, cs[k], mesh)
+                           for k, t in c.items()}
+                          for c, cs in zip(full, cspec)]
+                del full
+                placements = [str(p) for p in caches[0]["k"].placements]
+                for i, tok in enumerate(feed):
+                    token = S.distribute_tensor_torch(
+                        torch.as_tensor(tok, device=dev), tspec, mesh)
+                    sync()
+                    t0 = time.perf_counter()
+                    logits, caches = tmodel.forward_decode(
+                        cfg, params, caches, token, s + i, device=dev)
+                    logits = logits.full_tensor()
+                    sync()
+                    walls.append(time.perf_counter() - t0)
+                    out.append(logits.cpu())
+            del caches
+            if rank == 0:
+                torch.save(out, Path(out_dir) / f"{shard}.pt")
+            (Path(out_dir) / f"{shard}_rank{rank}.json").write_text(
+                json.dumps(dict(
+                    rank=rank, shard=shard, placements=placements,
+                    prefill_s=prefill_s, step_s=walls,
+                    launches={n: fn.launches for n, fn in counters.items()},
+                    device=str(dev),
+                    peak_gib=(torch.cuda.max_memory_allocated(dev) / 2**30
+                              if dev.type == "cuda" else None))))
+    finally:
+        dist.destroy_process_group()
+
+def profiled_device_times(prof, range_name):
+    """What a serving profile reads of a finished ``torch.profiler.profile``,
+    from its raw kineto events: ({kernel name: [device us, count]} over the
+    device events, as ``key_averages()`` groups them for
+    ``DeviceType.CUDA``, leaving out the ``range_name`` annotation's own
+    span; and the device us of the CPU ranges named ``range_name``, their
+    ``device_time_total``: the kernels linked to each CPU op inside such a
+    range on the same thread, the range included). The profiler's own
+    names, filters and times, without the ``FunctionEvent`` it builds for
+    every event: ``key_averages()`` took 23.1 s and 42.6 s at qwen3's and
+    granite_moe's profiled windows on an H100 80GB HBM3's host, this pass
+    2.9 s and 4.6 s, with equal readings (``profile_check.py``)."""
+    import bisect
+    from collections import defaultdict
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
+    res = prof.profiler.kineto_results
+    t0 = res.trace_start_ns()
+    rows = {}
+    linked = defaultdict(float)  # CPU op's correlation id -> its kernels' us
+    ops = []        # (correlation id, thread, start, end) of the CPU ops
+    ranges = {}     # thread -> [(start, end)] of the ``range_name`` ranges
+    for e in res.events():
+        name = e.name()
+        if _filter_name(name) or getattr(e, "is_hidden_event", bool)():
+            continue
+        is_async = e.is_async() or e.start_thread_id() != e.end_thread_id()
+        kind = e.device_type()
+        if kind == DeviceType.CUDA and name != range_name:
+            us = (e.end_ns() - t0) / 1000 - (e.start_ns() - t0) / 1000
+            row = rows.setdefault(_rewrite_name(name=name, with_wildcard=True),
+                                  [0.0, 0])
+            row[0] += 0.0 if is_async else us
+            row[1] += 1
+            if e.linked_correlation_id() > 0:
+                linked[e.linked_correlation_id()] += us
+        elif kind == DeviceType.CPU and not is_async:
+            span = (e.start_ns(), e.end_ns())
+            if name == range_name:
+                ranges.setdefault(e.start_thread_id(), []).append(span)
+            if e.linked_correlation_id() == 0:
+                ops.append((e.correlation_id(), e.start_thread_id(), *span))
+    for spans in ranges.values():
+        spans.sort()
+    range_us = 0.0
+    for corr, thread, start, end in ops:
+        spans = ranges.get(thread, ())
+        i = bisect.bisect_right(spans, (start, float("inf"))) - 1
+        if i >= 0 and start < spans[i][1] and end <= spans[i][1]:
+            range_us += linked.get(corr, 0.0)
+    return rows, range_us
 
 
 def reset_counts(counters):
@@ -2793,7 +3083,6 @@ class Smoke:
         kernels launched inside it) gives the MoE layers' share of the busy
         time."""
         import numpy as np
-        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile, record_function
         from repro_torch.models import blocks as blocks_mod
         from repro_torch.serve import ServingEngine
@@ -2822,16 +3111,13 @@ class Smoke:
             eng.run(max_steps=64)
             self.sync()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        events = prof.key_averages()
         # kernels only: the range's own span on the device timeline (a
         # user annotation) is not device work
-        rows = sorted(((float(e.self_device_time_total), e.key, e.count)
-                       for e in events if e.device_type == DeviceType.CUDA
-                       and e.key != "moe_layer"), reverse=True)
+        kernels, moe_us = profiled_device_times(prof, "moe_layer")
+        rows = sorted(((us, key, count) for key, (us, count)
+                       in kernels.items()), reverse=True)
         busy_ms = sum(r[0] for r in rows) / 1e3
-        moe_ms = sum(float(e.device_time_total) for e in events
-                     if e.key == "moe_layer"
-                     and e.device_type == DeviceType.CPU) / 1e3
+        moe_ms = moe_us / 1e3
         st = eng.stats
         print(f"  profiled window: {st['prefills']} prefills x {prompt} "
               f"tokens, {st['decode_steps']} decode steps: wall "
@@ -4555,6 +4841,539 @@ class Smoke:
                                        * sum(run["rounds"])},
                             "elastic re-solve")
 
+    # -- the sharing-property checkers and Section IV's gamma-direct solve --
+    def certify(self, alloc, checks, tol, label, gate):
+        """Run ``checks`` (port checkers) on ``alloc`` on the card: print
+        each verdict, its margin and its time; with ``gate``, every one
+        must hold. Returns {checker: (ok, detail, margin, ms)}."""
+        out = {}
+        for check in checks:
+            self.sync()
+            t0 = time.perf_counter()
+            verdict = check(alloc, tol, device=self.device)
+            self.sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            print(f"    {label} {check.__name__}: {verdict.ok} "
+                  f"({verdict.detail}), margin {verdict.margin:.3e}, "
+                  f"{ms:.1f} ms")
+            out[check.__name__] = dict(ok=verdict.ok, detail=verdict.detail,
+                                       margin=verdict.margin, ms=ms,
+                                       where=list(verdict.where))
+            if gate:
+                self.check(verdict.ok, f"{label}: {check.__name__} fails at "
+                                       f"a converged fixed point: "
+                                       f"{verdict.detail}")
+        return out
+
+    def properties_path(self):
+        """The sharing-property checkers on the card, at the pin. For each
+        PS-DSF mechanism, ``engine.solve`` (float64, Jacobi rounds of the
+        bisect fill, the buckets) until ``SolveInfo.converged`` at tol 1e-9
+        within ``PROPERTY_ROUNDS``; every property the reference's
+        guarantee matrix lists for it (and Theorem 1 for RDM) checked at
+        the reference tests' tolerance, max(1e-5, 10 x residual), each
+        verdict printed with its margin and its time. One rule for every
+        solve: a property is gated where the solve reached its tol (a fixed
+        point); an iterate that stopped in the loose band
+        (``SolveInfo.approx``) is no fixed point, and its verdicts are
+        printed, not gated. drf and uniform (host closed forms) are gated.
+        One violation of each kind planted in a copy of the pin's
+        allocations must be caught where it was planted, at the tolerance
+        that allocation is checked at; the checkers on the card are held
+        against the same checkers on the CPU on a 2,000 x 64 cut (equal
+        verdicts, texts and offenders). Counts set to 0 before and read
+        after: the bucketed fill 5 x the RDM rounds and once a TDM round,
+        ``psdsf_vds`` once a Pareto check on the card."""
+        from repro_torch.core import engine
+        from repro_torch.core import properties as P
+        from repro_torch.core.instances import sparse_cell_instance
+        pin = self.pin
+        counters = wrappers()
+        reset_counts(counters)
+        record = dict(solves={}, verdicts={}, planted={}, cut={})
+        want = {"psdsf_fill_bucketed": 0, "psdsf_vds": 0}
+        theorem1 = (P.check_bottleneck_structure_rdm_torch,)
+        solved = {}
+        for mech in ("psdsf-rdm", "psdsf-tdm"):
+            mode = mech[-3:]
+            events = 5 if mode == "rdm" else 1
+            checks = P.ALLOCATOR_GUARANTEES_TORCH[mech] + (
+                theorem1 if mode == "rdm" else ())
+            self.sync()
+            t0 = time.perf_counter()
+            alloc, info = engine.solve(pin, mech, device=self.device,
+                                       fill="bisect", round="jacobi",
+                                       tol=PROPERTY_TOL,
+                                       max_rounds=PROPERTY_ROUNDS)
+            self.sync()
+            wall = time.perf_counter() - t0
+            want["psdsf_fill_bucketed"] += events * info.rounds
+            print(f"  {mech} engine.solve: {wall:.3f} s, layout "
+                  f"{info.layout}, rounds {info.rounds}, residual "
+                  f"{info.residual:.3e}, converged {info.converged} "
+                  f"(approx {info.approx}, rounds_to_tol "
+                  f"{info.rounds_to_tol})")
+            self.check(info.converged, f"{mech}: no fixed point in "
+                                       f"{info.rounds} rounds")
+            if info.approx:
+                print(f"    {mech}: stopped in the loose band, not at tol "
+                      f"{PROPERTY_TOL:g}: no fixed point, verdicts printed, "
+                      f"not gated")
+            tol = max(PROPERTY_CHECK_TOL, 10.0 * info.residual)
+            verdicts = self.certify(alloc, checks, tol, mech,
+                                    gate=not info.approx)
+            want["psdsf_vds"] += mode == "tdm"
+            solved[mode] = (alloc, tol)
+            record["solves"][mech] = dict(
+                wall_s=wall, rounds=info.rounds, residual=info.residual,
+                approx=info.approx, gated=not info.approx)
+            record["verdicts"][mech] = dict(verdicts, tol=tol)
+        for mech in ("drf", "uniform"):
+            alloc, _ = engine.solve(pin, mech, device=self.device)
+            record["verdicts"][mech] = self.certify(
+                alloc, P.ALLOCATOR_GUARANTEES_TORCH[mech],
+                PROPERTY_CHECK_TOL, mech, gate=True)
+        record["envy_product"] = self.envy_product(solved["rdm"][0])
+        launches = {n: fn.launches for n, fn in counters.items()}
+        self.check_launches(launches, want, "properties path")
+        print(f"  launches on the properties path: {launches}")
+        record["launches"] = launches
+        self.planted_violations(solved, record)
+        self.checkers_card_vs_cpu(
+            sparse_cell_instance(**(dict(num_users=200, num_servers=16,
+                                         cells=4) if self.rehearse
+                                    else PROPERTY_CUT))[0], record)
+        self.paths["properties"] = record
+
+    def envy_product(self, alloc):
+        """The envy check's float64 product S = E x^T at the pin, tile by
+        tile as the checker forms it, timed with CUDA events, against its
+        bound at the H100's float64 tensor-core rate."""
+        torch = self.torch
+        from repro_torch.core.properties import ENVY_TILE
+        x = torch.as_tensor(alloc.x, dtype=torch.float64, device=self.device)
+        e = torch.as_tensor(self.pin_gamma > 0, dtype=torch.float64,
+                            device=self.device)
+        n, k = x.shape
+
+        def product():
+            for n0 in range(0, n, ENVY_TILE):
+                e[n0:n0 + ENVY_TILE] @ x.T
+        ms = self.time_ms(product, 3)
+        flops = 2.0 * n * n * k
+        nbytes = 2 * n * k * 8
+        bound_ms = max(flops / PEAK_F64_TENSOR_FLOPS,
+                       nbytes / PEAK_BYTES_PER_S) * 1e3
+        print(f"  envy product S = E x^T, {n} x {n} x {k} float64 in tiles "
+              f"of {ENVY_TILE}: {ms:.3f} ms, bound {bound_ms:.3f} ms "
+              f"({flops / 1e9:.1f} GFLOP at {PEAK_F64_TENSOR_FLOPS / 1e12:.0f}"
+              f" TFLOP/s float64 tensor cores; "
+              f"{flops / PEAK_FLOPS['float64'] * 1e3:.3f} ms at the "
+              f"{PEAK_FLOPS['float64'] / 1e12:.0f} TFLOP/s outside them)")
+        return dict(ms=ms, bound_ms=bound_ms, gflop=flops / 1e9,
+                    shape=f"{n}x{n}x{k}", tile=ENVY_TILE)
+
+    def planted_violations(self, solved, record):
+        """One violation of each kind planted in a copy of the pin's
+        allocations (``solved``: the RDM and TDM solves, each with the
+        tolerance it is checked at), each caught by the checker on the
+        card at the planted index, at that tolerance."""
+        import numpy as np
+        from repro_torch.core import properties as P
+        from repro_torch.core.types import Allocation
+        pin, g = self.pin, self.pin_gamma
+        (rdm, tol_rdm), (tdm, tol_tdm) = solved["rdm"], solved["tdm"]
+        x_rdm, x_tdm = rdm.x, tdm.x
+        first = int(np.argmax((g > 0).any(axis=0)))
+        jitter = 1.0 + 1e-3 * np.arange(1, pin.num_users + 1) / pin.num_users
+        busiest = int(np.argmax(x_rdm.sum(axis=0)))
+        # the user user 0 would envy first once it holds 2x: the largest
+        # of 0's utilities of the others' bundles on 0's servers
+        xn = x_rdm.sum(axis=1)
+        s0 = x_rdm[:, g[0] > 0].sum(axis=1)
+        d = pin.demands
+        mask = d[0] > 0
+        u0 = (pin.weights[0] / pin.weights) * s0 * np.min(
+            d[:, mask] / d[0, mask], axis=1)
+        u0[0] = 0.0
+        m = int(np.argmax(u0))
+        lowest = int(np.argmax(g[:, first] > 0))
+        # kind: (base allocation, its tolerance, the factors planted in its
+        # copy, the checker, the index it must report: the doubled server
+        # for the capacity, whichever of its resources is over by the most)
+        plants = {
+            "capacity": (x_rdm, tol_rdm, {(slice(None), busiest): 2.0},
+                         P.check_feasible_rdm_torch, (busiest,)),
+            "uniform share": (x_rdm, tol_rdm, {0: 0.0},
+                              P.check_sharing_incentive_torch, (0,)),
+            "envied user": (x_rdm, tol_rdm, {m: 2.0 * xn[0] / u0[m]},
+                            P.check_envy_freeness_torch, (0, m)),
+            "time share": (x_tdm, tol_tdm,
+                           {(slice(None), first): 0.5 * jitter},
+                           P.check_pareto_tdm_torch, (first,)),
+            "no bottleneck": (x_rdm, tol_rdm,
+                              {(slice(None), first): 0.5 * jitter},
+                              P.check_bottleneck_structure_rdm_torch,
+                              (lowest, first)),
+        }
+        for kind, (base, tol, scale, check, want) in plants.items():
+            x = base.copy()
+            for at, factor in scale.items():
+                x[at] = x[at] * factor
+            verdict = check(Allocation(pin, x), tol, device=self.device)
+            print(f"    planted {kind}: {check.__name__} -> {verdict.ok} "
+                  f"({verdict.detail}), at {verdict.where}")
+            record["planted"][kind] = dict(ok=verdict.ok,
+                                           detail=verdict.detail,
+                                           where=list(verdict.where))
+            self.check(not verdict.ok and verdict.where[:len(want)] == want,
+                       f"planted {kind} not caught where planted")
+
+    def checkers_card_vs_cpu(self, cut, record):
+        """Every checker on the card and on the CPU on the same
+        allocations of ``cut``: its PS-DSF solves on the card (256
+        rounds, tol 1e-9) and copies with a planted violation of each
+        kind; equal verdicts, texts (numbers within 1e-9 relative) and
+        offenders."""
+        import re
+        import numpy as np
+        from repro_torch.core import engine
+        from repro_torch.core import properties as P
+        from repro_torch.core.types import Allocation
+        number = re.compile(r"[-+]?\d+\.\d+(?:e[-+]?\d+)?")
+        checks = (P.check_feasible_rdm_torch, P.check_feasible_tdm_torch,
+                  P.check_sharing_incentive_torch,
+                  P.check_envy_freeness_torch, P.check_pareto_tdm_torch,
+                  P.check_bottleneck_structure_rdm_torch)
+        allocs = []
+        for mech in ("psdsf-rdm", "psdsf-tdm"):
+            alloc, _ = engine.solve(cut, mech, device=self.device,
+                                    fill="bisect", round="jacobi",
+                                    tol=PROPERTY_TOL,
+                                    max_rounds=PROPERTY_ROUNDS)
+            x = alloc.x
+            allocs.append((mech, x))
+            allocs.append((f"{mech}, column 0 halved", x * np.where(
+                np.arange(x.shape[1]) == 0, 0.5, 1.0)))
+            allocs.append((f"{mech}, user 1 x3", x * np.where(
+                np.arange(x.shape[0])[:, None] == 1, 3.0, 1.0)))
+        compared = 0
+        for label, x in allocs:
+            for check in checks:
+                got = check(Allocation(cut, x), PROPERTY_CHECK_TOL,
+                            device=self.device)
+                want = check(Allocation(cut, x), PROPERTY_CHECK_TOL,
+                             device="cpu")
+                same = (got.ok == want.ok and got.where == want.where
+                        and number.sub("#", got.detail)
+                        == number.sub("#", want.detail)
+                        and all(abs(float(a) - float(b))
+                                <= 1e-9 * max(abs(float(b)), 1e-12)
+                                for a, b in zip(number.findall(got.detail),
+                                                number.findall(
+                                                    want.detail))))
+                self.check(same, f"cut {label} {check.__name__}: card "
+                                 f"{got} at {got.where} vs CPU {want} at "
+                                 f"{want.where}")
+                compared += 1
+        print(f"  checkers on a {cut.num_users}x{cut.num_servers} cut: "
+              f"{compared} verdicts, card equal to CPU (texts, offenders)")
+        record["cut"] = dict(shape=f"{cut.num_users}x{cut.num_servers}",
+                             compared=compared)
+
+    def gamma_instance(self):
+        """Section IV's co-processor scenario at the pin's scale: the pin's
+        gamma; a seeded eighth of the servers get a co-processor that a
+        seeded quarter of the users can use at ``COPROCESSOR_SPEEDUP``."""
+        import numpy as np
+        from repro_torch.core.extensions import (COPROCESSOR_SPEEDUP,
+                                                 GammaProblem)
+        g = self.pin_gamma.copy()
+        n, k = g.shape
+        rng = np.random.default_rng(GAMMA_SEED)
+        servers = rng.choice(k, max(1, k // 8), replace=False)
+        users = rng.choice(n, max(1, n // 4), replace=False)
+        g[np.ix_(users, servers)] *= COPROCESSOR_SPEEDUP
+        return GammaProblem(g, self.pin.weights), servers, users
+
+    def gamma_path(self):
+        """``solve_psdsf_gamma_tdm_torch`` on the co-processor scenario at
+        the pin's scale (float64): Jacobi rounds of the bisect fill, 32 at
+        tol 0, on the dense layout and on the buckets, counts set to 0
+        just before each (one TDM event of the layout's fill kernel a
+        round), each held against its plain-driven solve (1e-9, equal
+        rounds); then Anderson-mixed rounds on the buckets to tol 1e-6 x
+        max gamma, certified by ``check_feasible_tdm_torch``,
+        ``check_sharing_incentive_torch`` and ``check_pareto_tdm_torch``
+        (one ``psdsf_vds`` launch) at max(1e-5, 10 x residual); then one
+        TDM event of ``psdsf_fill`` timed against its plain version and
+        its bound."""
+        import numpy as np
+        from repro_torch.core import properties as P
+        from repro_torch.core.extensions import solve_psdsf_gamma_tdm_torch
+        from repro_torch.core.types import Allocation
+        prob, servers, users = self.gamma_instance()
+        print(f"  co-processor instance: {prob.gamma.shape[0]} users x "
+              f"{prob.gamma.shape[1]} servers, {len(servers)} servers with "
+              f"a co-processor, {len(users)} users that use it, max gamma "
+              f"{prob.gamma.max():.3f}")
+        counters = wrappers()
+        record = {"runs": {}}
+        launches = {n: 0 for n in counters}
+        for layout, kernel in (("dense", "psdsf_fill"),
+                               ("bucketed", "psdsf_fill_bucketed")):
+            kw = dict(max_rounds=32, tol=0.0, fill="bisect", round="jacobi",
+                      layout=layout, device=self.device)
+            reset_counts(counters)
+            self.sync()
+            t0 = time.perf_counter()
+            x, shares, info = solve_psdsf_gamma_tdm_torch(prob, **kw)
+            self.sync()
+            wall = time.perf_counter() - t0
+            run = {n: fn.launches for n, fn in counters.items()}
+            self.check_launches(run, {kernel: info.rounds},
+                                f"gamma-direct {layout} path")
+            with self.plain_versions():
+                x_p, _, info_p = solve_psdsf_gamma_tdm_torch(prob, **kw)
+            diff = float(np.abs(x - x_p).max())
+            print(f"  {layout}: {wall:.3f} s, rounds {info.rounds}, residual "
+                  f"{info.residual:.3e}, {kernel} launches {run[kernel]}; "
+                  f"vs plain-driven max|dx|={diff:.3e}; time shares per "
+                  f"server in [{shares.sum(axis=0).min():.12f}, "
+                  f"{shares.sum(axis=0).max():.12f}]")
+            self.check(diff <= F64_ATOL and info.rounds == info_p.rounds
+                       and info.layout == layout,
+                       f"gamma-direct {layout}: kernel-driven and "
+                       f"plain-driven solves disagree")
+            record["runs"][layout] = dict(wall_s=wall, rounds=info.rounds,
+                                          residual=info.residual,
+                                          max_abs_diff=diff)
+            for n in launches:
+                launches[n] += run[n]
+        reset_counts(counters)
+        self.sync()
+        t0 = time.perf_counter()
+        x, shares, info = solve_psdsf_gamma_tdm_torch(
+            prob, max_rounds=GAMMA_ROUNDS, tol=GAMMA_TOL, fill="bisect",
+            round="jacobi", layout="bucketed", accel="anderson",
+            device=self.device)
+        self.sync()
+        wall = time.perf_counter() - t0
+        totals = x.sum(axis=1)
+        speed = np.zeros(prob.gamma.shape[0], dtype=bool)
+        speed[users] = True
+        print(f"  to convergence (Anderson, buckets): {wall:.3f} s, rounds "
+              f"{info.rounds}, residual {info.residual:.3e} (limit "
+              f"{GAMMA_TOL * max(1.0, prob.gamma.max()):.3e}), converged "
+              f"{info.converged}, Anderson {info.accel_hits} accepted / "
+              f"{info.accel_rejects} rejected; mean total of the users with "
+              f"the co-processor {totals[speed].mean():.4f}, without "
+              f"{totals[~speed].mean():.4f}")
+        self.check(info.converged, "gamma-direct: no fixed point in "
+                                   f"{info.rounds} rounds")
+        tol = max(PROPERTY_CHECK_TOL, 10.0 * info.residual)
+        record["certified"] = self.certify(
+            Allocation(prob, x), (P.check_feasible_tdm_torch,
+                                  P.check_sharing_incentive_torch,
+                                  P.check_pareto_tdm_torch), tol,
+            "gamma-direct", gate=not info.approx)
+        run = {n: fn.launches for n, fn in counters.items()}
+        self.check_launches(run, {"psdsf_fill_bucketed": info.rounds,
+                                  "psdsf_vds": 1}, "gamma-direct solve")
+        for n in launches:
+            launches[n] += run[n]
+        record.update(launches=launches, converged=dict(
+            wall_s=wall, rounds=info.rounds, residual=info.residual,
+            accel_hits=info.accel_hits, accel_rejects=info.accel_rejects,
+            tol=tol))
+        self.tdm_event(prob)
+        self.paths["gamma_direct"] = record
+
+    def tdm_event(self, prob):
+        """One TDM saturation event of ``psdsf_fill`` over the
+        co-processor instance, as ``ops.fill_cluster`` builds it in TDM
+        mode (unit demands and capacities, rate phi where eligible, some
+        users frozen), held against its plain version and timed."""
+        import numpy as np
+        torch = self.torch
+        from repro_torch.kernels.psdsf_fill import kernel, ref
+        g = prob.gamma
+        n, k = g.shape
+        rng = np.random.default_rng(GAMMA_SEED)
+        x_ext = rng.uniform(0.0, 2.0, (n, k)) * (g > 0)
+        full = np.where(g > 0, prob.weights[:, None] * g, 0.0)
+        floors = np.where(g > 0, x_ext / np.maximum(full, 1e-300), 0.0)
+        active = (g > 0) & (rng.random((n, k)) > 0.2)
+        rate = np.where(active, prob.weights[:, None], 0.0)
+
+        def t(a, dtype=torch.float64):
+            return torch.as_tensor(a, dtype=dtype,
+                                   device=self.device).contiguous()
+        args = [t(np.where(active, floors, 0.0)), t(rate), t(np.ones((n, 1))),
+                t(np.ones((k, 1))), t(np.zeros((k, 1))),
+                t(np.zeros((k, 1), dtype=bool), torch.bool),
+                t(rng.uniform(0.0, 0.5, k))]
+        steps = 48
+        got = kernel.fill_event_levels(*args, steps=steps)
+        want = ref.fill_event_levels(*args, steps=steps)
+        self.sync()
+        err = self.compare_event(got, want, "tdm", "psdsf_fill")
+        r, b = 1, 8
+        nbytes = (2 * n * k + n * r + 2 * k * r + k) * b + k * r \
+            + (k + 3 * k * r) * b
+        nnz = int((args[1] > 0).sum())
+        flops = (steps + 3) * nnz * (2 * r + 3)
+        bound_ms, bound_by = self.bound(nbytes, flops, "float64")
+        ms, eager_ms = self.timed(lambda: kernel.fill_event_levels(
+            *args, steps=steps), 10)
+        plain_ms = self.time_ms(lambda: ref.fill_event_levels(
+            *args, steps=steps), 3)
+        print(f"  tdm event {n}x{k} R=1 steps={steps}: kernel {ms:.4f} ms "
+              f"({eager_ms:.4f} ms back to back), plain {plain_ms:.3f} ms, "
+              f"bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.3f} GFLOP over {nnz} entries of rate > 0: "
+              f"bound by {bound_by})")
+        self.rows[("psdsf_fill", "tdm")] = dict(
+            ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by, max_abs_err=err, shape=f"{n}x{k}x1")
+
+    # -- the decode over a cache sharded on its head dim --------------------
+    def headdim_decode(self):
+        """The 2-layer full-width qwen3_1_7b (bf16, seeded init) on a 2 x 2
+        mesh of ``HEADDIM_RANKS`` gloo ranks on the one card
+        (``headdim_decode_rank``, spawned as "pod mean" spawns its ranks):
+        a sharded prefill of the batch, then ``HEADDIM_STEPS`` decode steps
+        over a cache sharded on its head dim (``decode_cache_shard=
+        "headdim"``) and, as its twin, on its sequence ("seq", split-KV).
+        Each run's logits, prefill and every step, are held against the
+        same steps unsharded in this process (flash and the decode kernel,
+        counts set to 0 before, read after), within 2^-5 x max|logit|, and
+        its greedy tokens must equal the unsharded run's wherever the top
+        two logits differ by more than that bound."""
+        import multiprocessing
+        import tempfile
+        torch = self.torch
+        from repro_torch.models import model as tmodel
+        self.free_full_model()
+        cfg, _ = headdim_config(self.rehearse)
+        prompt, feed, rows = headdim_inputs(cfg, self.rehearse)
+        b, s = prompt.shape
+        counters = wrappers()
+        reset_counts(counters)
+        params = tmodel.init_params(cfg, HEADDIM_SEED, device=self.device)
+        logits, pre = tmodel.forward_prefill(cfg, params, prompt,
+                                             device=self.device)
+        caches = tmodel.init_caches(cfg, b, rows, device=self.device)
+        for c, p in zip(caches, pre):
+            for key in ("k", "v"):
+                c[key][:, :s] = p[key]
+        del pre
+        plain = [logits.float().cpu()]
+        for i, tok in enumerate(feed):
+            logits, caches = tmodel.forward_decode(cfg, params, caches, tok,
+                                                   s + i,
+                                                   device=self.device)
+            plain.append(logits.float().cpu())
+        self.sync()
+        launches = {n: fn.launches for n, fn in counters.items()}
+        self.check_launches(launches, {
+            "flash_attention": cfg.num_layers,
+            "decode_attention": cfg.num_layers * len(feed)},
+            "unsharded twin")
+        del params, caches
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        spawn = multiprocessing.get_context("spawn")
+        record = dict(unsharded_launches=launches, runs={})
+        shards = ("headdim", "seq")
+        with tempfile.TemporaryDirectory() as tmp:
+            procs = [spawn.Process(target=headdim_decode_rank, args=(
+                r, HEADDIM_RANKS, f"file://{tmp}/store", tmp, shards,
+                self.rehearse)) for r in range(HEADDIM_RANKS)]
+            t0 = time.perf_counter()
+            for p in procs:
+                p.start()
+            try:
+                for p in procs:
+                    p.join(max(1.0, HEADDIM_TIMEOUT
+                               - (time.perf_counter() - t0)))
+            finally:
+                for p in procs:
+                    if p.is_alive():
+                        p.kill()
+                        p.join()
+            wall = time.perf_counter() - t0
+            codes = [p.exitcode for p in procs]
+            if codes != [0] * HEADDIM_RANKS:
+                for r in range(HEADDIM_RANKS):
+                    fault = Path(tmp) / f"fault{r}.txt"
+                    if fault.exists() and fault.stat().st_size:
+                        print(f"  rank {r}:\n{fault.read_text()[-3000:]}")
+            self.check(codes == [0] * HEADDIM_RANKS,
+                       f"headdim decode ranks exited {codes}")
+            print(f"  {HEADDIM_RANKS} gloo ranks, both cache layouts: "
+                  f"processes {wall:.1f} s (gloo copies each collective "
+                  f"through the host: the times below say nothing of "
+                  f"NVLink)")
+            for shard in shards:
+                ranks = [json.loads((Path(tmp) / f"{shard}_rank{r}.json")
+                                    .read_text())
+                         for r in range(HEADDIM_RANKS)]
+                got = torch.load(Path(tmp) / f"{shard}.pt")
+                r0 = ranks[0]
+                steps_ms = [round(1e3 * w, 3) for w in r0["step_s"]]
+                print(f"  {shard}: on {r0['device']}, cache placements "
+                      f"{r0['placements']}; prefill "
+                      f"{1e3 * r0['prefill_s']:.1f} ms, decode steps (ms, "
+                      f"rank 0) {steps_ms}; launches a rank "
+                      f"{[r['launches'] for r in ranks]}; peak GiB "
+                      f"{[r['peak_gib'] for r in ranks]}")
+                err = self.compare_sharded_logits(cfg, got, plain, shard)
+                if not self.rehearse:
+                    self.check(all(r["launches"]["decode_attention"] == (
+                        0 if shard == "headdim" else cfg.num_layers
+                        * len(feed)) for r in ranks),
+                        f"{shard}: decode kernel launches "
+                        f"{[r['launches'] for r in ranks]}")
+                record["runs"][shard] = dict(
+                    placements=r0["placements"],
+                    prefill_ms=1e3 * r0["prefill_s"], step_ms=steps_ms,
+                    max_abs_err=err,
+                    launches=[r["launches"] for r in ranks])
+            record["processes_s"] = wall
+        total = dict(launches)
+        for run in record["runs"].values():
+            for ranked in run["launches"]:
+                for n in total:
+                    total[n] += ranked[n]
+        record["launches"] = total
+        self.paths["headdim_decode"] = record
+
+    def compare_sharded_logits(self, cfg, got, plain, what):
+        """A sharded run's logits (prefill, then each step) against the
+        unsharded run's: 2^-5 x max|logit|, and equal greedy tokens where
+        the unsharded run's top two logits are further apart than that."""
+        torch = self.torch
+        errs = []
+        for i, (a, b) in enumerate(zip(got, plain)):
+            a, b = a[:, :cfg.vocab_size].float(), b[:, :cfg.vocab_size]
+            err = float((a - b).abs().max())
+            bound = LOGIT_REL * float(b.abs().max())
+            top2 = b.topk(2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > bound
+            same = a.argmax(-1) == b.argmax(-1)
+            print(f"    {what} {'prefill' if i == 0 else f'step {i}'}: "
+                  f"max|sharded-unsharded|={err:.4e} (bound {bound:.4e}), "
+                  f"greedy tokens equal {int(same.sum())}/{len(same)} "
+                  f"({int(clear.sum())} clear of a near tie)")
+            self.check(bool(torch.isfinite(a).all()) and err <= bound,
+                       f"{what}: sharded and unsharded logits disagree")
+            self.check(bool((same | ~clear).all()),
+                       f"{what}: a greedy token differs outside a near tie")
+            errs.append(err)
+        self.check(len(got) == len(plain), f"{what}: {len(got)} steps")
+        return max(errs)
+
     # -- the launch tooling --------------------------------------------------
     def start_dry_runs(self):
         """Start ``DRYRUN_CHAINS`` in the background, one shell a chain of
@@ -4795,7 +5614,7 @@ class Smoke:
                 if any(counts.values()):
                     row[attr] = sum(counts.values())
                     row[f"{attr}_by_path"] = counts
-            for variant, prefix in (("float32", "f32"),
+            for variant, prefix in (("float32", "f32"), ("tdm", "tdm"),
                                     ("bfloat16_lse", "lse"),
                                     ("float32_lse", "f32_lse"),
                                     ("bfloat16_ragged", "ragged"),
@@ -4871,6 +5690,10 @@ def main(argv=None) -> int:
         smoke.phase("baseline churn", smoke.baseline_churn)
         smoke.phase("lexmm path", smoke.lexmm_path)
         smoke.phase("scheduler path", smoke.scheduler_path)
+        # the sharing-property checkers at the pin, and Section IV's
+        # gamma-direct solve on the co-processor scenario
+        smoke.phase("properties", smoke.properties_path)
+        smoke.phase("gamma-direct", smoke.gamma_path)
     smoke.phase("flash_attention vs plain", smoke.flash_vs_plain)
     smoke.phase("flash tile plans", smoke.flash_plans)
     smoke.phase("decode_attention vs plain", smoke.decode_vs_plain)
@@ -4980,6 +5803,7 @@ def main(argv=None) -> int:
     smoke.phase("elastic re-solve", smoke.elastic_resolve)
     # the launch tooling: the cross-pod mean, then the dry runs' results
     try:
+        smoke.phase("headdim decode", smoke.headdim_decode)
         smoke.phase("pod mean", smoke.pod_mean)
         smoke.phase("launch dry run", smoke.launch_dry_run)
         smoke.phase("roofline on the card", smoke.roofline_card)

@@ -343,13 +343,13 @@ def _fill_one_server_tdm_bisect(demands, phi, gamma, x_ext):
 # the outer iteration: plain damped rounds, or Anderson-mixed
 # ---------------------------------------------------------------------------
 
-def _plain_rounds(one_round, x0, max_rounds, limit, alpha0):
+def _plain_rounds(one_round, x0, max_rounds, limit, alpha0, stall=True):
     """The damped sweep loop with the alpha-normalized stall schedule:
     ``one_round(x, alpha) -> (x_new, resid)``; alpha shrinks by 0.7 (down
     to 0.01) whenever resid/alpha stops falling by 10% after round 3 (on a
-    limit cycle resid ~ alpha * amplitude, so resid/alpha stays flat).
-    Reads one scalar back per round to decide whether to go on. Returns
-    (x, rounds, resid)."""
+    limit cycle resid ~ alpha * amplitude, so resid/alpha stays flat);
+    ``stall=False`` keeps alpha at ``alpha0``. Reads one scalar back per
+    round to decide whether to go on. Returns (x, rounds, resid)."""
     dt, dev = x0.dtype, x0.device
     x = x0
     rounds = 0
@@ -359,16 +359,17 @@ def _plain_rounds(one_round, x0, max_rounds, limit, alpha0):
     while rounds < max_rounds and bool(resid > limit):
         x_new, resid = one_round(x, alpha)
         norm = resid / alpha
-        if rounds >= 3:
-            stall = (norm > 0.9 * prev_norm) & (alpha > 0.01)
-            alpha = torch.where(stall, alpha * 0.7, alpha)
+        if stall and rounds >= 3:
+            stalled = (norm > 0.9 * prev_norm) & (alpha > 0.01)
+            alpha = torch.where(stalled, alpha * 0.7, alpha)
         prev_norm = norm
         x = x_new
         rounds += 1
     return x, rounds, resid
 
 
-def _anderson_rounds_torch(one_round, x0, max_rounds, limit, alpha0):
+def _anderson_rounds_torch(one_round, x0, max_rounds, limit, alpha0,
+                          stall=True):
     """Safeguarded limited-memory Anderson mixing over the damped sweep
     (port of ``psdsf_jax._anderson_rounds``): ``one_round(x, alpha) ->
     (x_new, resid)`` applies one full damped sweep and reports its
@@ -380,8 +381,9 @@ def _anderson_rounds_torch(one_round, x0, max_rounds, limit, alpha0):
     the history from the latest plain pair. Both sweeps count as rounds,
     a candidate is tried only while the budget affords its evaluation,
     and alpha follows the plain loop's stall schedule on the counted
-    rounds. The reference evaluates a masked candidate every round; here
-    it is computed only when it can be used, with the same results.
+    rounds (``stall=False`` keeps it at ``alpha0``). The reference
+    evaluates a masked candidate every round; here it is computed only
+    when it can be used, with the same results.
     Returns (x, rounds, resid, accel_hits, accel_rejects)."""
     dt, dev = x0.dtype, x0.device
     shape, size = x0.shape, x0.numel()
@@ -429,18 +431,18 @@ def _anderson_rounds_torch(one_round, x0, max_rounds, limit, alpha0):
                 hlen = 1
                 rejects += 1
         norm = resid / alpha
-        if rounds >= 3:
-            stall = (norm > 0.9 * prev_norm) & (alpha > 0.01)
-            alpha = torch.where(stall, alpha * 0.7, alpha)
+        if stall and rounds >= 3:
+            stalled = (norm > 0.9 * prev_norm) & (alpha > 0.01)
+            alpha = torch.where(stalled, alpha * 0.7, alpha)
         prev_norm = norm
     return x, rounds, resid, hits, rejects
 
 
-def _outer(one_round, x0, max_rounds, limit, alpha0, accel):
+def _outer(one_round, x0, max_rounds, limit, alpha0, accel, stall=True):
     if accel == "anderson":
         return _anderson_rounds_torch(one_round, x0, max_rounds, limit,
-                                      alpha0)
-    return _plain_rounds(one_round, x0, max_rounds, limit, alpha0)
+                                      alpha0, stall)
+    return _plain_rounds(one_round, x0, max_rounds, limit, alpha0, stall)
 
 
 def _check_core_axes(mode, fill, round_mode, accel):
@@ -489,7 +491,7 @@ def _sweep(servers, k, dev):
 def _solve_core_torch(demands, capacities, weights, gamma, x0, mode,
                       max_rounds, tol, servers=None, alpha0=1.0, scale=None,
                       fill="event", round_mode="gauss", accel="none",
-                      cluster_fill=fill_cluster):
+                      cluster_fill=fill_cluster, stall=True):
     """The damped sweep to a fixed point on the dense layout (port of
     ``psdsf_jax._solve_core``). All tensors share one dtype and device.
 
@@ -499,8 +501,10 @@ def _solve_core_torch(demands, capacities, weights, gamma, x0, mode,
     ``round_mode="jacobi"`` starts pre-damped (alpha <= 0.5).
     ``cluster_fill`` is the Jacobi bisect round's whole-cluster fill; the
     solve always uses ``ops.fill_cluster``, and only comparisons pass its
-    plain twin. Returns (x (N, K), rounds, residual), the residual a 0-dim
-    tensor, plus (accel_hits, accel_rejects) under ``accel="anderson"``.
+    plain twin. ``stall=False`` turns the stall schedule off
+    (:func:`_plain_rounds`). Returns (x (N, K), rounds, residual), the
+    residual a 0-dim tensor, plus (accel_hits, accel_rejects) under
+    ``accel="anderson"``.
     """
     _check_core_axes(mode, fill, round_mode, accel)
     k = gamma.shape[1]
@@ -541,14 +545,15 @@ def _solve_core_torch(demands, capacities, weights, gamma, x0, mode,
         resid = (x_new - x).abs().amax() if x.numel() else limit.new_zeros(())
         return x_new, resid
 
-    return _outer(one_round, x0, max_rounds, limit, alpha0, accel)
+    return _outer(one_round, x0, max_rounds, limit, alpha0, accel, stall)
 
 
 def _solve_core_bucketed_torch(demands, capacities, weights, gamma, x0, idx,
                                mask, mode, max_rounds, tol, servers=None,
                                alpha0=1.0, scale=None, fill="event",
                                round_mode="gauss", accel="none",
-                               cluster_fill=fill_cluster_bucketed):
+                               cluster_fill=fill_cluster_bucketed,
+                               stall=True):
     """The damped sweep on sparse eligibility (port of
     ``psdsf_jax._solve_core_bucketed``).
 
@@ -562,7 +567,8 @@ def _solve_core_bucketed_torch(demands, capacities, weights, gamma, x0, idx,
     (Jacobi) or the max |delta| (Gauss-Seidel); ``scale`` as in
     :func:`_solve_core_torch`. ``cluster_fill`` is the
     Jacobi bisect round's whole-cluster fill (``fill_cluster_bucketed``;
-    only comparisons pass its plain twin). Anderson mixes the packed
+    only comparisons pass its plain twin); ``stall`` as in
+    :func:`_solve_core_torch`. Anderson mixes the packed
     (K, Bmax) state. Returns (x dense (N, K), rounds, residual), plus
     (accel_hits, accel_rejects) under ``accel="anderson"``; x is built by
     scatter-ADD, so a padded slot adds an exact 0.0 wherever it points.
@@ -628,7 +634,8 @@ def _solve_core_bucketed_torch(demands, capacities, weights, gamma, x0, idx,
                 resid = torch.maximum(resid, delta.abs().amax())
             return xb, resid
 
-    xb, *out = _outer(one_round, xb0, max_rounds, limit, alpha0, accel)
+    xb, *out = _outer(one_round, xb0, max_rounds, limit, alpha0, accel,
+                      stall)
     cols = torch.arange(k, device=dev)[:, None].expand_as(idx)
     x = torch.zeros((n, k), dtype=dt, device=dev).index_put_(
         (idx, cols), torch.where(mask, xb, zero), accumulate=True)
@@ -648,7 +655,8 @@ def psdsf_solve_torch(demands, capacities, weights, gamma, *, x0=None,
                       tol: float = 1e-6, placement: str = "level",
                       fill: str = "event", round: str = "gauss",
                       layout: str = "dense", buckets=None,
-                      accel: str = "none", device: DeviceLike = None):
+                      accel: str = "none", stall: bool = True,
+                      device: DeviceLike = None):
     """Solve PS-DSF on ``device`` (default ``cuda``). Returns (x (N, K),
     rounds, residual) with x and the residual as tensors on that device,
     plus (accel_hits, accel_rejects) under ``accel="anderson"``.
@@ -666,7 +674,10 @@ def psdsf_solve_torch(demands, capacities, weights, gamma, *, x0=None,
     (``placement_torch._repack_refill_core_torch``), dense whatever the
     level solve's layout, their refills plain (the Anderson counters are
     the level solve's); the other axes are validated by
-    :func:`check_axes`.
+    :func:`check_axes`. ``stall=False`` keeps the damping at its start
+    (1 for Gauss-Seidel, 0.5 for Jacobi) instead of the stall schedule:
+    the undamped Gauss-Seidel loop of the reference's gamma-direct solve
+    (``extensions.solve_psdsf_gamma_tdm_torch``).
     """
     check_axes(mode=mode, placement=placement, fill=fill, round=round,
                layout=layout, accel=accel)
@@ -679,7 +690,7 @@ def psdsf_solve_torch(demands, capacities, weights, gamma, *, x0=None,
     n, k = gamma.shape
     x0 = torch.zeros((n, k), dtype=dt, device=dev) if x0 is None \
         else to_device(x0, dev, dt)
-    kw = dict(fill=fill, round_mode=round, accel=accel)
+    kw = dict(fill=fill, round_mode=round, accel=accel, stall=stall)
     if layout == "bucketed":
         idx, mask = buckets
         out = _solve_core_bucketed_torch(

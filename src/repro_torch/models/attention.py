@@ -32,7 +32,9 @@ device runs the kernel on its own batch and head shards
 (``_sharded_heads_torch``, a ``local_map`` region), and a decode step runs
 the decode kernel on each device's cache shard, merging a
 sequence-sharded cache's chunks by their log-sum-exps (split-KV,
-``_decode_sharded_torch``).
+``_decode_sharded_torch``); a cache sharded on its head dim is attended in
+plain torch on each device's slice of D, its partial scores summed across
+the slices (``_decode_headdim_torch``).
 """
 from __future__ import annotations
 
@@ -45,8 +47,8 @@ from ..kernels.decode_attention.ops import decode_attention
 from ..kernels.flash_attention.ops import flash_attention
 from .common import (RMSNorm, apply_mrope, apply_rope, constrain_torch,
                      dense_init, local_region_torch, mm_promoted_torch,
-                     shard_axes_torch, to_cache_dtype_torch,
-                     unshard_dp_torch)
+                     placements_of_torch, shard_axes_torch,
+                     to_cache_dtype_torch, unshard_dp_torch)
 from .config import ModelConfig
 
 NEG_INF = -1e30
@@ -258,19 +260,29 @@ def attention_prefill(cfg: ModelConfig, p: Attention, x, positions):
 
 
 def _cache_axes_torch(cache_k):
-    """(batch axes, sequence axes) of a DTensor cache (B, S, Hkv, D); its
-    head and head-dim dims must be whole on each device."""
+    """(batch axes, sequence axes, head-dim axes) of a DTensor cache (B,
+    S, Hkv, D). ``launch.sharding.cache_specs_np`` shards a cache on its
+    batch and either its sequence (``decode_cache_shard="seq"``) or its
+    head dim (``"headdim"``), never on its kv heads (the reference's
+    ``cache_specs`` does not either: 8 or fewer kv heads do not divide the
+    model axis), so a heads shard, or the sequence and the head dim at
+    once, is refused."""
     mesh = cache_k.device_mesh
-    axes = {0: (), 1: ()}
+    axes = {0: (), 1: (), 3: ()}
     for name, pl in zip(mesh.mesh_dim_names, cache_k.placements):
         if isinstance(pl, Shard):
             if pl.dim not in axes:
                 raise NotImplementedError(
-                    f"a decode cache sharded on dim {pl.dim} (heads or head "
-                    f"dim): the sharded decode splits batch and sequence "
-                    f"only (ShardingOptions.decode_cache_shard='seq')")
+                    f"a decode cache sharded on dim {pl.dim} (its kv heads): "
+                    f"the sharded decode splits the batch and the sequence "
+                    f"or the head dim, the layouts cache_specs_np gives "
+                    f"(the reference never shards a cache's heads)")
             axes[pl.dim] += (name,)
-    return axes[0], axes[1]
+    if axes[1] and axes[3]:
+        raise NotImplementedError(
+            "a decode cache sharded on both its sequence and its head dim: "
+            "cache_specs_np gives one or the other (decode_cache_shard)")
+    return axes[0], axes[1], axes[3]
 
 
 def window_start_torch(cfg: ModelConfig, pos):
@@ -321,9 +333,70 @@ def _decode_rows_torch(q, k_new, v_new, ck, cv, pos, kv_start=None):
     return decode_attention(q, ck, cv, length, kv_start=first)
 
 
+def _decode_headdim_torch(q, k_new, v_new, cache, pos, kv_start, dp, hd):
+    """The decode step on a cache sharded on its head dim over the mesh
+    axes ``hd`` (``decode_cache_shard="headdim"``), in one
+    ``local_region_torch``: each device holds every row of its batch
+    shard at a slice of D. It writes the new row into its slice, forms the
+    partial scores q[..., slice] . k[..., slice] in float32, sums them
+    over the ``hd`` axes (one all-reduce of (B, Hq, S_max) float32 scores
+    a layer: the reference's "per-layer scores all-reduce",
+    ``repro/launch/sharding.py:38``), masks the rows outside [kv_start,
+    min(pos + 1, S_max)) and takes the softmax, then p . v[..., slice]:
+    the output comes out sharded on D as the cache is, and is gathered
+    over ``hd`` (one cache row's size) before ``wo``.
+
+    Gathering D of the cache instead would move the K and V rows to every
+    device every step: Hkv x D / Hq times the scores' bytes in bf16 (64x
+    at qwen3_1_7b's 16/8 x 128). The decode kernel takes whole rows of D,
+    so it does not run here: the region is plain torch, as the
+    reference's ``_attend`` is jnp (the plain version's arithmetic,
+    ``kernels/decode_attention/ref.py``). Returns (B, 1, Hq, D) in q's
+    dtype."""
+    mesh = cache["k"].device_mesh
+    groups = [mesh.get_group(a) for a in hd]
+    s_max, d_full = cache["k"].shape[1], cache["k"].shape[3]
+    scale = 1.0 / math.sqrt(d_full)
+
+    def part(q, k_new, v_new, ck, cv, pos, kv_start):
+        from torch.distributed import _functional_collectives as funcol
+        b, _, hq, d = q.shape
+        hkv = ck.shape[2]
+        rows = torch.arange(b, device=q.device)
+        inside = (pos < s_max)[:, None, None]
+        idx = pos.clamp(max=s_max - 1).long()
+        _write_row_torch((ck, cv), (k_new[:, 0], v_new[:, 0]), rows, idx,
+                         inside)
+        q, first, length = _valid_rows_torch(q, pos, kv_start, s_max)
+        qg = q.float().reshape(b, hkv, hq // hkv, d) * scale
+        scores = torch.einsum("bhrd,bkhd->bhrk", qg, ck.float())
+        for group in groups:
+            scores = funcol.wait_tensor(funcol.all_reduce(scores, "sum",
+                                                          group))
+        first = torch.zeros_like(length) if first is None else first
+        k_rows = torch.arange(s_max, device=q.device)[None, :]
+        valid = (k_rows >= first[:, None]) & (k_rows < length[:, None])
+        probs = torch.softmax(scores.masked_fill(
+            ~valid[:, None, None, :], float("-inf")), dim=-1)
+        out = torch.einsum("bhrk,bkhd->bhrd", probs, cv.float())
+        return out.reshape(b, 1, hq, d).to(q.dtype)
+
+    sliced = (dp, (), (), hd)
+    per_seq = ((dp,), None if kv_start is None else (dp,))
+    out = local_region_torch(
+        "decode_attention (head-dim shards)", part, (sliced,) * 5 + per_seq,
+        (sliced,), q, k_new, v_new, cache["k"], cache["v"], pos, kv_start)
+    # (B, 1, Hq, D), one cache row's size: gathered over the head-dim axes
+    # before its heads are flattened into wo's rows (a view cannot flatten
+    # a sharded D, and torch 2.11's DTensor will not redistribute for it)
+    return out.redistribute(mesh, placements_of_torch(mesh,
+                                                      (dp, (), (), ())))
+
+
 def _decode_sharded_torch(q, k_new, v_new, cache, pos, kv_start):
     """The decode step on a DTensor cache. Sharded on batch only, each
     device runs ``_decode_rows_torch`` on its own sequences. Sharded on
+    the head dim, ``_decode_headdim_torch``. Sharded on
     the sequence too (split-KV, flash-decoding), each device writes the new
     row where it falls in its chunk and runs the decode kernel on its chunk
     (``_decode_chunk_torch``), which also gives each head's log-sum-exp;
@@ -332,7 +405,10 @@ def _decode_sharded_torch(q, k_new, v_new, cache, pos, kv_start):
     rows, from the whole batch's positions) is split on the batch as pos
     is. Returns (B, 1, Hq, D) in q's dtype."""
     mesh = cache["k"].device_mesh
-    dp, seq = _cache_axes_torch(cache["k"])
+    dp, seq, hd = _cache_axes_torch(cache["k"])
+    if hd:
+        return _decode_headdim_torch(q, k_new, v_new, cache, pos, kv_start,
+                                     dp, hd)
     row = (dp, (), (), ())
     per_seq = ((dp,), None if kv_start is None else (dp,))
     if not seq:

@@ -55,7 +55,8 @@ def test_port_modules_listed():
                  "analysis.findings", "analysis.model", "analysis.contracts",
                  "analysis.axis_threading", "analysis.host_sync",
                  "analysis.kernel_triples", "analysis.observability",
-                 "analysis.docstrings", "analysis.runner"):
+                 "analysis.docstrings", "analysis.runner",
+                 "core.properties", "core.extensions"):
         assert f"repro_torch.{name}" in PORT_MODULES, name
 
 
@@ -205,6 +206,26 @@ def test_entry_points_default_to_cuda(no_cuda):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_checkers_and_gamma_solve_default_to_cuda(no_cuda):
+    from repro_torch.core import properties
+    from repro_torch.core.extensions import (fig4_instance_np,
+                                             solve_psdsf_gamma_tdm_torch)
+    from repro_torch.core.instances import fig1_instance
+    from repro_torch.core.types import Allocation
+    prob = fig1_instance()
+    alloc = Allocation(prob, np.ones((3, 2)))
+    checks = [c for cs in properties.ALLOCATOR_GUARANTEES_TORCH.values()
+              for c in cs] + [properties.check_bottleneck_structure_rdm_torch]
+    calls = [lambda c=c: c(alloc) for c in checks] + [
+        lambda: properties.utility_of_torch(prob, 0, np.ones(3)),
+        lambda: properties.weighted_max_min_check_torch(
+            np.ones(2), np.ones(2), np.ones(2)),
+        lambda: solve_psdsf_gamma_tdm_torch(fig4_instance_np())]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
 
 
 @pytest.fixture()
@@ -559,6 +580,31 @@ def test_launch_functions_take_names_of_their_own():
         added |= names
     # ``main`` is every launch module's CLI entry, as in the reference
     shared = sorted((added & reference) - {"main"})
+    assert not shared, f"port functions named like the reference's: {shared}"
+
+
+#: the sharing-property checkers and Section IV's gamma-direct solve
+PROPERTY_MODULES = ("core/properties.py", "core/extensions.py")
+
+
+def test_property_functions_take_names_of_their_own():
+    # each function of the two modules takes a name no definition of
+    # src/repro/ has; ``GammaProblem`` is the reference's container,
+    # copied with its name, as the port's ``AllocationProblem`` is
+    reference = set()
+    for path in (ROOT / "src" / "repro").rglob("*.py"):
+        reference |= _all_definitions(path)
+    assert {"check_envy_freeness", "solve_psdsf_gamma_tdm", "fig4_instance",
+            "GammaProblem"} <= reference
+    port = set()
+    for rel in PROPERTY_MODULES:
+        port |= _all_definitions(ROOT / "src" / "repro_torch" / rel)
+    assert {"check_envy_freeness_torch", "check_pareto_tdm_torch",
+            "check_bottleneck_structure_rdm_torch",
+            "solve_psdsf_gamma_tdm_torch", "fig4_instance_np",
+            "coprocessor_instance_np", "GammaProblem", "Verdict"} <= port
+    shared = sorted(port & reference - {"GammaProblem", "__post_init__",
+                                        "__new__"})
     assert not shared, f"port functions named like the reference's: {shared}"
 
 

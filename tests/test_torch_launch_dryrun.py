@@ -20,6 +20,12 @@
     backward); in decode the decode kernel's 4 B S_max H D over the whole
     cache (a trace cannot read the lengths).
   * One run on the fake (16, 16) production mesh at smoke depth.
+  * The decode cell with ``decode_cache_shard="headdim"`` on a (2, 2)
+    mesh (qwen3_1_7b's smoke config, batch 64, a 64-row cache): one
+    all-reduce of the (B/2, Hq, S_max) float32 scores a layer over
+    "model", no all-gather of a cache-sized tensor, one head-dim region a
+    layer; a cache sharded on its kv heads, or on its sequence and head
+    dim at once, is refused.
   * The ring factors equal the reference's ``hlo._wire_bytes``; a DTensor
     product of Shard(1) by Shard(0) counts one all-reduce of the result's
     bytes; a group that spans 8-GPU nodes is counted as such; an indexed
@@ -192,6 +198,66 @@ def test_dry_run_on_the_production_mesh_at_smoke_depth():
     # the 16-way model axis spans two 8-GPU nodes, the data axis sixteen
     assert sum(c["wire_bytes_internode"]
                for c in res["collectives"].values()) > 0
+
+
+def test_headdim_decode_sums_scores_over_the_model_axis(monkeypatch):
+    model_groups, log = [], []
+    make_mesh = dryrun._mesh_torch
+
+    def mesh_spy(*a):
+        mesh = make_mesh(*a)
+        model_groups.append(mesh.get_group("model").group_name)
+        return mesh
+    dispatch = col.TraceRecorder.__torch_dispatch__
+
+    def dispatch_spy(self, func, types, args=(), kwargs=None):
+        out = dispatch(self, func, types, args, kwargs)
+        name = func.overloadpacket.__name__
+        if out is not NotImplemented and not col.TraceRecorder.paused \
+                and func.namespace in col._NAMESPACES and name in col._KIND:
+            log.append((col._KIND[name], sum(col._nbytes_torch(t) for t in
+                                             col._tensors_torch(out)),
+                        args[2]))
+        return out
+    monkeypatch.setattr(dryrun, "_mesh_torch", mesh_spy)
+    monkeypatch.setattr(col.TraceRecorder, "__torch_dispatch__",
+                        dispatch_spy)
+    b, s_max = 64, 64
+    res = dryrun.lower_cell_torch(
+        "qwen3_1_7b", "headdim_decode",
+        opts=sh.ShardingOptions(decode_cache_shard="headdim"),
+        mesh_shape=(2, 2), shape=ShapeSpec("headdim_decode", "decode",
+                                           s_max, b), smoke=True)
+    cfg = get_smoke_config("qwen3_1_7b")
+    assert res["ok"] and res["sharding_options"]["decode_cache_shard"] == \
+        "headdim"
+    assert res["local_regions"]["decode_attention (head-dim shards)"] == \
+        cfg.num_layers
+    scores = (b // 2) * cfg.num_heads * s_max * 4
+    summed = [g for kind, nbytes, g in log
+              if kind == "all-reduce" and nbytes == scores]
+    assert summed == model_groups * cfg.num_layers
+    cache = (b // 2) * s_max * cfg.num_kv_heads * cfg.head_dim * 4
+    gathers = [nbytes for kind, nbytes, _ in log if kind == "all-gather"]
+    assert gathers and max(gathers) < cache
+
+
+def test_decode_refuses_a_heads_sharded_cache():
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Shard
+    from repro_torch.models.attention import _cache_axes_torch
+    with dryrun.fake_process_group_torch(4):
+        mesh = init_device_mesh("cpu", (2, 2),
+                                mesh_dim_names=("data", "model"))
+        local = torch.zeros((2, 8, 2, 4))
+        for placements, match in (((Shard(0), Shard(2)), "kv heads"),
+                                  ((Shard(1), Shard(3)), "both its")):
+            with pytest.raises(NotImplementedError, match=match):
+                _cache_axes_torch(DTensor.from_local(local, mesh, placements,
+                                                     run_check=False))
+        assert _cache_axes_torch(DTensor.from_local(
+            local, mesh, (Shard(0), Shard(3)), run_check=False)) == \
+            (("data",), (), ("model",))
 
 
 @pytest.mark.parametrize("s", [1, 2, 16, 256])

@@ -16,8 +16,10 @@ act. In float32:
   * the sharded decode step after the prefill equals the reference's
     ``forward_decode`` logits, with the attention caches sharded on the
     sequence (split-KV: the decode kernel's plain version on each chunk,
-    merged by its log-sum-exps) and on the batch only (the plain version
-    on each device's whole rows).
+    merged by its log-sum-exps), on the batch only (the plain version
+    on each device's whole rows) and on the head dim
+    (``decode_cache_shard="headdim"``: each device's partial scores over
+    its slice of D summed across the slices).
 
 The ranks run as four subprocesses (``tests/torch_gloo.py``) with a
 timeout; the reference runs here."""
@@ -91,8 +93,19 @@ for arch, d in data.items():
         dec_rows, _ = forward_decode(
             cfg, model, caches(S.Spec(("data",), None, None, None)), token,
             s, device="cpu")
+        # the attention caches sharded on the head dim over "model", as
+        # cache_specs_np lays them out with decode_cache_shard="headdim"
+        # at this batch: partial scores summed across the slices
+        hd_opts = S.ShardingOptions(decode_cache_shard="headdim",
+                                    shard_cache_seq_threshold=b)
+        hd_spec = next(c["k"] for c in S.cache_specs_np(cfg, mesh, b,
+                                                        hd_opts)
+                       if "k" in c)
+        dec_hd, _ = forward_decode(cfg, model, caches(hd_spec), token, s,
+                                   device="cpu")
     res = {"logits": logits.full_tensor(), "decode": dec.full_tensor(),
-           "decode_rows": dec_rows.full_tensor()}
+           "decode_rows": dec_rows.full_tensor(),
+           "decode_headdim": dec_hd.full_tensor()}
 
     model = load_params(cfg, d["state"], device="cpu")
     oc = topt.OptimizerConfig(**d["oc"])
@@ -190,6 +203,13 @@ def test_sharded_decode_batch_only_cache_equals_reference(sharded_runs,
     got, want = sharded_runs
     _close(got[arch]["decode_rows"].numpy(), want[arch]["decode"],
            f"{arch} decode logits, cache sharded on batch only")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_sharded_decode_headdim_cache_equals_reference(sharded_runs, arch):
+    got, want = sharded_runs
+    _close(got[arch]["decode_headdim"].numpy(), want[arch]["decode"],
+           f"{arch} decode logits, cache sharded on the head dim")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
