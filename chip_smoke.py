@@ -139,7 +139,11 @@ Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
    and ``F.scaled_dot_product_attention``, a yardstick the port never
    calls, in turns (kernel, SDPA, SDPA, kernel); then times the Hopper
    flash body at both of its block sizes (64 and 128 query rows) at S 128
-   to 1,024 beside the one its wrapper picks;
+   to 1,024 beside the one its wrapper picks, and at gemma_2b's 8/1 x 256
+   (its one layout at head dim 256: 64-row blocks and kv stages) in turns
+   with the CUDA-core body it replaced, S 128 to 2,048; and the decode
+   kernel's tensor-core body at chunks of 64 to 2,048 rows at gemma_2b's
+   and qwen2_5_32b's widths beside the chunk its wrapper picks;
 16. drives the serving path with every launch count set to 0: a
    ``ServingEngine`` on the full qwen3_1_7b config in bfloat16 (params from
    the port's seeded init on the card), 8 slots of 2,048 rows, 16 requests
@@ -191,9 +195,10 @@ Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
 23. holds the attention kernels against their plain versions, and times
    them in turns with SDPA, at the dense and frontend configs' widths
    (bfloat16, step 15's cases): qwen2_5_32b 40/8 x 128 (groups of 5),
-   granite_3_8b 32/8 x 128, gemma_2b 8/1 x 256 (groups of 8; every flash
-   call on the CUDA-core body), qwen2_vl_72b 64/8 x 128, musicgen_large
-   32/32 x 64 (every other flash call on the Hopper body);
+   granite_3_8b 32/8 x 128, gemma_2b 8/1 x 256 (groups of 8),
+   qwen2_vl_72b 64/8 x 128, musicgen_large 32/32 x 64 (every flash call
+   on the Hopper body; every decode call at groups of 2-16 on the
+   tensor-core body, counted);
 24. drives the serving path of each the same way, counts set to 0 again
    (full widths, bfloat16, seeded init, 8 slots of 2,048 rows):
    gemma_2b, granite_3_8b and musicgen_large whole with step 16's 16
@@ -202,7 +207,8 @@ Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
    128-1,024), each after the last model is freed and the cache emptied;
    checks completion, token ids, finite logits, one flash launch per layer
    and prefill (on the body its head dim takes) and one decode launch per
-   layer and step, prints the peak device memory, profiles a window for
+   layer and step (on the tensor-core body at groups of 2-16), prints the
+   peak device memory, profiles a window for
    the idle share (4 requests of 512 tokens, 4 new tokens each), then
    holds a 2-layer full-width model's logits with the
    kernels against the plain versions' (2^-5 x max|logit|); for
@@ -212,9 +218,9 @@ Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
    kernels' logits against the plain versions' by the same rule;
 24a. holds ``flash_attention`` with a sliding window against its plain
    version: on the Hopper body (bf16) qwen3_1_7b's 16/8 x 128 at S 1,024,
-   W 256 and Mistral-7B-v0.1's 32/8 x 128 at S 8,192, W 4,096; on the
-   CUDA-core body gemma_2b's 8/1 x 256 and qwen3's widths in float32; the
-   lse call at S 2,048; each timed in turns with SDPA given the boolean
+   W 256, Mistral-7B-v0.1's 32/8 x 128 at S 8,192, W 4,096 and gemma_2b's
+   8/1 x 256; on the CUDA-core body qwen3's widths in float32; the lse
+   call at S 2,048; each timed in turns with SDPA given the boolean
    window mask and with the kernel without the window, beside the bound
    over the windowed pairs;
 24b. holds ``decode_attention`` over e4m3 and e5m2 caches, without and
@@ -446,8 +452,9 @@ MOE_SERVING = (("granite_moe_3b_a800m", None, 2), ("jamba_v0_1_52b", 8, 8),
 
 #: the dense and frontend configs: the attention kernels run at each
 #: one's widths (qwen2_5_32b 40/8 x 128, granite_3_8b 32/8 x 128, gemma_2b
-#: 8/1 x 256 on flash's CUDA-core body, qwen2_vl_72b 64/8 x 128,
-#: musicgen_large 32/32 x 64)
+#: 8/1 x 256, qwen2_vl_72b 64/8 x 128, musicgen_large 32/32 x 64; flash
+#: on the Hopper body at all five, decode on the tensor-core body at
+#: groups of 2-16)
 DENSE_ARCHS = ("qwen2_5_32b", "granite_3_8b", "gemma_2b", "qwen2_vl_72b",
                "musicgen_large")
 #: (arch, serving depth, requests, new tokens a request): gemma, granite and
@@ -467,6 +474,8 @@ DENSE_PROFILE_WINDOW = (4, 4)
 
 #: per-body launch counts beside ``.launches`` (flash_attention's two)
 BODY_COUNTS = ("hopper_launches", "cuda_core_launches", "lse_launches")
+#: decode_attention's count of its tensor-core body's launches
+DECODE_BODY_COUNTS = ("tc_launches",)
 #: the attention wrappers' counts of their windowed and float8 launches
 #: (flash_attention: window; decode_attention: first rows, float8 caches)
 VARIANT_COUNTS = ("window_launches", "fp8_launches", "mixed_launches")
@@ -884,7 +893,7 @@ def reset_counts(counters):
     """Every wrapper's launch counts, its bodies' too, set to 0."""
     for fn in counters.values():
         fn.launches = 0
-        for attr in BODY_COUNTS + VARIANT_COUNTS:
+        for attr in BODY_COUNTS + DECODE_BODY_COUNTS + VARIANT_COUNTS:
             if hasattr(fn, attr):
                 setattr(fn, attr, 0)
 
@@ -2705,8 +2714,7 @@ class Smoke:
         """At ``arch``'s attention widths, S 1,024, a ragged 1,000, 512 (the
         profiled window's prompts) and 128 (the shortest prompt): each held
         against the plain version and timed in turns with SDPA; each call
-        must take the Hopper body (head dims 64 and 128) or, at gemma_2b's
-        head dim 256, the CUDA-core body."""
+        must take the Hopper body (head dims 64, 128 and gemma_2b's 256)."""
         torch = self.torch
         import torch.nn.functional as F
         from repro_torch.kernels.flash_attention import kernel, ref
@@ -2748,8 +2756,9 @@ class Smoke:
             t_ops = flops / PEAK_BF16_FLOPS
             bound_ms = max(t_bytes, t_ops) * 1e3
             bound_by = "bytes" if t_bytes > t_ops else "operations"
-            bq = (kernel.block_rows(1, s, hq) if body == "hopper_launches"
-                  else 64)
+            bq = (kernel.BLOCK_ROWS_D256 if d == 256
+                  else kernel.block_rows(1, s, hq)
+                  if body == "hopper_launches" else 64)
             print(f"  flash (1, {s}, {hq}/{hkv}, {d}) bf16 causal, "
                   f"{body[:-9]} body, blocks "
                   f"of {bq} rows, kernel and SDPA in turns: kernel {ks[0]:.4f}, "
@@ -2766,12 +2775,27 @@ class Smoke:
                 body=body[:-9], shape=f"1x{s}x{hq}/{hkv}x{d}")
 
     @staticmethod
+    def decode_takes_tc(cfg):
+        """Whether ``cfg``'s decode steps take the decode kernel's
+        tensor-core body: a bfloat16 q (q comes out of the projections in
+        the params' dtype promoted with the activations') at a group and
+        head dim the body takes (the caches are contiguous: their rows are
+        16-byte chunks)."""
+        from repro_torch.kernels.decode_attention import kernel
+        if not cfg.has_mixer("attn"):
+            return False
+        rep = cfg.num_heads // cfg.num_kv_heads
+        return (cfg.dtype == cfg.param_dtype == "bfloat16"
+                and kernel.TC_MIN_GROUP <= rep <= kernel.MAX_GROUP
+                and cfg.head_dim in kernel.TC_HEAD_DIMS)
+
+    @staticmethod
     def flash_body(cfg):
         """The flash body ``cfg``'s prefills take: its counter's name on the
         wrapper. q, k and v come out of the projections in the params' dtype
-        promoted with the activations': bfloat16 at a Hopper head dim takes
-        the Hopper body, float32 (a dtype split with float32 params) the
-        CUDA-core body."""
+        promoted with the activations': bfloat16 at a Hopper head dim (64,
+        128, 256) takes the Hopper body, float32 (a dtype split with float32
+        params) the CUDA-core body."""
         from repro_torch.kernels.flash_attention import kernel
         bf16 = cfg.dtype == cfg.param_dtype == "bfloat16"
         return ("hopper_launches" if bf16
@@ -2782,7 +2806,8 @@ class Smoke:
         """The Hopper flash body at both block sizes (query rows a block)
         timed at the serving path's prompt lengths (graph replays), beside
         the one the wrapper picks: the measurement behind
-        ``kernel.block_rows``."""
+        ``kernel.block_rows``; then at head dim 256 (gemma_2b's heads) in
+        turns with the CUDA-core body that took it before."""
         if self.rehearse:
             print("rehearsal: no card, no plan timings")
             return
@@ -2811,6 +2836,31 @@ class Smoke:
                                            for p, ms in row.items())
                   + f"; the wrapper picks BQ {chosen}")
         self.paths["flash_tile_plans"] = table
+        # head dim 256 at gemma_2b's heads: the Hopper body's one layout
+        # (64-row blocks and kv stages) in turns with the CUDA-core body it
+        # replaced (the wrapper sent D 256 there before)
+        gemma = self.llm_config(arch="gemma_2b")
+        hq, hkv, d = gemma.num_heads, gemma.num_kv_heads, gemma.head_dim
+        table = {}
+        for s in (128, 512, 1024, 2048):
+            q, k, v = self.attn_inputs([(1, s, hq, d), (1, s, hkv, d),
+                                        (1, s, hkv, d)], torch.bfloat16,
+                                       seed=s)
+            plain32 = ref.flash_attention(q.float(), k.float(), v.float())
+            self.compare_attn(kernel.flash_attention(q, k, v), plain32,
+                              f"flash D 256 S={s}")
+
+            def old_body():
+                with mock.patch.object(kernel, "HOPPER_HEAD_DIMS", (64, 128)):
+                    return kernel.flash_attention(q, k, v)
+            ks, cs = self.interleaved(lambda: kernel.flash_attention(q, k, v),
+                                      old_body, 20)
+            table[s] = {"hopper BQ 64": ks, "cuda_core": cs}
+            print(f"  gemma_2b 8/1 x 256, S={s}: Hopper body (BQ "
+                  f"{kernel.BLOCK_ROWS_D256}) {ks[0]:.4f}, "
+                  f"{ks[1]:.4f} ms; CUDA-core body in the same turns "
+                  f"{cs[0]:.4f}, {cs[1]:.4f} ms")
+        self.paths["flash_tile_plans_d256"] = table
 
     def decode_vs_plain(self, arch="qwen3_1_7b"):
         """At ``arch``'s attention widths: the serving shape (8 slots of a
@@ -2836,7 +2886,14 @@ class Smoke:
             lens = [1, s_max, s_max + 37, s_max // 2 + 3, s_max // 4 + 1, 64,
                     3 * s_max // 4 - 5, s_max - 1]
         kv_len = torch.tensor(lens, dtype=torch.int32, device=self.device)
+        tc_before = kernel.decode_attention.tc_launches
         got = kernel.decode_attention(q, kc, vc, kv_len)
+        tc = kernel.decode_attention.tc_launches - tc_before
+        body = "tensor_core" if self.decode_takes_tc(cfg) else "cuda_core"
+        if not self.rehearse:
+            self.check(tc == (body == "tensor_core"),
+                       f"decode {b}x{s_max}: {tc} tensor-core launches, "
+                       f"expected the {body} body")
         plain32, lse32 = ref.decode_attention(q.float(), kc.float(),
                                               vc.float(), kv_len,
                                               return_lse=True)
@@ -2875,10 +2932,12 @@ class Smoke:
         flops = 4 * sum(valid) * hq * d
         bound_ms = max(nbytes / PEAK_BYTES_PER_S,
                        flops / PEAK_BF16_FLOPS) * 1e3
-        chunk = kernel.chunk_rows(b, s_max, hkv)
+        chunk = (kernel.chunk_rows_tc(b, s_max, hkv, d) if tc
+                 else kernel.chunk_rows(b, s_max, hkv))
         blocks = b * hkv * -(-s_max // chunk)
         print(f"  decode ({b} slots, {s_max} rows, {hq}/{hkv}, {d}) bf16, "
-              f"lengths {valid}; {blocks} blocks of {chunk} rows; kernel and "
+              f"{body} body, lengths {valid}; {blocks} blocks of {chunk} "
+              f"rows; kernel and "
               f"SDPA on the valid prefix in turns: kernel {ks[0]:.4f}, "
               f"{ks[1]:.4f} ms, SDPA {ls[0]:.4f}, {ls[1]:.4f} ms (back to "
               f"back: kernel {eager_ms:.4f}, SDPA {library_eager_ms:.4f} ms),"
@@ -2889,7 +2948,53 @@ class Smoke:
             bound_by="bytes", max_abs_err=err, library_ms=library_ms,
             library_eager_ms=library_eager_ms, turns_ms=ks,
             library_turns_ms=ls, blocks=blocks, lse_max_abs_err=lse_err,
-            shape=f"{b}x{s_max}x{hq}/{hkv}x{d}")
+            body=body, shape=f"{b}x{s_max}x{hq}/{hkv}x{d}")
+
+    def decode_plans(self):
+        """The decode kernel's tensor-core body at chunks of 64 to 2,048
+        rows, at gemma_2b's 8/1 x 256 and qwen2_5_32b's 40/8 x 128, over 8
+        slots of 2,048 rows (the serving lengths) and one of 32,768 (graph
+        replays), beside the chunk the wrapper picks: the measurement
+        behind ``kernel.chunk_rows_tc``."""
+        if self.rehearse:
+            print("rehearsal: no card, no plan timings")
+            return
+        torch = self.torch
+        from repro_torch.kernels.decode_attention import kernel, ref
+        table = {}
+        for arch in ("gemma_2b", "qwen2_5_32b"):
+            cfg = self.llm_config(arch=arch)
+            hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+            for b, s_max, lens in ((8, 2048, None), (1, 32768, [32765])):
+                lens = lens or [1, s_max, s_max + 37, s_max // 2 + 3,
+                                s_max // 4 + 1, 64, 3 * s_max // 4 - 5,
+                                s_max - 1]
+                q, kc, vc = self.attn_inputs(
+                    [(b, hq, d), (b, s_max, hkv, d), (b, s_max, hkv, d)],
+                    torch.bfloat16, seed=3)
+                kv_len = torch.tensor(lens, dtype=torch.int32,
+                                      device=self.device)
+                plain32 = ref.decode_attention(q.float(), kc.float(),
+                                               vc.float(), kv_len)
+                row = {}
+                for chunk in (64, 128, 256, 512, 1024, 2048):
+                    with mock.patch.object(kernel, "chunk_rows",
+                                           lambda *a, c=chunk: c):
+                        self.compare_attn(
+                            kernel.decode_attention(q, kc, vc, kv_len),
+                            plain32, f"decode {arch} {b}x{s_max} chunk "
+                                     f"{chunk}")
+                        row[chunk] = self.time_ms(
+                            lambda: kernel.decode_attention(q, kc, vc,
+                                                            kv_len),
+                            20, graph=True)
+                chosen = kernel.chunk_rows_tc(b, s_max, hkv, d)
+                table[f"{arch} {b}x{s_max}"] = dict(row, chosen=chosen)
+                print(f"  {arch} {hq}/{hkv} x {d}, {b}x{s_max}: "
+                      + ", ".join(f"chunk {c} {ms:.4f} ms"
+                                  for c, ms in row.items())
+                      + f"; the wrapper picks {chosen}")
+        self.paths["decode_chunk_plans"] = table
 
     @staticmethod
     def serving_launches(cfg, prefills, steps):
@@ -3002,6 +3107,7 @@ class Smoke:
                         for name in ("flash_attention", "decode_attention")
                         for attr in VARIANT_COUNTS
                         if hasattr(counters[name], attr)}
+            decode_tc = counters["decode_attention"].tc_launches
         st = eng.stats
         per_tenant = {}
         for r in done:
@@ -3019,12 +3125,13 @@ class Smoke:
               f"{st['decode_tokens'] / st['decode_steps']:.2f} active slots "
               f"per step)")
         print(f"  tokens per tenant: {per_tenant}; launches: {launches}; "
-              f"flash_attention by body: {bodies}; windowed, float8 and "
+              f"flash_attention by body: {bodies}; decode_attention on the "
+              f"tensor-core body: {decode_tc}; windowed, float8 and "
               f"mixed-dtype launches: {variants}"
               + (f"; peak device memory {peak:.2f} GiB" if peak else ""))
         self.paths[path] = dict(
             launches=launches, flash_bodies=bodies, variants=variants,
-            wall_s=wall,
+            decode_tc_launches=decode_tc, wall_s=wall,
             requests=len(done), layers=cfg.num_layers, params=n_params,
             new_tokens=max_new,
             prefills=st["prefills"], prefill_tokens=st["prefill_tokens"],
@@ -3047,14 +3154,21 @@ class Smoke:
                 self.check(count == want.get(name, 0),
                            f"{name} launched {count} times on the serving "
                            f"path, expected {want.get(name, 0)}")
-            # every prefill's attention took the Hopper (TMA + wgmma) body;
-            # gemma_2b's head dim 256 the CUDA-core body
+            # every prefill's attention took the Hopper (TMA + wgmma) body,
+            # gemma_2b's head dim 256 too, a float32 q the CUDA-core body;
+            # every decode step at groups of 2-16 under a bfloat16 q the
+            # tensor-core body
             body = self.flash_body(cfg)
             want_bodies = dict.fromkeys(BODY_COUNTS, 0)
             want_bodies[body] = want["flash_attention"]
             self.check(bodies == want_bodies,
                        f"flash_attention bodies {bodies}, expected every "
                        f"launch on the {body[:-9]} body")
+            want_tc = (want["decode_attention"] if self.decode_takes_tc(cfg)
+                       else 0)
+            self.check(decode_tc == want_tc,
+                       f"decode_attention took the tensor-core body "
+                       f"{decode_tc} times, expected {want_tc}")
             # a window reaches every flash and decode launch, a float8
             # cache every decode launch, a float32 q over a bfloat16 cache
             # (float32 params over bfloat16 activations) every decode
@@ -3757,10 +3871,10 @@ class Smoke:
     def flash_window_vs_plain(self):
         """The flash kernel with a sliding window against its plain
         version: on the Hopper body (bfloat16) qwen3_1_7b's 16/8 x 128 at S
-        1,024, W 256 and Mistral-7B-v0.1's 32/8 x 128 at S 8,192 with its W
-        4,096; on the CUDA-core body gemma_2b's 8/1 x 256 (bfloat16) and
-        qwen3's widths in float32, S 1,024, W 256; the lse call at qwen3's
-        S 2,048, W 256. Each call must take its body and count as
+        1,024, W 256, Mistral-7B-v0.1's 32/8 x 128 at S 8,192 with its W
+        4,096 and gemma_2b's 8/1 x 256 at S 1,024, W 256; on the CUDA-core
+        body qwen3's widths in float32, S 1,024, W 256; the lse call at
+        qwen3's S 2,048, W 256. Each call must take its body and count as
         windowed. Each is timed in turns with SDPA given the same boolean
         window mask, and in turns with the kernel without the window
         (causal), beside the bound over the windowed pairs."""
@@ -3869,7 +3983,7 @@ class Smoke:
         """The decode kernel over float8 caches with and without first
         rows, against its plain version: 8 slots x 2,048 rows at
         qwen3_1_7b's 16/8 x 128 and qwen2_5_32b's 40/8 x 128 (groups of 5:
-        the rep > 4 path), e4m3 and e5m2 caches, without first rows and
+        the tensor-core body), e4m3 and e5m2 caches, without first rows and
         with first rows at 0, inside the length and equal to it; each split
         into 1, 2 and 4 chunks a sequence and into the wrapper's own; out
         and lse held to the plain version's on the same bytes, every call
@@ -5697,6 +5811,7 @@ def main(argv=None) -> int:
     smoke.phase("flash_attention vs plain", smoke.flash_vs_plain)
     smoke.phase("flash tile plans", smoke.flash_plans)
     smoke.phase("decode_attention vs plain", smoke.decode_vs_plain)
+    smoke.phase("decode chunk plans", smoke.decode_plans)
     smoke.phase("serving path", smoke.serving)
     if "serving path" not in smoke.failed:
         smoke.phase("serving profile", smoke.serving_profile)

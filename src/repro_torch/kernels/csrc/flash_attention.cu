@@ -22,33 +22,46 @@
 // to the causal limit, so the online-softmax state never leaves the block.
 // Query tiles are issued heaviest (latest) first, since causal tiles differ
 // in length. The wrapper picks one of two bodies from its inputs:
-// - bfloat16 with D 64 or 128, 16-byte-aligned pointers and strides that
-//   are multiples of 8 elements (the model's case): the Hopper body
-//   (flash_wgmma_kernel). One producer warpgroup issues TMA loads: the
-//   block's Q tile once, then K and V tiles into a ring of stages, each
-//   guarded by a full and an empty mbarrier. The tensor maps describe the
-//   (B, S, H, D) tensors through their strides (no transposed copy) with
-//   the 128-byte swizzle, so a D = 128 row is two 64-wide boxes; rows past
-//   S arrive as zeros. One or two consumer warpgroups, 64 query rows each,
-//   compute S = Q K^T with wgmma (Q and K from shared memory, both K-major),
-//   the online softmax in the log2 domain in float32 registers, round P to
-//   bfloat16 in registers and feed it as wgmma's register A operand for
-//   O += P V (V from shared memory, MN-major: the transpose flag). Only the
-//   tiles that cross the diagonal or the end of S test the mask; a
-//   warpgroup skips tiles wholly above its rows.
-// - float32, and bfloat16 otherwise: float32 FMAs on the CUDA cores
-//   (flash_kernel): 256 threads, each holding 4 query rows' statistics and
-//   a 4 x ceil(D/16) slice of the accumulator in registers; the Q tile
-//   (pre-scaled), the K and V tiles and the probabilities staged in shared
-//   memory as float32; a thread computes a 4 x 4 block of scores per tile
-//   (rows 4 ty.., columns tx + 16 j), so the K rows read by the 16 column
-//   threads sit D + 1 words apart and hit 16 different banks. It is bound
-//   by the CUDA cores' issue rate and shared-memory loads. Head dims up to
-//   256 (gemma_2b's) take it: at D 256 the staged tiles are 214.5 KB of
-//   shared memory (one block an SM, under the H100's 227 KB opt-in, which
-//   the launch raises) and each thread holds 4 x 16 accumulators.
+// - bfloat16 with D 64, 128 or 256, 16-byte-aligned pointers and strides
+//   that are multiples of 8 elements (the models' case, gemma_2b's head dim
+//   256 among them): the Hopper body (flash_wgmma_kernel). One producer
+//   warpgroup issues TMA loads: the block's Q tile once, then K and V tiles
+//   into a ring of stages, each guarded by a full and an empty mbarrier. The
+//   tensor maps describe the (B, S, H, D) tensors through their strides (no
+//   transposed copy) with the 128-byte swizzle, so a row is D / 64 boxes 64
+//   wide; rows past S arrive as zeros. One or two consumer warpgroups, 64
+//   query rows each, compute S = Q K^T with wgmma (Q and K from shared
+//   memory, both K-major), the online softmax in the log2 domain in float32
+//   registers, round P to bfloat16 in registers and feed it as wgmma's
+//   register A operand for O += P V (V from shared memory, MN-major: the
+//   transpose flag). Only the tiles that cross the diagonal or the end of S
+//   test the mask; a warpgroup skips tiles wholly above its rows.
+// - float32 at any head dim, and bfloat16 otherwise: float32 FMAs on the
+//   CUDA cores (flash_kernel): 256 threads, each holding 4 query rows'
+//   statistics and a 4 x ceil(D/16) slice of the accumulator in registers;
+//   the Q tile (pre-scaled), the K and V tiles and the probabilities staged
+//   in shared memory as float32; a thread computes a 4 x 4 block of scores
+//   per tile (rows 4 ty.., columns tx + 16 j), so the K rows read by the 16
+//   column threads sit D + 1 words apart and hit 16 different banks. It is
+//   bound by the CUDA cores' issue rate and shared-memory loads. Head dims
+//   up to 256 take it: at D 256 the staged tiles are 214.5 KB of shared
+//   memory (one block an SM, under the H100's 227 KB opt-in, which the
+//   launch raises) and each thread holds 4 x 16 accumulators.
 // Both mask ragged S themselves (rows >= S are not written, columns >= S
 // score -inf), so nothing is padded.
+//
+// Head dim 256 on the Hopper body (Tile<256, 1>): a stage of 128 kv rows
+// would be 128 KB of K and V, so its stages hold 64 rows (BK 64), and one
+// consumer warpgroup of 64 query rows computes with three stages in the
+// ring (230,456 bytes, as the D 128 body's largest instance). S = Q K^T is
+// 16 k16 steps of m64n64k16 over Q's and K's four boxes; O += P V two
+// m64n128k16 products a k16 step, over V's boxes 0-1 and 2-3. The consumer
+// holds the 64 x 256 float32 O (128 registers a thread) beside S (32) and
+// P (16): 198 registers, which a 256-thread block has. Two consumer
+// warpgroups (two stages) would get 168 registers a thread from a
+// 384-thread block: that layout spilled, setmaxnreg moving the producer's
+// registers to them notwithstanding, and ran slower than this one at
+// gemma_2b's heads at every S tried (PERF.md).
 //
 // Sliding window (window > 0): a block's kv loop starts at the tile that
 // holds column q0 - W + 1, its first row's first key, so the tiles wholly
@@ -75,14 +88,15 @@
 // body is compiled with and without the store (its LSE parameter), so the
 // serving instance is the code it was before lse existed.
 //
-// Tile plan of the Hopper body: kv tiles of 128 rows a stage, and BQ query
-// rows a block, 64 per consumer warpgroup. The wrapper's block_rows() takes
-// 64-row blocks while all of them run at once, one an SM (B Hq ceil(S / 64)
-// <= 132), else 128-row blocks. chip_smoke.py's "flash tile plans" phase
-// times both at qwen3_1_7b's heads (B 1, 16/8 x 128, causal; CUDA-graph
-// replays on an NVIDIA H100 80GB HBM3 at 700 W), e.g. at S 128: BQ 64
-// 0.0057 ms, BQ 128 0.0079; S 512: 0.0102, 0.0142; S 768: 0.0189, 0.0182;
-// S 1,024: 0.0268, 0.0221 (PERF.md keeps the readings).
+// Tile plan of the Hopper body at D 64 and 128: kv tiles of 128 rows a
+// stage, and BQ query rows a block, 64 per consumer warpgroup (D 256: kv
+// tiles of 64 rows, blocks of 64 rows). The wrapper's block_rows() takes
+// 64-row blocks while all of them run at once, one an SM (B Hq ceil(S /
+// 64) <= 132), else 128-row blocks. chip_smoke.py's "flash tile plans"
+// phase times both at qwen3_1_7b's heads (B 1, 16/8 x 128, causal;
+// CUDA-graph replays on an NVIDIA H100 80GB HBM3 at 700 W), e.g. at S 128:
+// BQ 64 0.0057 ms, BQ 128 0.0079; S 512: 0.0102, 0.0142; S 768: 0.0189,
+// 0.0182; S 1,024: 0.0268, 0.0221 (PERF.md keeps the readings).
 #include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -374,6 +388,46 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
 }
 
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "n"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss0_n64(float* d, uint64_t da,
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
+        "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
+        "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
+        "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]),
+        "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
+        "=f"(d[30]), "=f"(d[31])
+      : "l"(da), "l"(db), "n"(0));
+}
+
 __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da,
                                                uint64_t db) {
   asm volatile(
@@ -463,17 +517,35 @@ __device__ __forceinline__ void wgmma_ss0_n128(float* d, uint64_t da,
 
 
 // the first k16 step of a product writes D without reading it, so no
-// earlier instruction that defined D's registers is an input of the pipe
+// earlier instruction that defined D's registers is an input of the pipe;
+// N: the kv rows of a stage (128, or 64 at head dim 256)
+template <int N>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
                                          bool first) {
-  if (first) wgmma_ss0_n128(d, da, db);
-  else wgmma_ss_n128(d, da, db);
+  if constexpr (N == 64) {
+    if (first) wgmma_ss0_n64(d, da, db);
+    else wgmma_ss_n64(d, da, db);
+  } else {
+    if (first) wgmma_ss0_n128(d, da, db);
+    else wgmma_ss_n128(d, da, db);
+  }
 }
-template <int N>
+// O (64 x D) += P (64 x 16, registers) V (16 rows of a stage from v_addr):
+// V's 64-wide boxes lie BK x 128 bytes apart; at D 256 two n128 products,
+// over boxes 0-1 and 2-3 (O's columns 128.. are its registers 64..)
+template <int D, int BK>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
-                                         uint64_t db) {
-  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
-  else wgmma_rs_n128(d, a, db);
+                                         uint32_t v_addr) {
+  if constexpr (D == 64) {
+    wgmma_rs_n64(d, a, sw128_desc(v_addr, BK * 128, 1024));
+  } else if constexpr (D == 128) {
+    wgmma_rs_n128(d, a, sw128_desc(v_addr, BK * 128, 1024));
+  } else {
+    static_assert(D == 256, "head dims 64, 128 and 256");
+    wgmma_rs_n128(d, a, sw128_desc(v_addr, BK * 128, 1024));
+    wgmma_rs_n128(d + 64, a,
+                  sw128_desc(v_addr + 2 * BK * 128, BK * 128, 1024));
+  }
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -481,21 +553,24 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// D head dim (64 or 128), NWG consumer warpgroups of 64 query rows; one
-// more warpgroup produces. kv tiles are 128 rows.
+// D head dim (64, 128 or 256), NWG consumer warpgroups of 64 query rows
+// (one at D 256); one more warpgroup produces. kv tiles are 128 rows at D
+// 64 and 128, 64 rows at D 256 (a 128-row stage of K and V would be 128 KB
+// there).
 template <int D, int NWG>
 struct Tile {
   static constexpr int BQ = 64 * NWG;
-  static constexpr int BK = 128;                    // kv rows per stage
+  static constexpr int BK = D == 256 ? 64 : 128;    // kv rows per stage
   static constexpr int BOXES = D / 64;              // 64-wide boxes per row
   // three stages in the ring, so the next two tiles load while one is
-  // computed (230,456 bytes at most: BQ 128, D 128)
+  // computed (230,456 bytes at most: BQ 128 at D 128, BQ 64 at D 256)
   static constexpr int STAGES = 3;
   static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;       // one of K, V per stage
   static constexpr int SMEM =
       1024 + Q_BYTES + STAGES * 2 * KV_BYTES + 8 * (1 + 2 * STAGES);
   static constexpr int THREADS = 128 * (NWG + 1);
+  static_assert(SMEM <= 232448, "more shared memory than an H100 block has");
 };
 
 template <int D, int NWG, bool LSE>
@@ -583,22 +658,21 @@ __global__ void __launch_bounds__(Tile<D, NWG>::THREADS, 1)
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t off = (kk % 4) * 32;
-        wgmma_ss(
+        wgmma_ss<BK>(
             sc, sw128_desc(q_addr + (kk / 4) * T::BQ * 128 + off, 16, 1024),
             sw128_desc(k_addr + (kk / 4) * BK * 128 + off, 16, 1024),
             kk == 0);
       }
       wgmma_commit();
     };
-    // O += P V for stage s: V's k16 rows are 16 x 128 bytes apart, its two
-    // 64-wide boxes (D = 128) BK x 128 bytes apart
+    // O += P V for stage s: V's k16 rows are 16 x 128 bytes apart, its
+    // 64-wide boxes BK x 128 bytes apart
     auto issue_pv = [&](int s) {
       const uint32_t v_addr =
           smem_u32(kvs + s * 2 * T::KV_BYTES) + T::KV_BYTES;
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_rs<D>(acc, pa[kk],
-                    sw128_desc(v_addr + kk * 16 * 128, BK * 128, 1024));
+        wgmma_rs<D, BK>(acc, pa[kk], v_addr + kk * 16 * 128);
       wgmma_commit();
     };
     // the online softmax of tile k0: sc becomes P (float32), with corr
@@ -847,15 +921,16 @@ int launch(const T* q, const T* k, const T* v, T* o, float* lse,
   return (int)cudaErrorInvalidValue;
 }
 
-// The Hopper body takes D 64 or 128 and rows TMA can address: 16-byte
-// aligned pointers, strides that are multiples of 8 elements.
+// The Hopper body takes D 64, 128 or 256 (blocks of 64 query rows at 256)
+// and rows TMA can address: 16-byte aligned pointers, strides that are
+// multiples of 8 elements.
 int launch_hopper(const __nv_bfloat16* q, const __nv_bfloat16* k,
                   const __nv_bfloat16* v, __nv_bfloat16* o, float* lse,
                   const long long* st, int batch, int seq, int hq, int hkv,
                   int d, float scale, int causal, int window, int bq,
                   void* stream) {
   if (batch <= 0 || seq <= 0 || hq <= 0 || hkv <= 0 || hq % hkv ||
-      batch > 65535 || hq > 65535 || (d != 64 && d != 128) ||
+      batch > 65535 || hq > 65535 || (d != 64 && d != 128 && d != 256) ||
       (bq != 64 && bq != 128) || window < 0 || (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
   const void* ptrs[4] = {q, k, v, o};
@@ -875,6 +950,7 @@ int launch_hopper(const __nv_bfloat16* q, const __nv_bfloat16* k,
                : launch_wgmma<D, NWG, false>(q, k, v, o, lse, qs, ks, vs,  \
                                              os, batch, seq, hq, hkv,      \
                                              scale, causal, window, s);
+  FLASH_HOPPER_CASE(256, 1)
   FLASH_HOPPER_CASE(128, 2)
   FLASH_HOPPER_CASE(128, 1)
   FLASH_HOPPER_CASE(64, 2)
@@ -889,8 +965,8 @@ int launch_hopper(const __nv_bfloat16* q, const __nv_bfloat16* k,
 // lse: a float32 (B, Hq, S) tensor to write each row's log-sum-exp into,
 // or null (serving) for none. window: 0 (none), or W > 0 with causal.
 // flash_attention_f32 and flash_attention_bf16 run the CUDA-core body;
-// flash_attention_bf16_hopper the TMA + wgmma body with blocks of bq query
-// rows (64 or 128).
+// flash_attention_bf16_hopper the TMA + wgmma body (D 64, 128 or 256) with
+// blocks of bq query rows (64 or 128; 64 at D 256).
 extern "C" int flash_attention_f32(const float* q, const float* k,
                                    const float* v, float* o, float* lse,
                                    const long long* strides, int batch,

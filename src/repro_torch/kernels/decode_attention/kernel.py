@@ -10,7 +10,15 @@ does. ``decode_attention.launches`` counts the kernel's launches,
 sequence (``kv_start``, the model's sliding window),
 ``decode_attention.fp8_launches`` those over float8 caches and
 ``decode_attention.mixed_launches`` those of a float32 q over bfloat16
-caches.
+caches and ``decode_attention.tc_launches`` those on the tensor-core body.
+
+It has two split bodies, chosen from the inputs
+(:func:`takes_tensor_cores`): a bfloat16 q whose kv heads each serve
+``TC_MIN_GROUP`` to ``MAX_GROUP`` query heads, over bfloat16 or float8
+caches at a head dim of ``TC_HEAD_DIMS`` with 16-byte-aligned rows (the
+decode of every bf16 config but musicgen_large's groups of 1) runs the
+tensor-core body (``mma.sync`` products, a ``cp.async`` ring a warp);
+everything else (groups of 1, a float32 q) the CUDA-core body.
 
 The caches are in q's dtype, or both ``float8_e4m3fn`` or both
 ``float8_e5m2`` under a bfloat16 or float32 q (the reference's quantized
@@ -28,9 +36,9 @@ not the plain version's float32 copies of the cache. The lengths are data
 a trace cannot read, so it counts the whole cache.
 
 Split-KV: every (sequence, kv head)'s cache rows are cut into chunks of
-:func:`chunk_rows` rows, one block each, whose float32 partials (max, sum,
-accumulator) a second kernel merges by their log-sum-exp; the wrapper
-allocates that scratch.
+:func:`chunk_rows` rows (:func:`chunk_rows_tc` on the tensor-core body),
+one block each, whose float32 partials (max, sum, accumulator) a second
+kernel merges by their log-sum-exp; the wrapper allocates that scratch.
 """
 from __future__ import annotations
 
@@ -62,6 +70,11 @@ FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
 #: are resident at once), and its chunks' least rows
 TARGET_BLOCKS = 4 * 132
 MIN_CHUNK = 64
+#: the least group (query heads a kv head) that takes the tensor-core body
+#: under a bfloat16 q (at groups of 1 it was no faster than the CUDA-core
+#: body: PERF.md), and the head dims it is compiled for
+TC_MIN_GROUP = 2
+TC_HEAD_DIMS = (64, 128, 256)
 
 
 def chunk_rows(batch: int, s_max: int, hkv: int) -> int:
@@ -73,6 +86,32 @@ def chunk_rows(batch: int, s_max: int, hkv: int) -> int:
     while batch * hkv * -(-s_max // chunk) > TARGET_BLOCKS:
         chunk *= 2
     return chunk
+
+
+def chunk_rows_tc(batch: int, s_max: int, hkv: int, d: int) -> int:
+    """Rows per block of the tensor-core body: :func:`chunk_rows`'s, but at
+    head dim 256, whose blocks take 143 KB of shared memory (one an SM
+    where the plan counts on four), chunks for a quarter of the blocks:
+    ``chunk_rows`` of four times the kv heads. ``chip_smoke.py``'s "decode
+    chunk plans" phase times the chunks at gemma_2b's and qwen2_5_32b's
+    widths."""
+    return chunk_rows(batch, s_max, hkv * (4 if d > 128 else 1))
+
+
+def takes_tensor_cores(q, k_cache, v_cache) -> bool:
+    """Whether these inputs (already validated by the wrapper) run the
+    tensor-core body: a bfloat16 q (the caches bfloat16 or float8), groups
+    of ``TC_MIN_GROUP`` to ``MAX_GROUP`` query heads a kv head, a head dim
+    of ``TC_HEAD_DIMS``, and cache rows ``cp.async`` can copy 16 bytes at a
+    time (16-byte-aligned pointers, strides of whole 16-byte chunks)."""
+    rep = q.shape[1] // k_cache.shape[2]
+    chunk = 16 // k_cache.element_size()
+    return (q.dtype == torch.bfloat16
+            and TC_MIN_GROUP <= rep <= MAX_GROUP
+            and q.shape[2] in TC_HEAD_DIMS
+            and all(t.data_ptr() % 16 == 0
+                    and all(st % chunk == 0 for st in t.stride()[:3])
+                    for t in (k_cache, v_cache)))
 
 
 def decode_attention(q, k_cache, v_cache, kv_len, *, kv_start=None,
@@ -143,7 +182,9 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, kv_start=None,
         return (out, lse) if return_lse else out
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    chunk = chunk_rows(b, s_max, hkv)
+    tc = takes_tensor_cores(q, k_cache, v_cache)
+    chunk = (chunk_rows_tc(b, s_max, hkv, d) if tc
+             else chunk_rows(b, s_max, hkv))
     # per (sequence, kv head, chunk, query head): max, sum, accumulator
     part = torch.empty((b * -(-s_max // chunk) * hq * (d + 2),),
                        dtype=torch.float32, device=q.device)
@@ -151,7 +192,7 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, kv_start=None,
         *q.stride()[:2], *k_cache.stride()[:3], *v_cache.stride()[:3],
         *out.stride()[:2])
     with torch.cuda.device(q.device):
-        err = _entry(entry)(
+        err = _entry(entry + "_tc" if tc else entry)(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             kv_len.data_ptr(),
             kv_start.data_ptr() if kv_start is not None else None,
@@ -169,6 +210,8 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, kv_start=None,
         decode_attention.fp8_launches += 1
     if k_cache.dtype != q.dtype and k_cache.dtype not in FP8:
         decode_attention.mixed_launches += 1
+    if tc:
+        decode_attention.tc_launches += 1
     return (out, lse) if return_lse else out
 
 
@@ -176,6 +219,7 @@ decode_attention.launches = 0
 decode_attention.window_launches = 0
 decode_attention.fp8_launches = 0
 decode_attention.mixed_launches = 0
+decode_attention.tc_launches = 0
 
 
 @torch.library.custom_op(

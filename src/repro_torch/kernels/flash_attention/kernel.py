@@ -8,11 +8,13 @@ tensor; CPU tensors take the plain version in ``ref.py``, and nothing else
 does.
 
 It has two bodies, chosen from the inputs (:func:`takes_hopper_body`):
-bfloat16 with head dim 64 or 128 on rows TMA can address runs the Hopper
-body (TMA loads, ``wgmma`` products, kv tiles of ``KV_ROWS`` rows, blocks
-of :func:`block_rows` query rows); everything else runs the CUDA-core
-body, gemma_2b's head dim 256 among them (the Hopper body at 256 is a
-later redesign). ``flash_attention.launches`` counts every launch,
+bfloat16 with head dim 64, 128 or 256 on rows TMA can address runs the
+Hopper body (TMA loads, ``wgmma`` products; at head dims 64 and 128 kv
+tiles of ``KV_ROWS`` rows and blocks of :func:`block_rows` query rows, at
+gemma_2b's 256 kv tiles of ``KV_ROWS_D256`` rows and blocks of
+``BLOCK_ROWS_D256``); float32 at any head dim, and bfloat16 at other
+head dims or on rows TMA cannot address, run the CUDA-core body.
+``flash_attention.launches`` counts every launch,
 ``flash_attention.hopper_launches`` and ``flash_attention.cuda_core_launches``
 each body's, ``flash_attention.lse_launches`` those that also wrote the
 rows' log-sum-exp (``return_lse=True``, the training path's forward),
@@ -43,13 +45,20 @@ from . import ref
 #: head dims the kernel takes (multiples of 8 up to this), and those of
 #: the Hopper body
 MAX_HEAD_DIM = 256
-HOPPER_HEAD_DIMS = (64, 128)
+HOPPER_HEAD_DIMS = (64, 128, 256)
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
 #: the query rows a block of the Hopper body is compiled for (64 per
 #: consumer warpgroup), and its kv rows a pipeline stage
 BLOCK_ROWS = (64, 128)
 KV_ROWS = 128
+#: the Hopper body at head dim 256: its kv rows a pipeline stage (a stage
+#: of 128 rows of K and V would be 128 KB) and its query rows a block, one
+#: consumer warpgroup with a 64 x 256 float32 accumulator (198 registers a
+#: thread; two warpgroups a block would get 168 and spilled, and ran
+#: slower at gemma_2b's heads at every S tried: PERF.md)
+KV_ROWS_D256 = 64
+BLOCK_ROWS_D256 = 64
 #: the card's SMs
 SMS = 132
 
@@ -73,7 +82,7 @@ def _strides(t):
 
 def takes_hopper_body(q, k, v) -> bool:
     """Whether these inputs (already validated by the wrapper) run the
-    Hopper body: bfloat16, head dim 64 or 128, 16-byte-aligned pointers
+    Hopper body: bfloat16, head dim 64, 128 or 256, 16-byte-aligned pointers
     and strides that are multiples of 8 elements (what TMA addresses)."""
     return (q.dtype == torch.bfloat16
             and q.shape[3] in HOPPER_HEAD_DIMS
@@ -145,8 +154,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                 lse.data_ptr() if return_lse else None, strides, b, s, hq,
                 hkv, d, float(sm_scale), int(bool(causal)), window)
         if hopper:
-            err = _entry("flash_attention_bf16_hopper")(
-                *args, block_rows(b, s, hq), stream)
+            bq = BLOCK_ROWS_D256 if d == 256 else block_rows(b, s, hq)
+            err = _entry("flash_attention_bf16_hopper")(*args, bq, stream)
         else:
             err = _entry(_ENTRY[q.dtype])(*args, stream)
     if err:

@@ -1333,15 +1333,18 @@ def test_lexmm_churn_vds_on_card_matches_plain(cuda, monkeypatch):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_head_dim_256_takes_the_cuda_core_body(cuda, dtype):
-    # gemma_2b's 8 query heads on one kv head at head dim 256: the
-    # CUDA-core body (the Hopper body takes 64 and 128), causal, ragged S
+    # gemma_2b's 8 query heads on one kv head at head dim 256, causal,
+    # ragged S: float32 takes the CUDA-core body, bfloat16 the Hopper body
+    # (64-row kv stages)
     q = _randn((1, 333, 8, 256), dtype, cuda, 31)
     k = _randn((1, 333, 1, 256), dtype, cuda, 32)
     v = _randn((1, 333, 1, 256), dtype, cuda, 33)
     before = _flash_counts()
     got = flash_kernel.flash_attention(q, k, v)
     torch.cuda.synchronize()
-    assert _flash_counts() == (before[0] + 1, before[1], before[2] + 1)
+    hopper = dtype == torch.bfloat16
+    assert _flash_counts() == (before[0] + 1, before[1] + hopper,
+                               before[2] + (not hopper))
     want = flash_ref.flash_attention(q.float(), k.float(), v.float())
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
@@ -1365,7 +1368,9 @@ def test_attention_kernels_reject_past_their_limits(cuda):
 
 def test_gemma_prefill_takes_the_cuda_core_body(cuda):
     # one full-width gemma_2b layer in bf16: its prefill's flash launch
-    # runs the CUDA-core body, its decode step the decode kernel
+    # runs the Hopper body at head dim 256 (no longer the CUDA-core body),
+    # its decode step the decode kernel's tensor-core body (8 query heads
+    # on one kv head)
     from repro_torch.configs import get_config
     from repro_torch.models import model as tmodel
     cfg = get_config("gemma_2b", num_layers=1)
@@ -1374,9 +1379,15 @@ def test_gemma_prefill_takes_the_cuda_core_body(cuda):
     logits, caches = tmodel.forward_prefill(cfg, params, [[3] * 70],
                                             device=cuda)
     torch.cuda.synchronize()
-    assert _flash_counts() == (before[0] + 1, before[1], before[2] + 1)
+    assert _flash_counts() == (before[0] + 1, before[1] + 1, before[2])
     assert caches[0]["k"].shape == (1, 70, 1, 256)
     assert bool(torch.isfinite(logits).all())
+    tc = decode_kernel.decode_attention.tc_launches
+    step, _ = tmodel.forward_decode(cfg, params, tmodel.init_caches(
+        cfg, 2, 80, device=cuda), [1, 2], 70, device=cuda)
+    torch.cuda.synchronize()
+    assert decode_kernel.decode_attention.tc_launches == tc + 1
+    assert bool(torch.isfinite(step).all())
 
 
 @pytest.mark.parametrize("arch", ["qwen2_5_32b", "granite_3_8b", "gemma_2b",
@@ -1818,3 +1829,130 @@ def test_split_dtype_serving_engine_on_card_matches_cpu(cuda):
             steps = cfg.num_layers * eng._steps
             assert launched == (prefills, prefills, steps, steps)
     assert out["cuda"] == out["cpu"]
+
+
+# -- head dim 256 on the Hopper flash body, grouped decode on the tensor
+# cores ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 333, 1000])
+@pytest.mark.parametrize("hq,hkv", [(8, 1), (2, 1), (4, 4)])
+def test_flash_d256_hopper_body_matches_plain(cuda, s, hq, hkv):
+    # gemma_2b's 8:1 group, 2:1 and MHA at head dim 256, at the 64-row kv
+    # stages' and the block's edges and ragged; causal or not, with and
+    # without the lse; each call on the Hopper body
+    q = _randn((1, s, hq, 256), torch.bfloat16, cuda, s + hq)
+    k = _randn((1, s, hkv, 256), torch.bfloat16, cuda, s + hq + 1)
+    v = _randn((1, s, hkv, 256), torch.bfloat16, cuda, s + hq + 2)
+    for causal in (True, False):
+        want, want_lse = flash_ref.flash_attention(
+            q.float(), k.float(), v.float(), causal=causal, return_lse=True)
+        for lse in (False, True):
+            before = _lse_counts()
+            got = flash_kernel.flash_attention(q, k, v, causal=causal,
+                                               return_lse=lse)
+            torch.cuda.synchronize()
+            assert _lse_counts() == (before[0] + 1, before[1] + 1,
+                                     before[2], before[3] + lse)
+            out = got[0] if lse else got
+            torch.testing.assert_close(out.float(), want, rtol=2e-2,
+                                       atol=2e-2)
+            if lse:
+                torch.testing.assert_close(got[1], want_lse, rtol=0,
+                                           atol=1e-3)
+
+
+@pytest.mark.parametrize("window", [1, 40, 64, 256, 700])
+def test_flash_d256_hopper_body_window_and_layout(cuda, window):
+    # two sequences of 1,000 rows as views of one fused (B, S, Hq + 2 Hkv,
+    # D) projection at gemma_2b's heads, windows of one key, inside a
+    # stage, one stage, four and past S: the Hopper body, each call counted
+    # as windowed
+    qkv = _randn((2, 1000, 8 + 2, 256), torch.bfloat16, cuda, window)
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:9], qkv[:, :, 9:]
+    want, want_lse = flash_ref.flash_attention(
+        q.float(), k.float(), v.float(), window=window, return_lse=True)
+    before = _window_counts()
+    got, lse = flash_kernel.flash_attention(q, k, v, window=window,
+                                            return_lse=True)
+    torch.cuda.synchronize()
+    assert _window_counts() == (before[0] + 1, before[1] + 1, before[2],
+                                before[3] + 1)
+    torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-3)
+
+
+def _tc_counts():
+    da = decode_kernel.decode_attention
+    return da.launches, da.tc_launches, da.fp8_launches, da.window_launches
+
+
+@pytest.mark.parametrize("hq,hkv,d", [(16, 8, 128), (24, 8, 64),
+                                      (40, 8, 128), (48, 8, 128),
+                                      (64, 8, 128), (8, 1, 256),
+                                      (16, 1, 64), (32, 2, 256)])
+@pytest.mark.parametrize("cache", [None, *FP8_CACHES])
+@pytest.mark.parametrize("n_chunks", [1, 4])
+def test_decode_tc_body_matches_plain(cuda, monkeypatch, hq, hkv, d, cache,
+                                      n_chunks):
+    # groups of 2, 3, 5, 6, 8 (qwen3_1_7b's, granite_moe's, qwen2_5_32b's,
+    # grok's, qwen2_vl_72b's and gemma's widths) and 16, over bf16 and
+    # float8 caches; lengths 0, 1, a warp
+    # step's and a chunk's edges, the whole cache and past it; with and
+    # without first rows (0, inside a step, on a chunk's edge, equal to the
+    # length); 1 and 4 chunks a sequence; out and lse against the plain
+    # version on the same bytes; every call on the tensor-core body
+    b, s_max = 8, 512
+    chunk = s_max // n_chunks
+    monkeypatch.setattr(decode_kernel, "chunk_rows", lambda *a: chunk)
+    q = _randn((b, hq, d), torch.bfloat16, cuda, 50)
+    kc = _randn((b, s_max, hkv, d), torch.bfloat16, cuda, 51)
+    vc = _randn((b, s_max, hkv, d), torch.bfloat16, cuda, 52)
+    if cache is not None:
+        kc, vc = kc.to(cache), vc.to(cache)
+    lens = torch.tensor([0, 1, 16, chunk, chunk + 1, 333, 512, 600],
+                        dtype=torch.int32, device=cuda)
+    starts = torch.tensor([0, 0, 5, chunk - 1, chunk, 40, 17, 0],
+                          dtype=torch.int32, device=cuda)
+    for first in (None, starts):
+        before = _tc_counts()
+        got, lse = decode_kernel.decode_attention(q, kc, vc, lens,
+                                                  kv_start=first,
+                                                  return_lse=True)
+        torch.cuda.synchronize()
+        assert _tc_counts() == (before[0] + 1, before[1] + 1,
+                                before[2] + (cache is not None),
+                                before[3] + (first is not None))
+        want, want_lse = decode_ref.decode_attention(
+            q.float(), kc.float(), vc.float(), lens, kv_start=first,
+            return_lse=True)
+        torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+        torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-3)
+        empty = (lens <= 0) if first is None else (first >= lens)
+        assert not got[empty].any() and torch.isneginf(lse[empty]).all()
+
+
+@pytest.mark.parametrize("case", ["group_1", "float32", "head_dim_96",
+                                  "unaligned", "strided"])
+def test_decode_tc_body_is_chosen_by_input(cuda, case):
+    # groups of 1, a float32 q, head dim 96 and cache rows off 16 bytes
+    # take the CUDA-core body; a bf16 group of 5 on a strided cache view
+    # whose rows stay 16-byte chunks the tensor-core body; each held
+    # against the plain version
+    hq, d, dtype = (2 if case == "group_1" else 10,
+                    96 if case == "head_dim_96" else 128,
+                    torch.float32 if case == "float32" else torch.bfloat16)
+    buf = _randn((2, 300, 3, d + 8), dtype, cuda, 60)
+    lo = 4 if case == "unaligned" else 0
+    hi = 3 if case == "strided" else 2
+    kc, vc = buf[:, :, hi - 2:hi, lo:lo + d], buf[:, :, 1:3, lo:lo + d]
+    q = _randn((2, hq, d), dtype, cuda, 61)
+    lens = torch.tensor([300, 77], dtype=torch.int32, device=cuda)
+    before = _tc_counts()
+    got = decode_kernel.decode_attention(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    tc = case == "strided"
+    assert _tc_counts()[:2] == (before[0] + 1, before[1] + tc)
+    want = decode_ref.decode_attention(q.float(), kc.float(), vc.float(),
+                                       lens)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
