@@ -2,7 +2,7 @@
 """Times the attention kernels at the grouped and head-dim-256 widths, and
 the two serving paths they carry, on one GPU.
 
-    python3 attn_walls.py [--out FILE]
+    python3 attn_walls.py [--float32] [--out FILE]
 
 Builds the port's kernels, then runs chip_smoke.py's phases for them:
 ``flash_attention`` at gemma_2b's 8/1 x 256 (S 1,024, 1,000, 512, 128),
@@ -15,13 +15,24 @@ against its plain version and timed in turns with SDPA. Then serves
 full-width gemma_2b (16 requests of 32 new tokens) and qwen2_5_32b (8 of
 16) with a profiled window each. Prints one JSON line of the kernels'
 rows and the serving paths' prefill ms a request, decode ms a step and
-idle share, and writes everything to ``--out`` (JSON). To compare two
-trees on one card, copy this file into each and run them in one call, in
-turns. Exits non-zero without a CUDA device or if a phase fails.
+idle share, and writes everything to ``--out`` (JSON).
+
+With ``--float32`` it times the float32 bodies instead: flash in float32
+at qwen3_1_7b's 16/8 x 128 (causal at S 1,024 / 1,000 / 512 / 128 in
+turns with SDPA and with the CUDA-core body, where the tree's
+chip_smoke.py ``flash_vs_plain`` takes a ``label``), the lse call at S
+2,048 (qwen3_1_7b's and gemma_2b's widths), the 256-token window at S 1,024 (in turns with the
+causal call), ``ssd_scan`` at mamba2_1_3b's and jamba_v0_1_52b's widths in
+float32 (and bfloat16), then qwen3_1_7b served with float32 params over
+bfloat16 activations (a profiled window) and one training step in that
+split. To compare two trees on one card, copy this file into each and run
+them in one call, in turns (parent, change, change, parent). Exits non-zero
+without a CUDA device or if a phase fails.
 """
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import sys
 from pathlib import Path
@@ -39,6 +50,9 @@ DECODE_ARCHS = ("qwen2_5_32b", "grok_1_314b", "qwen2_vl_72b", "gemma_2b",
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", type=Path, default=None)
+    parser.add_argument("--float32", action="store_true",
+                        help="time the float32 bodies and the float32-"
+                             "params path instead")
     args = parser.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -50,6 +64,13 @@ def main(argv=None) -> int:
     smoke = chip_smoke.Smoke(False)
     smoke.phase("card", smoke.card)
     smoke.phase("build", smoke.build)
+    phases = float32_phases if args.float32 else grouped_phases
+    return finish(smoke, phases(smoke, chip_smoke), args.out)
+
+
+def grouped_phases(smoke, chip_smoke):
+    """The grouped and head-dim-256 phases (the module's docstring); returns
+    the paths to report."""
     smoke.phase("flash_attention vs plain, gemma_2b",
                 lambda: smoke.flash_vs_plain("gemma_2b"))
     smoke.phase("flash_attention lse vs plain", smoke.flash_lse_vs_plain)
@@ -60,7 +81,7 @@ def main(argv=None) -> int:
                     lambda a=arch: smoke.decode_vs_plain(a))
     smoke.phase("decode_attention vs plain, float8 cache and window",
                 smoke.decode_fp8_vs_plain)
-    serving = {}
+    paths = []
     for arch, layers, requests, new_tokens in SERVED:
         path = f"serving_{arch}"
         smoke.phase(f"serving path, {arch}",
@@ -69,25 +90,65 @@ def main(argv=None) -> int:
         smoke.phase(f"serving profile, {arch}",
                     lambda p=path: smoke.serving_profile(
                         p, *chip_smoke.DENSE_PROFILE_WINDOW))
+        paths.append(path)
+    return paths
+
+
+def float32_phases(smoke, chip_smoke):
+    """The ``--float32`` phases (the module's docstring); returns the paths
+    to report."""
+    if "label" in inspect.signature(smoke.flash_vs_plain).parameters:
+        smoke.phase("flash_attention vs plain, float32",
+                    lambda: smoke.flash_vs_plain(label="float32"))
+    smoke.phase("flash_attention lse vs plain", smoke.flash_lse_vs_plain)
+    smoke.phase("flash_attention vs plain, sliding window",
+                smoke.flash_window_vs_plain)
+    smoke.phase("ssd_scan vs plain", smoke.ssd_vs_plain)
+    smoke.phase("ssd_scan vs plain, jamba_v0_1_52b",
+                lambda: smoke.ssd_vs_plain("jamba_v0_1_52b"))
+    path = "serving_split"
+    smoke.phase("serving path, float32 params over bfloat16 activations",
+                lambda: smoke.serving(path=path,
+                                      opts=chip_smoke.SPLIT_DTYPES))
+    smoke.phase(f"serving profile, {path}",
+                lambda: smoke.serving_profile(path))
+    smoke.phase("training step, float32 params over bfloat16 activations",
+                smoke.train_step_split)
+    return [path, "train_step_split"]
+
+
+#: the keys of a kernel row the JSON keeps
+ROW_KEYS = ("ms", "turns_ms", "library_ms", "library_turns_ms", "plain_ms",
+            "bound_ms", "bound_by", "max_abs_err", "lse_max_abs_err", "body",
+            "shape", "causal_turns_ms", "cuda_core_turns_ms",
+            "cuda_core_max_abs_err")
+#: the keys of a path, and of its profile, the JSON keeps
+PATH_KEYS = ("prefill_ms_per_request", "decode_step_ms", "wall_s",
+             "decode_tc_launches", "flash_bodies")
+PROFILE_KEYS = ("idle_share", "busy_ms", "wall_ms", "flash_attention",
+                "decode_attention")
+
+
+def finish(smoke, paths, out):
+    """Prints one JSON line of the kernels' rows and ``paths``' metrics,
+    writes everything to ``out``, prints the card's line; non-zero if a
+    phase failed."""
+    rows = {f"{name}:{key}": {k: row.get(k) for k in ROW_KEYS}
+            for (name, key), row in smoke.rows.items()}
+    serving = {}
+    for path in paths:
         got = smoke.paths.get(path, {})
         prof = got.get("profile", {})
-        serving[arch] = dict(
-            {key: got.get(key) for key in (
-                "prefill_ms_per_request", "decode_step_ms", "wall_s",
-                "decode_tc_launches", "flash_bodies")},
-            **{f"profile_{key}": prof.get(key) for key in (
-                "idle_share", "busy_ms", "wall_ms", "flash_attention",
-                "decode_attention")})
-    rows = {f"{name}:{key}": {k: row.get(k) for k in (
-        "ms", "turns_ms", "library_ms", "library_turns_ms", "plain_ms",
-        "bound_ms", "max_abs_err", "body", "shape")}
-        for (name, key), row in smoke.rows.items()}
-    result = dict(tree=str(ROOT), card=smoke.smi, failed=smoke.failed,
-                  rows=rows, serving=serving)
-    print(json.dumps(dict(tree=str(ROOT), serving=serving)), flush=True)
-    if args.out:
-        args.out.write_text(json.dumps(dict(result, paths=smoke.paths),
-                                       default=str, indent=1))
+        serving[path] = dict(
+            {key: got.get(key) for key in PATH_KEYS},
+            **{f"profile_{key}": prof.get(key) for key in PROFILE_KEYS})
+    print(json.dumps(dict(tree=str(ROOT), rows=rows, serving=serving)),
+          flush=True)
+    if out:
+        out.write_text(json.dumps(dict(tree=str(ROOT), card=smoke.smi,
+                                       failed=smoke.failed, rows=rows,
+                                       serving=serving, paths=smoke.paths),
+                                  default=str, indent=1))
     print(smoke.smi)
     return 1 if smoke.failed else 0
 

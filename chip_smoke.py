@@ -144,6 +144,13 @@ Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
    with the CUDA-core body it replaced, S 128 to 2,048; and the decode
    kernel's tensor-core body at chunks of 64 to 2,048 rows at gemma_2b's
    and qwen2_5_32b's widths beside the chunk its wrapper picks;
+15a. holds ``flash_attention`` in float32 (qwen3_1_7b's 16/8 x 128,
+   causal, S 1,024, a ragged 1,000, 512 and 128) against its plain version
+   at 2e-5, every call on the float32 tensor-core body (split TF32), and
+   times it in turns with SDPA in float32 and in turns with the CUDA-core
+   body (the wrapper's choice patched; that body is held against the same
+   plain at 2e-5 first), beside the bound at the float32-accurate
+   tensor-core rate (495 / 3 TFLOP/s);
 16. drives the serving path with every launch count set to 0: a
    ``ServingEngine`` on the full qwen3_1_7b config in bfloat16 (params from
    the port's seeded init on the card), 8 slots of 2,048 rows, 16 requests
@@ -219,8 +226,8 @@ Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
 24a. holds ``flash_attention`` with a sliding window against its plain
    version: on the Hopper body (bf16) qwen3_1_7b's 16/8 x 128 at S 1,024,
    W 256, Mistral-7B-v0.1's 32/8 x 128 at S 8,192, W 4,096 and gemma_2b's
-   8/1 x 256; on the CUDA-core body qwen3's widths in float32; the lse
-   call at S 2,048; each timed in turns with SDPA given the boolean
+   8/1 x 256; on the float32 tensor-core body qwen3's widths in float32;
+   the lse call at S 2,048; each timed in turns with SDPA given the boolean
    window mask and with the kernel without the window, beside the bound
    over the windowed pairs;
 24b. holds ``decode_attention`` over e4m3 and e5m2 caches, without and
@@ -245,15 +252,17 @@ Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
 24e. drives the serving path the same way, counts set to 0 again, on
    full-width qwen3_1_7b with float32 params over bfloat16 activations
    (every decode launch on the mixed entry, every prefill on flash's
-   float32 CUDA-core body), profiles a window, and holds a 2-layer model
+   float32 tensor-core body), profiles a window, and holds a 2-layer model
    of that config with the kernels against the plain versions (2^-5 x
    max|logit|);
 25. holds the flash kernel's log-sum-exp output (``return_lse=True``, the
    training path's forward) against its plain version at qwen3_1_7b's 16/8
    x 128 and gemma_2b's 8/1 x 256, S 2,048, in bfloat16 and float32 (out
    to the kernel bound of step 15, lse to 1e-3 absolute in bfloat16 and
-   1e-5 in float32), and times the lse call in turns with the serving call
-   (no lse) at qwen3's S 1,024;
+   1e-5 in float32), the float32 calls on the float32 tensor-core body,
+   the CUDA-core body held against the same plain at the same bounds and
+   timed in turns with it, and times the lse call in
+   turns with the serving call (no lse) at qwen3's S 1,024;
 26. runs one training step's forward and backward of a 2-layer full-width
    qwen3_1_7b and mamba2_1_3b in float32 (B 2, S 2,048; attention through
    ``_FlashTrain``, the SSD through ``_SsdTrain``), then again with the
@@ -280,7 +289,7 @@ Builds the port's Hopper kernels from ``src/repro_torch/kernels/csrc`` (one
    body; its loss and wall;
 27b. one full-width qwen3_1_7b step with float32 params over bfloat16
    activations (step 27's shapes, float32 moments): 112 flash launches on
-   the float32 CUDA-core body with lse; its wall, tokens/s and peak device
+   the float32 tensor-core body with lse; its wall, tokens/s and peak device
    memory; then step 26's 2-layer check in that config (every gradient
    float32, 1e-4 x max|.|);
 27c. step 27's bfloat16 step under ``remat`` "full", "dots" (a selective
@@ -376,6 +385,16 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 #: dense bfloat16 tensor-core rate of the same data sheet, the attention
 #: kernels' operations bound (the work they do, whatever units do it)
 PEAK_BF16_FLOPS = 989e12
+#: the float32-accurate rate of the tensor cores in TF32: dense TF32 (495
+#: TFLOP/s, the same data sheet) over the three TF32 products that stand
+#: for one float32 product (hi·hi + hi·lo + lo·hi). The bound of float32
+#: flash, whose kernel takes its products so; at the CUDA cores' 67 a right
+#: kernel would read faster than its bound
+PEAK_F32_TC_FLOPS = 495e12 / 3
+#: the float32-accurate rate of ssd_scan's float32 entry: its operands are
+#: split into bfloat16 hi/lo terms and each product is three bfloat16
+#: products, so dense bfloat16 over three
+PEAK_F32_SPLIT_BF16_FLOPS = PEAK_BF16_FLOPS / 3
 
 F64_ATOL = 1e-9            # float64 parity bound (tests/test_torch_*.py)
 F32_REL = 5e-6             # float32 bound, times max(1, |plain|)
@@ -472,8 +491,21 @@ DENSE_SERVING = (("gemma_2b", None, 16, 32), ("granite_3_8b", None, 16, 32),
 DENSE_PROFILE_WINDOW = (4, 4)
 
 
-#: per-body launch counts beside ``.launches`` (flash_attention's two)
-BODY_COUNTS = ("hopper_launches", "cuda_core_launches", "lse_launches")
+#: per-body launch counts beside ``.launches`` (flash_attention's three)
+#: and its lse launches
+BODY_COUNTS = ("hopper_launches", "tf32_launches", "cuda_core_launches",
+               "lse_launches")
+#: the CUDA kernels behind the flash and ssd_scan wrappers, named in the
+#: ``kernels`` line: flash's three bodies by their counters' names, and the
+#: three kernels of ssd_scan's one body, which takes both dtypes
+KERNEL_BODIES = {
+    "flash_attention": {
+        "hopper": "flash_wgmma_kernel: bfloat16, TMA + wgmma",
+        "tf32": "flash_tf32_kernel: float32, split TF32 on mma.sync",
+        "cuda_core": "flash_kernel: other head dims and rows, CUDA cores"},
+    "ssd_scan": {
+        "chunked": "ssd_chunk_kernel, ssd_state_kernel, ssd_output_kernel: "
+                   "bfloat16 and float32 (hi/lo bfloat16 splits), mma.sync"}}
 #: decode_attention's count of its tensor-core body's launches
 DECODE_BODY_COUNTS = ("tc_launches",)
 #: the attention wrappers' counts of their windowed and float8 launches
@@ -2693,14 +2725,47 @@ class Smoke:
         return [torch.randn(s, generator=g, device=self.device).to(dtype)
                 for s in shapes]
 
-    def compare_attn(self, got, plain32, what):
-        """max |kernel - plain| against 2^-8 x max(1, max|plain|)."""
+    def compare_attn(self, got, plain32, what, rel=ATTN_REL):
+        """max |kernel - plain| against ``rel`` x max(1, max|plain|)
+        (2^-8 for bfloat16 inputs)."""
         err = float((got.float() - plain32).abs().max())
-        bound = ATTN_REL * max(1.0, float(plain32.abs().max()))
+        bound = rel * max(1.0, float(plain32.abs().max()))
         print(f"  {what}: max|kernel-plain f32|={err:.3e} (bound "
               f"{bound:.3e})")
         self.check(err <= bound, f"{what} disagrees with plain")
         return err
+
+    def flash_cuda_core(self, call, plain, what, plain_lse=None):
+        """``call`` (a float32 flash call the float32 tensor-core body
+        takes) on the CUDA-core body it replaced, the wrapper's
+        ``takes_tf32_body`` patched to refuse: run once, held against
+        ``plain`` at ``ATTN_F32_REL`` (and against ``plain_lse`` at
+        ``LSE_ATOL["float32"]`` where given), with exactly one launch on
+        ``cuda_core_launches``. Returns the patched call, for timing, and
+        its max |kernel - plain|."""
+        from repro_torch.kernels.flash_attention import kernel
+
+        def cuda_core():
+            with mock.patch.object(kernel, "takes_tf32_body",
+                                   lambda *a: False):
+                return call()
+        before = kernel.flash_attention.cuda_core_launches
+        got = cuda_core()
+        self.sync()
+        if not self.rehearse:
+            self.check(kernel.flash_attention.cuda_core_launches
+                       == before + 1, f"{what}: the CUDA-core call missed "
+                                      f"its body")
+        out, lse = got if plain_lse is not None else (got, None)
+        err = self.compare_attn(out, plain, f"{what}, cuda_core body",
+                                ATTN_F32_REL)
+        if lse is not None:
+            lse_err = float((lse - plain_lse).abs().max())
+            print(f"  {what}, cuda_core body: lse {lse_err:.3e} (bound "
+                  f"{LSE_ATOL['float32']:.0e})")
+            self.check(lse_err <= LSE_ATOL["float32"],
+                       f"{what}, cuda_core body: lse disagrees with plain")
+        return cuda_core, err
 
     @staticmethod
     def row_key(key, arch):
@@ -2710,69 +2775,98 @@ class Smoke:
         return key if arch in ("qwen3_1_7b", "mamba2_1_3b") else \
             f"{key}@{arch}"
 
-    def flash_vs_plain(self, arch="qwen3_1_7b"):
-        """At ``arch``'s attention widths, S 1,024, a ragged 1,000, 512 (the
-        profiled window's prompts) and 128 (the shortest prompt): each held
-        against the plain version and timed in turns with SDPA; each call
-        must take the Hopper body (head dims 64, 128 and gemma_2b's 256)."""
+    def flash_vs_plain(self, arch="qwen3_1_7b", label="bfloat16"):
+        """At ``arch``'s attention widths in ``label``'s dtype, S 1,024, a
+        ragged 1,000, 512 (the profiled window's prompts) and 128 (the
+        shortest prompt): each held against the plain version and timed in
+        turns with SDPA in that dtype; each call must take its body. In
+        bfloat16 that is the Hopper body (head dims 64, 128 and gemma_2b's
+        256), bound at ``PEAK_BF16_FLOPS``, held at ``ATTN_REL``. In
+        float32 it is the float32 tensor-core body (split TF32), held at
+        ``ATTN_F32_REL``; the CUDA-core body it replaced is held against
+        the same plain and timed in turns with it, and no time may beat
+        the bound at ``PEAK_F32_TC_FLOPS``."""
         torch = self.torch
         import torch.nn.functional as F
         from repro_torch.kernels.flash_attention import kernel, ref
         cfg = self.llm_config(arch=arch)
         hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        dtype = torch.bfloat16
+        f32 = label == "float32"
+        dtype, el, rel, peak = (
+            (torch.float32, 4, ATTN_F32_REL, PEAK_F32_TC_FLOPS) if f32
+            else (torch.bfloat16, 2, ATTN_REL, PEAK_BF16_FLOPS))
         lengths = (128, 100, 64, 32) if self.rehearse else (1024, 1000, 512,
                                                              128)
-        keys = [self.row_key(key, arch) for key in (
-            "bfloat16", "bfloat16_ragged", "bfloat16_s512", "bfloat16_s128")]
+        keys = [self.row_key(f"{label}{key}", arch)
+                for key in ("", "_ragged", "_s512", "_s128")]
+        fa = kernel.flash_attention
+        body = self.flash_body_of(label, d)
         for key, s in zip(keys, lengths):
             q, k, v = self.attn_inputs([(1, s, hq, d), (1, s, hkv, d),
                                         (1, s, hkv, d)], dtype, seed=s)
-            body = self.flash_body(cfg)
-            before = getattr(kernel.flash_attention, body)
-            got = kernel.flash_attention(q, k, v)
+            before = getattr(fa, body)
+            got = fa(q, k, v)
             plain32 = ref.flash_attention(q.float(), k.float(), v.float())
             self.sync()
-            err = self.compare_attn(got, plain32, f"flash S={s}")
             if not self.rehearse:
-                self.check(getattr(kernel.flash_attention, body)
-                           == before + 1, f"flash S={s} missed its body, "
-                                          f"{body}")
+                self.check(getattr(fa, body) == before + 1,
+                           f"flash {label} S={s} missed its body, {body}")
+            err = self.compare_attn(got, plain32, f"flash {label} S={s}",
+                                    rel)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
             def sdpa():
                 return F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True, enable_gqa=True)
-            ks, ls = self.interleaved(
-                lambda: kernel.flash_attention(q, k, v), sdpa, 20)
+            ks, ls = self.interleaved(lambda: fa(q, k, v), sdpa, 20)
             ms, library_ms = sum(ks) / 2, sum(ls) / 2
-            eager_ms = self.time_ms(lambda: kernel.flash_attention(q, k, v),
-                                    20)
+            eager_ms = self.time_ms(lambda: fa(q, k, v), 20)
             library_eager_ms = self.time_ms(sdpa, 20)
             plain_ms = self.time_ms(lambda: ref.flash_attention(q, k, v), 5)
-            nbytes = (2 * hq + 2 * hkv) * s * d * 2
+            extra = {}
+            if f32:
+                # in turns with the CUDA-core body it replaced
+                cuda_core, cc_err = self.flash_cuda_core(
+                    lambda: fa(q, k, v), plain32, f"flash {label} S={s}")
+                ks2, cs = self.interleaved(lambda: fa(q, k, v), cuda_core,
+                                           20)
+                ks = ks + ks2
+                extra = dict(library_computes="SDPA in float32",
+                             cuda_core_ms=sum(cs) / 2, cuda_core_turns_ms=cs,
+                             cuda_core_max_abs_err=cc_err)
+            nbytes = (2 * hq + 2 * hkv) * s * d * el
             flops = 4 * hq * d * s * (s + 1) // 2
             t_bytes = nbytes / PEAK_BYTES_PER_S
-            t_ops = flops / PEAK_BF16_FLOPS
+            t_ops = flops / peak
             bound_ms = max(t_bytes, t_ops) * 1e3
             bound_by = "bytes" if t_bytes > t_ops else "operations"
-            bq = (kernel.BLOCK_ROWS_D256 if d == 256
+            bq = (kernel.TF32_BLOCK_ROWS if body == "tf32_launches"
+                  else kernel.BLOCK_ROWS_D256 if d == 256
                   else kernel.block_rows(1, s, hq)
                   if body == "hopper_launches" else 64)
-            print(f"  flash (1, {s}, {hq}/{hkv}, {d}) bf16 causal, "
-                  f"{body[:-9]} body, blocks "
-                  f"of {bq} rows, kernel and SDPA in turns: kernel {ks[0]:.4f}, "
-                  f"{ks[1]:.4f} ms, SDPA {ls[0]:.4f}, {ls[1]:.4f} ms (back "
-                  f"to back: kernel {eager_ms:.4f}, SDPA "
+            print(f"  flash (1, {s}, {hq}/{hkv}, {d}) {label} causal, "
+                  f"{body[:-9]} body, blocks of {bq} rows, kernel and SDPA "
+                  f"in turns: kernel {ks[0]:.4f}, {ks[1]:.4f} ms, SDPA "
+                  f"{ls[0]:.4f}, {ls[1]:.4f} ms"
+                  + (f"; kernel {ks[2]:.4f}, {ks[3]:.4f} ms, CUDA-core body "
+                     f"{extra['cuda_core_turns_ms'][0]:.4f}, "
+                     f"{extra['cuda_core_turns_ms'][1]:.4f} ms" if f32
+                     else "")
+                  + f" (back to back: kernel {eager_ms:.4f}, SDPA "
                   f"{library_eager_ms:.4f} ms), plain {plain_ms:.4f} ms, "
                   f"bound {bound_ms:.5f} ms ({nbytes / 1e6:.2f} MB, "
-                  f"{flops / 1e9:.3f} GFLOP: bound by {bound_by})")
+                  f"{flops / 1e9:.3f} GFLOP at {peak / 1e12:.0f} TFLOP/s: "
+                  f"bound by {bound_by})")
+            if f32:
+                self.check(self.rehearse or min(ks + [eager_ms]) >= bound_ms,
+                           f"flash {label} S={s}: a measured time under its "
+                           f"bound")
             self.rows[("flash_attention", key)] = dict(
                 ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
                 library_ms=library_ms, library_eager_ms=library_eager_ms,
                 turns_ms=ks, library_turns_ms=ls, block_rows=bq,
-                body=body[:-9], shape=f"1x{s}x{hq}/{hkv}x{d}")
+                body=body[:-9], shape=f"1x{s}x{hq}/{hkv}x{d}", **extra)
 
     @staticmethod
     def decode_takes_tc(cfg):
@@ -2794,13 +2888,23 @@ class Smoke:
         """The flash body ``cfg``'s prefills take: its counter's name on the
         wrapper. q, k and v come out of the projections in the params' dtype
         promoted with the activations': bfloat16 at a Hopper head dim (64,
-        128, 256) takes the Hopper body, float32 (a dtype split with float32
-        params) the CUDA-core body."""
-        from repro_torch.kernels.flash_attention import kernel
+        128, 256) takes the Hopper body, float32 (float32 params, or a dtype
+        split with float32 params) at those head dims the float32
+        tensor-core body, the rest the CUDA-core body."""
         bf16 = cfg.dtype == cfg.param_dtype == "bfloat16"
-        return ("hopper_launches" if bf16
-                and cfg.head_dim in kernel.HOPPER_HEAD_DIMS
-                else "cuda_core_launches")
+        return Smoke.flash_body_of("bfloat16" if bf16 else "float32",
+                                   cfg.head_dim)
+
+    @staticmethod
+    def flash_body_of(label, d):
+        """The counter of the flash body a contiguous ``label`` (bfloat16 or
+        float32) input at head dim ``d`` takes."""
+        from repro_torch.kernels.flash_attention import kernel
+        if label == "bfloat16" and d in kernel.HOPPER_HEAD_DIMS:
+            return "hopper_launches"
+        if label == "float32" and d in kernel.TF32_HEAD_DIMS:
+            return "tf32_launches"
+        return "cuda_core_launches"
 
     def flash_plans(self):
         """The Hopper flash body at both block sizes (query rows a block)
@@ -3502,9 +3606,13 @@ class Smoke:
                         for c in [q] * (s // q) + ([s % q] if s % q else []))
             t_bytes = nbytes / PEAK_BYTES_PER_S
             t_ops = flops / (PEAK_BF16_FLOPS if dtype == torch.bfloat16
-                             else PEAK_FLOPS["float32"])
+                             else PEAK_F32_SPLIT_BF16_FLOPS)
             bound_ms = max(t_bytes, t_ops) * 1e3
             bound_by = "bytes" if t_bytes > t_ops else "operations"
+            if dtype == torch.float32:
+                self.check(self.rehearse or min(ms, eager_ms) >= bound_ms,
+                           f"ssd_scan {key}: a measured time under its "
+                           f"bound")
             print(f"  ssd (1, {s}, {h}, {p}) N {n} chunk {q} {label}: kernel "
                   f"{ms:.4f} ms ({eager_ms:.4f} ms back to back), plain "
                   f"{plain_ms:.4f} ms, library n/a, bound "
@@ -3795,8 +3903,7 @@ class Smoke:
                 self.sync()
                 after = {a: getattr(kernel.flash_attention, a) - n
                          for a, n in before.items()}
-                body = ("hopper" if dtype == torch.bfloat16
-                        and d in kernel.HOPPER_HEAD_DIMS else "cuda_core")
+                body = self.flash_body_of(label, d)[:-9]
                 if not self.rehearse:
                     self.check(after[f"{body}_launches"] == 1
                                and after["lse_launches"] == 1,
@@ -3819,9 +3926,21 @@ class Smoke:
                 def sdpa():
                     return F.scaled_dot_product_attention(
                         qt, kt, vt, is_causal=True, enable_gqa=True)
-                ks, ls = self.interleaved(
-                    lambda: kernel.flash_attention(q, k, v, return_lse=True),
-                    sdpa, 10)
+
+                def lse_call():
+                    return kernel.flash_attention(q, k, v, return_lse=True)
+                ks, ls = self.interleaved(lse_call, sdpa, 10)
+                ks2, cs, extra = [], [], {}
+                if body == "tf32":
+                    # held against the same plain and timed in turns with
+                    # the CUDA-core body it replaced
+                    cuda_core, cc_err = self.flash_cuda_core(
+                        lse_call, plain_out, f"flash lse {arch} {label}",
+                        plain_lse)
+                    ks2, cs = self.interleaved(lse_call, cuda_core, 10)
+                    extra = dict(cuda_core_ms=sum(cs) / 2,
+                                 cuda_core_turns_ms=cs,
+                                 cuda_core_max_abs_err=cc_err)
                 plain_ms = self.time_ms(lambda: ref.flash_attention(
                     q, k, v, return_lse=True), 3)
                 el = 2 if dtype == torch.bfloat16 else 4
@@ -3829,21 +3948,27 @@ class Smoke:
                 flops = 4 * hq * d * s * (s + 1) // 2
                 t_bytes = nbytes / PEAK_BYTES_PER_S
                 t_ops = flops / (PEAK_BF16_FLOPS if dtype == torch.bfloat16
-                                 else PEAK_FLOPS["float32"])
+                                 else PEAK_F32_TC_FLOPS)
                 bound_ms = max(t_bytes, t_ops) * 1e3
                 bound_by = "bytes" if t_bytes > t_ops else "operations"
                 print(f"    kernel {ks[0]:.4f}, {ks[1]:.4f} ms, SDPA (out "
-                      f"only) {ls[0]:.4f}, {ls[1]:.4f} ms, plain "
-                      f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms (bound "
-                      f"by {bound_by})")
+                      f"only) {ls[0]:.4f}, {ls[1]:.4f} ms"
+                      + (f"; kernel {ks2[0]:.4f}, {ks2[1]:.4f} ms, CUDA-core "
+                         f"body {cs[0]:.4f}, {cs[1]:.4f} ms" if cs else "")
+                      + f"; plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
+                      f"(bound by {bound_by})")
+                if dtype == torch.float32:
+                    self.check(self.rehearse or min(ks + ks2) >= bound_ms,
+                               f"flash lse {arch} {label}: a measured time "
+                               f"under its bound")
                 key = self.row_key(f"{label}_lse", arch)
                 self.rows[("flash_attention", key)] = dict(
                     ms=sum(ks) / 2, plain_ms=plain_ms, bound_ms=bound_ms,
                     bound_by=bound_by, max_abs_err=err,
                     lse_max_abs_err=lse_err, library_ms=sum(ls) / 2,
                     library_computes="out only (SDPA returns no lse)",
-                    turns_ms=ks, library_turns_ms=ls, body=body,
-                    shape=f"1x{s}x{hq}/{hkv}x{d}")
+                    turns_ms=ks + ks2, library_turns_ms=ls, body=body,
+                    shape=f"1x{s}x{hq}/{hkv}x{d}", **extra)
         # the serving launch (lse null) against the lse launch, in turns
         cfg = self.llm_config()
         hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -3906,8 +4031,7 @@ class Smoke:
             label = "bfloat16" if dtype == bf16 else "float32"
             q, k, v = self.attn_inputs([(1, s, hq, d), (1, s, hkv, d),
                                         (1, s, hkv, d)], dtype, seed=s + w)
-            body = ("hopper_launches" if dtype == bf16
-                    and d in kernel.HOPPER_HEAD_DIMS else "cuda_core_launches")
+            body = self.flash_body_of(label, d)
             before = (getattr(fa, body), fa.window_launches, fa.lse_launches)
             got = fa(q, k, v, window=w, return_lse=lse)
             plain = ref.flash_attention(q.float(), k.float(), v.float(),
@@ -3959,9 +4083,13 @@ class Smoke:
             flops = 4 * hq * d * pairs
             t_bytes = nbytes / PEAK_BYTES_PER_S
             t_ops = flops / (PEAK_BF16_FLOPS if dtype == bf16
-                             else PEAK_FLOPS["float32"])
+                             else PEAK_F32_TC_FLOPS)
             bound_ms = max(t_bytes, t_ops) * 1e3
             bound_by = "bytes" if t_bytes > t_ops else "operations"
+            if dtype == f32:
+                self.check(self.rehearse or min(ks + ks2) >= bound_ms,
+                           f"flash window {key}: a measured time under its "
+                           f"bound")
             print(f"    in turns: windowed {ks[0]:.4f}, {ks[1]:.4f} ms, SDPA "
                   f"with the window mask {ls[0]:.4f}, {ls[1]:.4f} ms; "
                   f"windowed {ks2[0]:.4f}, {ks2[1]:.4f} ms, causal (no "
@@ -4138,8 +4266,9 @@ class Smoke:
             want = dict.fromkeys(launches, 0)
             want["flash_attention"] = n_flash
             self.check(launches == want and flash == dict(
-                hopper_launches=n_flash, cuda_core_launches=0,
-                lse_launches=n_flash, window_launches=n_flash),
+                hopper_launches=n_flash, tf32_launches=0,
+                cuda_core_launches=0, lse_launches=n_flash,
+                window_launches=n_flash),
                 f"windowed training launches {launches}, flash {flash}")
 
     def decode_mixed_vs_plain(self):
@@ -4337,7 +4466,7 @@ class Smoke:
         activations (``SPLIT_DTYPES``; the training step's shapes: B 2 x S
         2,048 in 2 microbatches, remat="full", flash blocks of 1,024,
         float32 moments), after a warm-up step: every flash launch on the
-        float32 CUDA-core body with lse; prints the wall, tokens/s and the
+        float32 tensor-core body with lse; prints the wall, tokens/s and the
         peak device memory."""
         cfg = dataclasses.replace(self.llm_config(), remat="full",
                                   attn_flash_block=16 if self.rehearse
@@ -4362,10 +4491,11 @@ class Smoke:
             want = dict.fromkeys(launches, 0)
             want["flash_attention"] = n_flash
             self.check(launches == want and bodies == {
-                "hopper_launches": 0, "cuda_core_launches": n_flash,
-                "lse_launches": n_flash, "window_launches": 0},
+                "hopper_launches": 0, "tf32_launches": n_flash,
+                "cuda_core_launches": 0, "lse_launches": n_flash,
+                "window_launches": 0},
                 f"split training launches {launches}, flash {bodies}: "
-                f"expected every launch on the float32 CUDA-core body")
+                f"expected every launch on the float32 tensor-core body")
 
     def train_step_remat(self):
         """The bfloat16 full-width qwen3_1_7b step (the training step's
@@ -4468,6 +4598,8 @@ class Smoke:
         launches = {n: fn.launches for n, fn in counters.items()}
         lse = counters["flash_attention"].lse_launches
         windowed = counters["flash_attention"].window_launches
+        body = self.flash_body(cfg)
+        on_body = getattr(counters["flash_attention"], body)
         with mock.patch.object(attention_mod, "flash_attention",
                                flash_ref.flash_attention), \
                 mock.patch.object(ssm_mod, "ssd_chunked_train", plain_ssd):
@@ -4502,7 +4634,8 @@ class Smoke:
                  f"(bound {SPLIT_ROUNDED_REL:.2e})" if rounded else "")
               + f"; forward+backward {kern_s:.3f} s with "
               f"kernels, {plain_s:.3f} s plain; launches {launches}, "
-              f"flash with lse {lse}, windowed {windowed}")
+              f"flash with lse {lse}, windowed {windowed}, on the "
+              f"{body[:-9]} body {on_body}")
         self.paths[f"train_{arch}_vs_plain"
                    + (f"_window{window}" if window else "")
                    + ("_split" if dtypes else "")] = dict(
@@ -4525,9 +4658,12 @@ class Smoke:
             want_launches["ssd_scan"] = 2 * kinds.count("mamba")
             n_flash = want_launches["flash_attention"]
             self.check(launches == want_launches and lse == n_flash
+                       and on_body == n_flash
                        and windowed == (n_flash if window else 0),
                        f"training launches {launches} (lse {lse}, "
-                       f"windowed {windowed}), expected {want_launches}")
+                       f"windowed {windowed}, {body} {on_body}), expected "
+                       f"{want_launches}, every flash launch on the "
+                       f"{body[:-9]} body")
             self.check(plain_launches == launches,
                        "the plain run launched a kernel")
 
@@ -4622,6 +4758,7 @@ class Smoke:
             self.check(launches == want, f"training launches {launches}, "
                                          f"expected {want}")
             self.check(bodies == {"hopper_launches": n_flash,
+                                  "tf32_launches": 0,
                                   "cuda_core_launches": 0,
                                   "lse_launches": n_flash},
                        f"flash bodies {bodies}: expected every launch on "
@@ -5719,6 +5856,15 @@ class Smoke:
                    "library_ms": main.get("library_ms"),
                    "shape": main["shape"], "dtype": dtype}
             row.update({key: v for key, v in main.items() if key not in row})
+            if name in KERNEL_BODIES:
+                row["bodies"] = KERNEL_BODIES[name]
+            if name == "flash_attention":
+                # launches by body over the paths that count them
+                row["launches_by_body"] = {
+                    attr: sum(path["flash_bodies"].get(attr, 0)
+                              for path in self.paths.values()
+                              if "flash_bodies" in path)
+                    for attr in BODY_COUNTS}
             # the other shapes and dtypes the phases measured
             # the windowed and float8 launches of the paths that made them
             for attr in VARIANT_COUNTS:
@@ -5729,6 +5875,9 @@ class Smoke:
                     row[attr] = sum(counts.values())
                     row[f"{attr}_by_path"] = counts
             for variant, prefix in (("float32", "f32"), ("tdm", "tdm"),
+                                    ("float32_ragged", "f32_ragged"),
+                                    ("float32_s512", "f32_s512"),
+                                    ("float32_s128", "f32_s128"),
                                     ("bfloat16_lse", "lse"),
                                     ("float32_lse", "f32_lse"),
                                     ("bfloat16_ragged", "ragged"),
@@ -5810,6 +5959,8 @@ def main(argv=None) -> int:
         smoke.phase("gamma-direct", smoke.gamma_path)
     smoke.phase("flash_attention vs plain", smoke.flash_vs_plain)
     smoke.phase("flash tile plans", smoke.flash_plans)
+    smoke.phase("flash_attention vs plain, float32",
+                lambda: smoke.flash_vs_plain(label="float32"))
     smoke.phase("decode_attention vs plain", smoke.decode_vs_plain)
     smoke.phase("decode chunk plans", smoke.decode_plans)
     smoke.phase("serving path", smoke.serving)

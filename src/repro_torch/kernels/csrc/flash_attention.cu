@@ -13,15 +13,18 @@
 //
 // What bounds it on an H100: 4 S^2 Hq D / 2 operations (causal) against
 // (2 Hq + 2 Hkv) S D elements moved; at S = 1024, D = 128 that is ~2,000
-// operations per byte, so the tensor cores' rate bounds it (989 TFLOP/s
-// bf16).
+// operations per byte in bfloat16 (~1,000 in float32), so the tensor
+// cores' rate bounds it: 989 TFLOP/s bf16; for float32 results the
+// float32-accurate rate of the TF32 units, 495 / 3 TFLOP/s (three TF32
+// products stand for one float32 product, below), 2.5x the CUDA cores'
+// 67.
 //
 // Design. The TPU grid walks kv blocks sequentially and carries the
 // running max, denominator and accumulator in VMEM scratch. Here one block
 // owns a tile of query rows of one (batch, head) and loops over kv tiles up
 // to the causal limit, so the online-softmax state never leaves the block.
 // Query tiles are issued heaviest (latest) first, since causal tiles differ
-// in length. The wrapper picks one of two bodies from its inputs:
+// in length. The wrapper picks one of three bodies from its inputs:
 // - bfloat16 with D 64, 128 or 256, 16-byte-aligned pointers and strides
 //   that are multiples of 8 elements (the models' case, gemma_2b's head dim
 //   256 among them): the Hopper body (flash_wgmma_kernel). One producer
@@ -36,7 +39,37 @@
 //   register A operand for O += P V (V from shared memory, MN-major: the
 //   transpose flag). Only the tiles that cross the diagonal or the end of S
 //   test the mask; a warpgroup skips tiles wholly above its rows.
-// - float32 at any head dim, and bfloat16 otherwise: float32 FMAs on the
+// - float32 with D 64, 128 or 256, 16-byte-aligned pointers and strides
+//   that are multiples of 4 elements (every float32 prefill and training
+//   forward of the models): the float32 tensor-core body
+//   (flash_tf32_kernel). The float32 gates (2e-5 on the output, 1e-5 on
+//   lse) rule out one TF32 product (~2^-10 relative an operand), so each
+//   operand a is split into hi = a truncated to TF32 and lo = a - hi
+//   (split_tf32) and each product taken as lo·hi + hi·lo + hi·hi with
+//   float32 sums (mma.sync m16n8k8, under 3 x 2^-20 relative): three TF32
+//   products for one, so 495 / 3 TFLOP/s is its ceiling. wgmma takes TF32 B operands only
+//   K-major from shared memory, and V in the (S, H, D) layout is MN-major
+//   for P V, so the body is mma.sync: 4 warps of 16 query rows a block;
+//   K and V tiles through a cp.async ring (two stages of 64 rows; one of
+//   32 at D 256, for the shared memory) as float32 and split as each warp
+//   reads its fragments; Q loaded once and split into hi and lo tiles in
+//   shared memory. A k8 step's index t is taken as column 2t and t + 4 as
+//   2t + 1 in both operands (a sum is over all eight either way), so Q's
+//   and K's fragments are float2 reads and P is split in registers as it
+//   lies in the score fragments (the accumulator layout); V is read rows
+//   2t and 2t + 1 at column g. Rows are padded (Q and K D + 8, V D + 4
+//   floats) so each fragment read hits 32 banks. A k8 step of S = Q K^T
+//   sums its three products into a zeroed fragment that is added to the
+//   scores with a float32 add: the tensor cores' accumulation rounds
+//   toward zero, and D / 8 x 3 such sums into one score of ~50 moved the
+//   log-sum-exp by 1e-5 (its bound) at D 256; P V's sums (P <= 1, the
+//   output divided by l) keep the tensor cores' accumulation. Its issue
+//   slots go to the splits (two instructions an operand value a warp)
+//   as much as to the products: 768 mma.sync and ~550 splits a warp per
+//   64-row tile at D 128; with cvt.rna for the splits they outweighed the
+//   products, hence the truncating split (two instructions a value).
+// - float32 otherwise, and bfloat16 at other head dims or on rows TMA
+//   cannot address: float32 FMAs on the
 //   CUDA cores (flash_kernel): 256 threads, each holding 4 query rows'
 //   statistics and a 4 x ceil(D/16) slice of the accumulator in registers;
 //   the Q tile (pre-scaled), the K and V tiles and the probabilities staged
@@ -47,7 +80,7 @@
 //   up to 256 take it: at D 256 the staged tiles are 214.5 KB of shared
 //   memory (one block an SM, under the H100's 227 KB opt-in, which the
 //   launch raises) and each thread holds 4 x 16 accumulators.
-// Both mask ragged S themselves (rows >= S are not written, columns >= S
+// Each body masks ragged S itself (rows >= S are not written, columns >= S
 // score -inf), so nothing is padded.
 //
 // Head dim 256 on the Hopper body (Tile<256, 1>): a stage of 128 kv rows
@@ -83,8 +116,9 @@
 // _flash_fwd_scan returns it); serving passes null and nothing more is
 // written. Each body writes it once a row, from the row's running max and
 // sum after their last reduction: in the CUDA-core body the first of the
-// row's 16 threads, in the Hopper body the first lane of the row's quad
-// (its m is in the log2 domain there: lse = m ln 2 + log l). The Hopper
+// row's 16 threads, in the Hopper and float32 tensor-core bodies the first
+// lane of the row's quad (their m is in the log2 domain: lse = m ln 2 +
+// log l). The Hopper
 // body is compiled with and without the store (its LSE parameter), so the
 // serving instance is the code it was before lse existed.
 //
@@ -921,6 +955,375 @@ int launch(const T* q, const T* k, const T* v, T* o, float* lse,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---- float32 on the tensor cores: split TF32, mma.sync ------------------
+
+// a = hi + lo: hi = a with the 13 low mantissa bits cleared (TF32 by
+// truncation), lo = a - hi (exact, below 2^-10 |a|), passed as it is: the
+// tensor cores read a TF32 operand's sign, exponent and top 10 mantissa
+// bits, so lo enters truncated too, within 2^-20 |a| of its value. One
+// LOP3 and one FADD a value; cvt.rna.tf32.f32 for each of the two cost
+// ~10 instructions, and the splits outweighed the products
+__device__ __forceinline__ void split_tf32(float a, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(a) & 0xffffe000u;
+  lo = __float_as_uint(a - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c = a b (the accumulator's input zero)
+__device__ __forceinline__ void mma_tf32_zero(float* c, const uint32_t* a,
+                                              uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
+}
+
+// c += a b in three TF32 products, the small terms first: lo hi + hi lo +
+// hi hi (lo lo, ~2^-22 of a b, is left out); with fresh, c = a b
+template <bool FRESH>
+__device__ __forceinline__ void mma3(float* c, const uint32_t* ah,
+                                     const uint32_t* al, uint32_t bh0,
+                                     uint32_t bh1, uint32_t bl0,
+                                     uint32_t bl1) {
+  if constexpr (FRESH) mma_tf32_zero(c, al, bh0, bh1);
+  else mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+// 16 bytes global -> shared without registers; zeros when !valid
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Tile plan of the float32 tensor-core body at head dim D: 64 query rows a
+// block, 16 a warp; kv tiles of BK rows in a ring of STAGES cp.async
+// stages. Rows in shared memory are padded so that a warp's fragment reads
+// hit 32 banks: Q (hi and lo) and K rows D + 8 floats apart (float2 reads
+// of 8 rows at one column pair), V rows D + 4 apart (rows 2t and 2t + 1
+// at column g). D 256 keeps one stage of 32 rows (202,240 bytes).
+template <int D>
+struct TileF {
+  static constexpr int BQ = 64;
+  static constexpr int BK = D == 256 ? 32 : 64;
+  static constexpr int STAGES = D == 256 ? 1 : 2;
+  static constexpr int LDQ = D + 8;
+  static constexpr int LDV = D + 4;
+  static constexpr int THREADS = 128;
+  static constexpr int STAGE_FLOATS = BK * (LDQ + LDV);
+  static constexpr int SMEM = 4 * (2 * BQ * LDQ + STAGES * STAGE_FLOATS);
+  static_assert(SMEM <= 232448, "more shared memory than an H100 block has");
+};
+
+template <int D>
+__global__ void __launch_bounds__(TileF<D>::THREADS) flash_tf32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o,
+    float* __restrict__ lse, Strides qs, Strides ks, Strides vs, Strides os,
+    int seq, int rep, float scale_log2, int causal, int window) {
+  using T = TileF<D>;
+  constexpr int BQ = T::BQ, BK = T::BK, LDQ = T::LDQ, LDV = T::LDV;
+  constexpr int NJ = BK / 8, ND = D / 8;   // n8 tiles of S and of O
+  extern __shared__ float4 smem4[];
+  float* qh = reinterpret_cast<float*>(smem4);   // [BQ][LDQ], tf32 bits
+  float* ql = qh + BQ * LDQ;
+  float* kvs = ql + BQ * LDQ;                    // stage s: K, then V
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  // query tiles on the grid's y: blocks are dispatched x fastest, so the
+  // heaviest (latest, causal) tiles of every head go out in the first wave
+  const int qt = gridDim.y - 1 - blockIdx.y;
+  const int h = blockIdx.x, b = blockIdx.z, hk = h / rep;
+  const int q0 = qt * BQ;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + hk * ks.h;
+  const float* vb = v + b * vs.b + hk * vs.h;
+  const int kv_end = causal ? min(seq, q0 + BQ) : seq;
+  const int ntiles = (kv_end + BK - 1) / BK;
+  // with a window, from the tile holding the block's first key q0 - W + 1
+  const int t_first = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+
+  // K and V of tile tt into stage st, 16 bytes a copy, rows past S zeros
+  auto load = [&](int tt, int st) {
+    float* ksm = kvs + st * T::STAGE_FLOATS;
+    float* vsm = ksm + BK * LDQ;
+    const int k0 = tt * BK;
+    for (int idx = tid; idx < BK * (D / 4); idx += T::THREADS) {
+      const int r = idx / (D / 4), c = (idx % (D / 4)) * 4;
+      const bool in = k0 + r < seq;
+      const long long row = in ? k0 + r : 0;
+      cp_async16(ksm + r * LDQ + c, kb + row * ks.s + c, in);
+      cp_async16(vsm + r * LDV + c, vb + row * vs.s + c, in);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < T::STAGES - 1; ++i) {
+    if (t_first + i < ntiles) load(t_first + i, i);
+    cp_async_commit();
+  }
+  // Q once, split into hi and lo tiles (rows past S zeros)
+  for (int idx = tid; idx < BQ * (D / 4); idx += T::THREADS) {
+    const int r = idx / (D / 4), c = (idx % (D / 4)) * 4;
+    const int row = q0 + r;
+    const float4 x = row < seq
+        ? *reinterpret_cast<const float4*>(qb + (long long)row * qs.s + c)
+        : make_float4(0.f, 0.f, 0.f, 0.f);
+    uint4 hi, lo;
+    split_tf32(x.x, hi.x, lo.x);
+    split_tf32(x.y, hi.y, lo.y);
+    split_tf32(x.z, hi.z, lo.z);
+    split_tf32(x.w, hi.w, lo.w);
+    *reinterpret_cast<uint4*>(qh + r * LDQ + c) = hi;
+    *reinterpret_cast<uint4*>(ql + r * LDQ + c) = lo;
+  }
+
+  const int first = q0 + warp * 16, last = first + 15;
+  const int r0 = first + g, r1 = r0 + 8;            // my rows
+  const float* qhw = qh + (warp * 16 + g) * LDQ;   // my rows' Q
+  const float* qlw = ql + (warp * 16 + g) * LDQ;
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int tt = t_first; tt < ntiles; ++tt) {
+    const int i = tt - t_first;
+    // the stage of tile tt + STAGES - 1 held tile tt - 1, which every
+    // warp released at the barrier that ended the last iteration
+    if (tt + T::STAGES - 1 < ntiles)
+      load(tt + T::STAGES - 1, (i + T::STAGES - 1) % T::STAGES);
+    cp_async_commit();
+    cp_async_wait<T::STAGES - 1>();    // my copies of tile tt have landed
+    __syncthreads();                   // everyone's, and Q's split
+    const int k0 = tt * BK;
+    // tiles wholly above my rows (causal) or wholly below my rows' window
+    // are skipped
+    if (!(causal && k0 > last) &&
+        !(window > 0 && k0 + BK - 1 <= first - window)) {
+      const float* ksm = kvs + (i % T::STAGES) * T::STAGE_FLOATS;
+      const float* vsm = ksm + BK * LDQ;
+      // S = Q K^T. The k8 step's index kappa = t maps to column c = 8 kk +
+      // 2 t and kappa = t + 4 to c + 1, in the A and B fragments alike, so
+      // each is one float2 read: a = (Q[g][c], Q[g+8][c], Q[g][c+1],
+      // Q[g+8][c+1]), b = (K[8 j + g][c], K[8 j + g][c + 1])
+      float sc[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll 2
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const int c = kk * 8 + 2 * t4;
+        const float2 h0 = *reinterpret_cast<const float2*>(qhw + c);
+        const float2 h1 = *reinterpret_cast<const float2*>(qhw + 8 * LDQ + c);
+        const float2 l0 = *reinterpret_cast<const float2*>(qlw + c);
+        const float2 l1 = *reinterpret_cast<const float2*>(qlw + 8 * LDQ + c);
+        const uint32_t ah[4] = {__float_as_uint(h0.x), __float_as_uint(h1.x),
+                                __float_as_uint(h0.y), __float_as_uint(h1.y)};
+        const uint32_t al[4] = {__float_as_uint(l0.x), __float_as_uint(l1.x),
+                                __float_as_uint(l0.y), __float_as_uint(l1.y)};
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const float2 kf =
+              *reinterpret_cast<const float2*>(ksm + (j * 8 + g) * LDQ + c);
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(kf.x, bh0, bl0);
+          split_tf32(kf.y, bh1, bl1);
+          // the k8 step's three products into a zeroed fragment, added to
+          // the scores in float32: the tensor cores' own sums round toward
+          // zero, which over D / 8 x 3 sums into a score of ~50 biased the
+          // scores (and lse) by ~1e-5 at D 256
+          float part[4];
+          mma3<true>(part, ah, al, bh0, bh1, bl0, bl1);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[j][e] += part[e];
+        }
+      }
+      // the online softmax in the log2 domain; sc[j][e]: row e < 2 ? r0 :
+      // r1, column k0 + 8 j + 2 t + (e & 1). Only tiles crossing my rows'
+      // diagonal, the end of S or my rows' window's lower edge test the
+      // mask.
+      float mx[2] = {-INFINITY, -INFINITY};
+      const bool edge = (causal && k0 + BK - 1 > first) || k0 + BK > seq ||
+                        (window > 0 && k0 <= last - window);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[j][e] * scale_log2;
+          if (edge) {
+            const int row = e < 2 ? r0 : r1;
+            const int col = k0 + 8 * j + 2 * t4 + (e & 1);
+            if (col >= seq || (causal && col > row) ||
+                (window > 0 && col <= row - window))
+              x = -INFINITY;
+          }
+          sc[j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float base[2], corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // the four threads of a row are lanes 4 g .. 4 g + 3
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        // a row with nothing valid yet keeps m = -inf and p = 0
+        base[r] = m_new == -INFINITY ? 0.f : m_new;
+        corr[r] = exp2f(m[r] - base[r]);
+        m[r] = m_new;
+        l[r] *= corr[r];
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[j][e] = exp2f(sc[j][e] - base[e >> 1]);
+          l[e >> 1] += sc[j][e];
+        }
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        acc[n][0] *= corr[0];
+        acc[n][1] *= corr[0];
+        acc[n][2] *= corr[1];
+        acc[n][3] *= corr[1];
+      }
+      // O += P V over the tile's k8 steps j, P split as it lies in the
+      // score fragments: kappa = t is kv row 8 j + 2 t, kappa = t + 4 row
+      // 8 j + 2 t + 1, so a = (P[g][2t], P[g+8][2t], P[g][2t+1],
+      // P[g+8][2t+1]) = sc[j][0, 2, 1, 3] and b = (V[8 j + 2 t][8 n + g],
+      // V[8 j + 2 t + 1][8 n + g])
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        uint32_t ph[4], pl[4];
+        split_tf32(sc[j][0], ph[0], pl[0]);
+        split_tf32(sc[j][2], ph[1], pl[1]);
+        split_tf32(sc[j][1], ph[2], pl[2]);
+        split_tf32(sc[j][3], ph[3], pl[3]);
+        const float* vrow = vsm + (j * 8 + 2 * t4) * LDV + g;
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(vrow[n * 8], bh0, bl0);
+          split_tf32(vrow[LDV + n * 8], bh1, bl1);
+          mma3<false>(acc[n], ph, pl, bh0, bh1, bl0, bl1);
+        }
+      }
+    }
+    __syncthreads();   // every warp is done with this stage
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  // m and l are the same in the row's four lanes now: the first writes
+  if (lse != nullptr && t4 == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r ? r1 : r0;
+      if (row < seq)
+        lse[((size_t)b * gridDim.x + h) * seq + row] =
+            m[r] * 0.69314718055994531f + logf(fmaxf(l[r], 1e-30f));
+    }
+  }
+  float* ob = o + b * os.b + h * os.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r ? r1 : r0;
+    if (row >= seq) continue;
+    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    float* orow = ob + (long long)row * os.s + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+      *reinterpret_cast<float2*>(orow + n * 8) =
+          make_float2(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+  }
+}
+
+template <int D>
+int launch_tf32(const float* q, const float* k, const float* v, float* o,
+                float* lse, Strides qs, Strides ks, Strides vs, Strides os,
+                int batch, int seq, int hq, int hkv, float scale, int causal,
+                int window, cudaStream_t stream) {
+  using T = TileF<D>;
+  // the shared-memory limit is raised once per device for each instance
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64)
+    return (int)cudaErrorInvalidDevice;
+  static bool raised[64] = {};
+  if (!raised[dev]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_tf32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        T::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    raised[dev] = true;
+  }
+  const dim3 grid(hq, (seq + T::BQ - 1) / T::BQ, batch);
+  flash_tf32_kernel<D><<<grid, T::THREADS, T::SMEM, stream>>>(
+      q, k, v, o, lse, qs, ks, vs, os, seq, hq / hkv,
+      scale * 1.4426950408889634f, causal, window);
+  return (int)cudaGetLastError();
+}
+
+// The float32 tensor-core body takes D 64, 128 or 256 and rows cp.async
+// copies 16 bytes at a time: 16-byte aligned pointers, strides that are
+// multiples of 4 elements.
+int launch_f32_tc(const float* q, const float* k, const float* v, float* o,
+                  float* lse, const long long* st, int batch, int seq,
+                  int hq, int hkv, int d, float scale, int causal,
+                  int window, void* stream) {
+  if (batch <= 0 || seq <= 0 || hq <= 0 || hkv <= 0 || hq % hkv ||
+      batch > 65535 || hq > 65535 || window < 0 || (window > 0 && !causal))
+    return (int)cudaErrorInvalidValue;
+  const void* ptrs[4] = {q, k, v, o};
+  for (int i = 0; i < 4; ++i)
+    if (reinterpret_cast<unsigned long long>(ptrs[i]) % 16)
+      return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < 12; ++i)
+    if (st[i] % 4 || st[i] <= 0) return (int)cudaErrorInvalidValue;
+  const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]},
+      vs{st[6], st[7], st[8]}, os{st[9], st[10], st[11]};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64:
+      return launch_tf32<64>(q, k, v, o, lse, qs, ks, vs, os, batch, seq, hq,
+                             hkv, scale, causal, window, s);
+    case 128:
+      return launch_tf32<128>(q, k, v, o, lse, qs, ks, vs, os, batch, seq,
+                              hq, hkv, scale, causal, window, s);
+    case 256:
+      return launch_tf32<256>(q, k, v, o, lse, qs, ks, vs, os, batch, seq,
+                              hq, hkv, scale, causal, window, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 // The Hopper body takes D 64, 128 or 256 (blocks of 64 query rows at 256)
 // and rows TMA can address: 16-byte aligned pointers, strides that are
 // multiples of 8 elements.
@@ -965,8 +1368,19 @@ int launch_hopper(const __nv_bfloat16* q, const __nv_bfloat16* k,
 // lse: a float32 (B, Hq, S) tensor to write each row's log-sum-exp into,
 // or null (serving) for none. window: 0 (none), or W > 0 with causal.
 // flash_attention_f32 and flash_attention_bf16 run the CUDA-core body;
-// flash_attention_bf16_hopper the TMA + wgmma body (D 64, 128 or 256) with
-// blocks of bq query rows (64 or 128; 64 at D 256).
+// flash_attention_f32_tf32 the float32 tensor-core body (D 64, 128 or
+// 256); flash_attention_bf16_hopper the TMA + wgmma body (D 64, 128 or
+// 256) with blocks of bq query rows (64 or 128; 64 at D 256).
+extern "C" int flash_attention_f32_tf32(const float* q, const float* k,
+                                        const float* v, float* o, float* lse,
+                                        const long long* strides, int batch,
+                                        int seq, int hq, int hkv, int d,
+                                        float scale, int causal, int window,
+                                        void* stream) {
+  return launch_f32_tc(q, k, v, o, lse, strides, batch, seq, hq, hkv, d,
+                       scale, causal, window, stream);
+}
+
 extern "C" int flash_attention_f32(const float* q, const float* k,
                                    const float* v, float* o, float* lse,
                                    const long long* strides, int batch,

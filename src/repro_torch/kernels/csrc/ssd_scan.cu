@@ -18,36 +18,31 @@
 //
 // What bounds it on an H100: reading x, B, C and dt once and writing y and
 // the final state once (about 20 MB at B 1, S 1,024, H 64, P 64, N 128,
-// bf16) against the operations the function needs, nc Q(Q+1) N for the
-// causal C B^T shared by all heads plus H nc (Q(Q+1) P + 4 Q N P) for the
-// causal W x, C state^T and x^T B (2.7 GFLOP): ~6 us by bytes.
+// bf16; 37 MB in float32) against the operations the function needs, nc
+// Q(Q+1) N for the causal C B^T shared by all heads plus H nc (Q(Q+1) P + 4
+// Q N P) for the causal W x, C state^T and x^T B (2.7 GFLOP): ~6 us by
+// bytes in bfloat16 (989 TFLOP/s would take 2.7 us). In float32 the bytes
+// bound it too: ~11 us. Each product there is three bfloat16
+// products (below), so its operations run at a third of the bfloat16 rate,
+// 330 TFLOP/s: ~8 us.
 //
-// Two bodies, chosen by x's type:
-// - bfloat16 (the model's prefill): the SSD's own chunk decomposition
-//   (Dao and Gu 2024, the chunked algorithm) in three kernels, below
-//   (ssd_chunk_kernel, ssd_state_kernel, ssd_output_kernel). C B^T is
-//   formed once per chunk for all heads; the chunk deltas and the outputs
-//   are one block per (chunk, head, 64 columns of P), nc H B blocks each
-//   (512 at S 1,024), and only the elementwise state pass walks the
-//   chunks in order. Every product runs on the tensor cores (mma.sync,
-//   bfloat16 operands, float32 sums); float32 operands are split in two
-//   bfloat16 terms (hi + lo), which keeps the products within the float32
-//   bounds. The wrapper allocates the scratch: the scores G (nc Q Q
-//   float32 a sequence), the chunk deltas (nc H P N float32; 16.8 MB at
-//   S 1,024), the entry states beside them (the same bytes, as hi and lo
-//   bfloat16) and the chunk decays; it stays in the 50 MB L2.
-// - float32: one block of 256 threads (16 x 16) per (sequence, head, 32
-//   columns of P) walks the chunks itself, holding its (32, N) slice of
-//   the state in registers (a copy in shared memory feeds the off-diagonal
-//   product), with float32 FMAs on the CUDA cores from shared memory
-//   (ssd_kernel). The tensor-core body reads bfloat16 x, B and C; on
-//   float32 inputs they would need hi/lo splits too, which is untried
-//   against the 1e-4 bound (PERF.md, open questions). Per chunk: the chunk's C, B, x and dt staged in
-//   shared memory as float32 (rows past S as zeros); warp 0 scans seg;
-//   then (1) the scores C B^T, only their lower 16 x 16 blocks, in
-//   registers, with exp(seg_i) C state^T beside them; (2) the decayed,
-//   masked scores W (Q x Q) over C's buffer; (3) y += W x, written out;
-//   (4) the state update x^T (w B) in registers.
+// Design: the SSD's own chunk decomposition (Dao and Gu 2024, the chunked
+// algorithm) in three kernels, below (ssd_chunk_kernel, ssd_state_kernel,
+// ssd_output_kernel), for bfloat16 and float32 inputs alike (a template on
+// the input type). C B^T is formed once per chunk for all heads; the chunk
+// deltas and the outputs are one block per (chunk, head, 64 columns of P),
+// nc H B blocks each (512 at S 1,024), and only the elementwise state pass
+// walks the chunks in order. Every product runs on the tensor cores
+// (mma.sync, bfloat16 operands, float32 sums); a float32 operand is split
+// in two bfloat16 terms (hi + lo), which keeps the products within the
+// float32 bounds: with bfloat16 inputs the float32 intermediates are, with
+// float32 inputs x, B and C too (three products where both operands are
+// split). The wrapper allocates the scratch: the scores G (nc Q Q float32
+// a sequence), the chunk deltas (nc H P N float32; 16.8 MB at S 1,024),
+// the entry states beside them (the same bytes, as hi and lo bfloat16) and
+// the chunk decays; it stays in the 50 MB L2. The float32 entry replaces
+// a CUDA-core body that walked the chunks in one block per (sequence,
+// head, 32 columns of P): 0.33 ms at mamba2_1_3b's S 1,024 (PERF.md).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -56,258 +51,9 @@
 
 namespace {
 
-constexpr int NT = 256;         // 16 x 16 threads
-constexpr int TD = 16;
-constexpr int MAX_N = 128;      // state width: 16 lanes x 8
-constexpr int PB = 32;          // columns of P per block: 16 lanes x 2
-constexpr int RN = MAX_N / TD;
-constexpr int RP = PB / TD;
+constexpr int MAX_N = 128;      // the widest state
 
-struct Layout {                 // offsets in floats into shared memory
-  int ldn, ldw, c_w, b, x, st, seg, dtv, eseg, wst, total;
-};
-
-__host__ __device__ inline Layout layout(int q, int n) {
-  Layout l;
-  l.ldn = n | 1;                      // odd: B rows read down a column
-  l.ldw = q % 32 == 0 ? q + TD : q;   // 16 mod 32: two W rows per warp
-  const int cw = q * l.ldn > q * l.ldw ? q * l.ldn : q * l.ldw;
-  l.c_w = 0;                          // C (Q x ldn), then W (Q x ldw)
-  l.b = cw;                           // B (Q x ldn)
-  l.x = l.b + q * l.ldn;              // x (Q x PB)
-  l.st = l.x + q * PB;                // state (PB x ldn)
-  l.seg = l.st + PB * l.ldn;
-  l.dtv = l.seg + q;
-  l.eseg = l.dtv + q;
-  l.wst = l.eseg + q;
-  l.total = l.wst + q;
-  return l;
-}
-
-// RQ = Q / 16 row blocks of a chunk
-template <int RQ>
-__global__ void __launch_bounds__(NT) ssd_kernel(
-    const float* __restrict__ x, const float* __restrict__ dt,
-    const float* __restrict__ a, const float* __restrict__ bm,
-    const float* __restrict__ cm, const float* __restrict__ init,
-    float* __restrict__ y, float* __restrict__ fstate, long long xsb,
-    long long xsh, long long xss, long long xsp, long long dsb,
-    long long dsh, long long dss, long long bsb, long long bss,
-    long long bsn, long long csb, long long css, long long csn,
-    long long ysb, long long ysh, long long yss, long long ysp, int nh,
-    int s, int p, int n) {
-  constexpr int Q = RQ * TD;
-  constexpr int NTRI = RQ * (RQ + 1) / 2;
-  extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
-  const Layout L = layout(Q, n);
-  float* cs = sm + L.c_w;
-  float* ws = sm + L.c_w;
-  float* bs = sm + L.b;
-  float* xs = sm + L.x;
-  float* ss = sm + L.st;
-  float* seg = sm + L.seg;
-  float* dtv = sm + L.dtv;
-  float* eseg = sm + L.eseg;
-  float* wst = sm + L.wst;
-
-  const int tid = threadIdx.x, tx = tid % TD, ty = tid / TD;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int p0 = blockIdx.x * PB, h = blockIdx.y, b = blockIdx.z;
-  const float ah = a[h];
-  const long long sbase = ((long long)b * nh + h) * p;   // state row (b, h, 0)
-
-  // the state slice: rows p0 + ty + 16 r, columns tx + 16 c
-  float st[RP][RN];
-#pragma unroll
-  for (int r = 0; r < RP; ++r)
-#pragma unroll
-    for (int c = 0; c < RN; ++c) {
-      const int pp = p0 + ty + TD * r, nn = tx + TD * c;
-      st[r][c] = init != nullptr && pp < p && nn < n
-                     ? init[(sbase + pp) * n + nn] : 0.f;
-      if (nn < n) ss[(ty + TD * r) * L.ldn + nn] = st[r][c];
-    }
-
-  const int nchunks = (s + Q - 1) / Q;
-  for (int k = 0; k < nchunks; ++k) {
-    const int t0 = k * Q;
-    // -- stage the chunk (rows past S as zeros) ------------------------------
-    for (int idx = tid; idx < Q * n; idx += NT) {
-      const int i = idx / n, nn = idx - i * n, t = t0 + i;
-      const bool in = t < s;
-      cs[i * L.ldn + nn] = in ? cm[b * csb + t * css + nn * csn] : 0.f;
-      bs[i * L.ldn + nn] = in ? bm[b * bsb + t * bss + nn * bsn] : 0.f;
-    }
-    for (int idx = tid; idx < Q * PB; idx += NT) {
-      const int i = idx / PB, pp = idx - i * PB, t = t0 + i;
-      xs[idx] = t < s && p0 + pp < p
-                    ? x[b * xsb + h * xsh + t * xss + (p0 + pp) * xsp]
-                    : 0.f;
-    }
-    for (int i = tid; i < Q; i += NT)
-      dtv[i] = t0 + i < s ? dt[b * dsb + h * dsh + (t0 + i) * dss] : 0.f;
-    __syncthreads();
-
-    // -- seg = cumsum(dt a) over the chunk (warp 0) --------------------------
-    if (warp == 0) {
-      constexpr int PER = (Q + 31) / 32;
-      float loc[PER], sum = 0.f;
-#pragma unroll
-      for (int e = 0; e < PER; ++e) {
-        const int i = lane * PER + e;
-        sum += i < Q ? dtv[i] * ah : 0.f;
-        loc[e] = sum;
-      }
-      float incl = sum;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float v = __shfl_up_sync(0xffffffffu, incl, off);
-        if (lane >= off) incl += v;
-      }
-      const float excl = incl - sum;
-#pragma unroll
-      for (int e = 0; e < PER; ++e) {
-        const int i = lane * PER + e;
-        if (i < Q) seg[i] = excl + loc[e];
-      }
-    }
-    __syncthreads();
-    const float last = seg[Q - 1];
-    for (int i = tid; i < Q; i += NT) {
-      eseg[i] = expf(seg[i]);
-      wst[i] = expf(last - seg[i]) * dtv[i];
-    }
-
-    // -- (1) scores C B^T (lower blocks) and C state^T ----------------------
-    float sc[NTRI], acc[RQ][RP];
-#pragma unroll
-    for (int e = 0; e < NTRI; ++e) sc[e] = 0.f;
-#pragma unroll
-    for (int r = 0; r < RQ; ++r)
-#pragma unroll
-      for (int c = 0; c < RP; ++c) acc[r][c] = 0.f;
-    for (int nn = 0; nn < n; ++nn) {
-      float av[RQ], bv[RQ], sv[RP];
-#pragma unroll
-      for (int r = 0; r < RQ; ++r) {
-        av[r] = cs[(ty + TD * r) * L.ldn + nn];
-        bv[r] = bs[(tx + TD * r) * L.ldn + nn];
-      }
-#pragma unroll
-      for (int c = 0; c < RP; ++c) sv[c] = ss[(tx + TD * c) * L.ldn + nn];
-#pragma unroll
-      for (int r = 0; r < RQ; ++r) {
-#pragma unroll
-        for (int c = 0; c <= r; ++c)
-          sc[r * (r + 1) / 2 + c] =
-              fmaf(av[r], bv[c], sc[r * (r + 1) / 2 + c]);
-#pragma unroll
-        for (int c = 0; c < RP; ++c) acc[r][c] = fmaf(av[r], sv[c], acc[r][c]);
-      }
-    }
-    __syncthreads();              // C is read; W overwrites it
-
-    // -- (2) W = scores exp(seg_i - seg_j) dt_j, j <= i ----------------------
-#pragma unroll
-    for (int r = 0; r < RQ; ++r) {
-      const int i = ty + TD * r;
-#pragma unroll
-      for (int c = 0; c <= r; ++c) {
-        const int j = tx + TD * c;
-        ws[i * L.ldw + j] = j <= i ? sc[r * (r + 1) / 2 + c] *
-                                         expf(seg[i] - seg[j]) * dtv[j]
-                                   : 0.f;
-      }
-#pragma unroll
-      for (int c = 0; c < RP; ++c) acc[r][c] *= eseg[i];
-    }
-    __syncthreads();
-
-    // -- (3) y = exp(seg) C state^T + W x -----------------------------------
-#pragma unroll
-    for (int jb = 0; jb < RQ; ++jb) {
-      for (int jj = 0; jj < TD; ++jj) {
-        const int j = jb * TD + jj;
-        float xv[RP];
-#pragma unroll
-        for (int c = 0; c < RP; ++c) xv[c] = xs[j * PB + tx + TD * c];
-#pragma unroll
-        for (int r = jb; r < RQ; ++r) {
-          const float wv = ws[(ty + TD * r) * L.ldw + j];
-#pragma unroll
-          for (int c = 0; c < RP; ++c) acc[r][c] = fmaf(wv, xv[c], acc[r][c]);
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < RQ; ++r) {
-      const int t = t0 + ty + TD * r;
-#pragma unroll
-      for (int c = 0; c < RP; ++c) {
-        const int pp = p0 + tx + TD * c;
-        if (t < s && pp < p)
-          y[b * ysb + h * ysh + t * yss + pp * ysp] = acc[r][c];
-      }
-    }
-
-    // -- (4) state = state exp(seg_last) + sum_j x_j^T (wst_j B_j) ----------
-    const float dec = expf(last);
-#pragma unroll
-    for (int r = 0; r < RP; ++r)
-#pragma unroll
-      for (int c = 0; c < RN; ++c) st[r][c] *= dec;
-    for (int j = 0; j < Q; ++j) {
-      const float wj = wst[j];
-      float xv[RP], bv[RN];
-#pragma unroll
-      for (int r = 0; r < RP; ++r) xv[r] = xs[j * PB + ty + TD * r] * wj;
-#pragma unroll
-      for (int c = 0; c < RN; ++c)
-        bv[c] = tx + TD * c < n ? bs[j * L.ldn + tx + TD * c] : 0.f;
-#pragma unroll
-      for (int r = 0; r < RP; ++r)
-#pragma unroll
-        for (int c = 0; c < RN; ++c) st[r][c] = fmaf(xv[r], bv[c], st[r][c]);
-    }
-    // the state copy was last read in (1), before two barriers
-#pragma unroll
-    for (int r = 0; r < RP; ++r)
-#pragma unroll
-      for (int c = 0; c < RN; ++c)
-        if (tx + TD * c < n)
-          ss[(ty + TD * r) * L.ldn + tx + TD * c] = st[r][c];
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int r = 0; r < RP; ++r)
-#pragma unroll
-    for (int c = 0; c < RN; ++c) {
-      const int pp = p0 + ty + TD * r, nn = tx + TD * c;
-      if (pp < p && nn < n) fstate[(sbase + pp) * n + nn] = st[r][c];
-    }
-}
-
-template <int RQ>
-int launch_q(const float* x, const float* dt, const float* a, const float* bm,
-             const float* cm, const float* init, float* y, float* fstate,
-             const long long* st, int batch, int nh, int s, int p, int n,
-             cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)layout(RQ * TD, n).total;
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_kernel<RQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((p + PB - 1) / PB, nh, batch);
-  ssd_kernel<RQ><<<grid, NT, smem, stream>>>(
-      x, dt, a, bm, cm, init, y, fstate, st[0], st[1], st[2], st[3], st[4],
-      st[5], st[6], st[7], st[8], st[9], st[10], st[11], st[12], st[13],
-      st[14], st[15], st[16], nh, s, p, n);
-  return (int)cudaGetLastError();
-}
-
-// ---- bfloat16: the SSD's chunk decomposition on the tensor cores ---------
+// ---- the SSD's chunk decomposition on the tensor cores -------------------
 //
 // Four steps, three kernels, per sequence b with chunks c of Q rows:
 // (1) ssd_chunk_kernel, one extra block per (b, c): G_c = C_c B_c^T (its
@@ -321,24 +67,30 @@ int launch_q(const float* x, const float* dt, const float* a, const float* bm,
 // (4) ssd_output_kernel, one block per (b, c, h, 64 columns of P):
 //     y = exp(seg_i) C_i . state^T + (G_c o decay o dt) x_c, written once.
 // Products run on mma.sync m16n8k16 (bfloat16 in, float32 sums) with
-// ldmatrix. C, B and x are bfloat16 and exact as operands; the float32
-// operands (w x in (2), the entry state and the decayed scores in (4)) are
-// split into two bfloat16 terms, hi + lo with lo = bf16(v - hi), and both
-// multiplied into the same float32 sums: 16 bits of mantissa, ~2^-17
-// relative, where one rounding would cost ~2^-9. Tiles are staged with
-// cp.async (16 bytes a copy, zeros past the edges) where the rows allow.
+// ldmatrix. A float32 operand is split into two bfloat16 terms, hi + lo
+// with lo = bf16(v - hi) (16 bits of mantissa, ~2^-17 relative, where one
+// rounding would cost ~2^-9), and a product of two split operands taken as
+// hi·hi + hi·lo + lo·hi into the same float32 sums (lo·lo, ~2^-18, left
+// out); a split operand times an exact bfloat16 one is hi·b + lo·b. With
+// bfloat16 inputs (T = __nv_bfloat16) C, B and x are exact and only the
+// float32 intermediates are split (w x in (2), the entry state and the
+// decayed scores in (4)); with float32 inputs (T = float) every operand is,
+// C, B and x as they are staged. Tiles are staged with cp.async (16 bytes a
+// copy, zeros past the edges) where the rows allow (bfloat16), or read as
+// float4s and split on their way into shared memory (float32).
 constexpr int CT = 256;       // threads of the chunk kernels: 8 warps
 constexpr int PT = 64;        // columns of P per block
 constexpr int PLD = PT + 8;   // row length of a staged P tile (bf16)
 
+template <typename T>
 struct Ssd {
-  const __nv_bfloat16* x;
+  const T* x;
   const float* dt;
   const float* a;
-  const __nv_bfloat16* bm;
-  const __nv_bfloat16* cm;
+  const T* bm;
+  const T* cm;
   const float* init;
-  __nv_bfloat16* y;
+  T* y;
   float* fstate;
   float* g;              // (B, nc, Q, Q): C_c B_c^T
   float* delta;          // (B, nc, H, P, N): chunk deltas
@@ -350,6 +102,12 @@ struct Ssd {
   bool vec_x, vec_b, vec_c, vec_y;   // 16-byte copies (see stage)
 };
 
+// bfloat16 planes a staged operand of type T takes: 1 exact, or hi and lo
+template <typename T>
+struct Planes {
+  static constexpr int value = sizeof(T) == 4 ? 2 : 1;
+};
+
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -357,6 +115,16 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b for a, b in one or two terms: with both split (al, bl non-null)
+// hi·hi + hi·lo + lo·hi, with one split its two terms, else one product
+__device__ __forceinline__ void mma_terms(float* c, const uint32_t* ah,
+                                          const uint32_t* al, uint32_t bh0,
+                                          uint32_t bh1, const uint32_t* bl) {
+  if (al != nullptr) mma_bf16(c, al, bh0, bh1);
+  if (bl != nullptr) mma_bf16(c, ah, bl[0], bl[1]);
+  mma_bf16(c, ah, bh0, bh1);
 }
 
 // four 8 x 8 bf16 matrices; lane l gives the address of one row
@@ -401,8 +169,8 @@ __device__ __forceinline__ void split(float v, __nv_bfloat16& hi,
 
 // dt of the chunk's rows (0 past S) and seg = cumsum(dt a) over the chunk,
 // by warp 0; the caller syncs
-template <int Q>
-__device__ void chunk_seg(const Ssd& A, int b, int h, int t0, float* dtv,
+template <int Q, typename T>
+__device__ void chunk_seg(const Ssd<T>& A, int b, int h, int t0, float* dtv,
                           float* seg) {
   const int lane = threadIdx.x & 31;
   if (threadIdx.x >= 32) return;
@@ -435,11 +203,14 @@ __device__ void chunk_seg(const Ssd& A, int b, int h, int t0, float* dtv,
 
 // rows x cols bf16 tile (row length ld) from src[r * rs + c * cs], zeros
 // outside rows_in x cols_in; with vec (cs 1, rows on 16 bytes, cols_in a
-// multiple of 8) by cp.async, which the caller waits for
+// multiple of 8) by cp.async, which the caller waits for. bfloat16 values
+// are exact, so there is no lo plane: lo_off, the float32 overload's, is
+// not used
 __device__ __forceinline__ void stage(__nv_bfloat16* dst, int ld,
                                       const __nv_bfloat16* src, long long rs,
                                       long long cs, int rows_in, int rows,
-                                      int cols_in, int cols, bool vec) {
+                                      int cols_in, int cols, bool vec,
+                                      int /*lo_off*/ = 0) {
   if (vec) {
     const int c8 = cols / 8;
     for (int idx = threadIdx.x; idx < rows * c8; idx += CT) {
@@ -457,24 +228,64 @@ __device__ __forceinline__ void stage(__nv_bfloat16* dst, int ld,
   }
 }
 
-template <int Q>
-__global__ void __launch_bounds__(CT) ssd_chunk_kernel(Ssd A) {
+// the same tile from float32 src, each value times w[r] (w null: 1) and
+// split into hi (dst) and lo (dst + lo_off) planes; with vec (cs 1, rows
+// on 16 bytes, cols_in a multiple of 4) as float4 reads
+__device__ __forceinline__ void stage(__nv_bfloat16* dst, int ld,
+                                      const float* src, long long rs,
+                                      long long cs, int rows_in, int rows,
+                                      int cols_in, int cols, bool vec,
+                                      int lo_off, const float* w = nullptr) {
+  if (vec) {
+    const int c4 = cols / 4;
+    for (int idx = threadIdx.x; idx < rows * c4; idx += CT) {
+      const int r = idx / c4, c = (idx - r * c4) * 4;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < rows_in && c < cols_in)
+        v = *reinterpret_cast<const float4*>(src + r * rs + c);
+      const float f = w != nullptr ? w[r] : 1.f;
+      __nv_bfloat16 h[4], l[4];
+      split(v.x * f, h[0], l[0]);
+      split(v.y * f, h[1], l[1]);
+      split(v.z * f, h[2], l[2]);
+      split(v.w * f, h[3], l[3]);
+      *reinterpret_cast<uint2*>(dst + r * ld + c) =
+          make_uint2(pack2(h[0], h[1]), pack2(h[2], h[3]));
+      *reinterpret_cast<uint2*>(dst + lo_off + r * ld + c) =
+          make_uint2(pack2(l[0], l[1]), pack2(l[2], l[3]));
+    }
+    return;
+  }
+  for (int idx = threadIdx.x; idx < rows * cols; idx += CT) {
+    const int r = idx / cols, c = idx - r * cols;
+    const float v = r < rows_in && c < cols_in ? src[r * rs + c * cs] : 0.f;
+    split(v * (w != nullptr ? w[r] : 1.f), dst[r * ld + c],
+          dst[lo_off + r * ld + c]);
+  }
+}
+
+template <int Q, typename T>
+__global__ void __launch_bounds__(CT) ssd_chunk_kernel(Ssd<T> A) {
+  constexpr bool F32 = Planes<T>::value == 2;
   extern __shared__ float4 smem4[];
   const int ldn = A.np + 8;
-  __nv_bfloat16* bs = reinterpret_cast<__nv_bfloat16*>(smem4);  // [Q][ldn]
-  __nv_bfloat16* r2 = bs + Q * ldn;
+  // B [Q][ldn] (float32 inputs: then its lo plane)
+  __nv_bfloat16* bs = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* bl = F32 ? bs + Q * ldn : nullptr;
+  __nv_bfloat16* r2 = bs + Planes<T>::value * Q * ldn;
   const int b = blockIdx.z, c = blockIdx.y, t0 = c * Q;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
   const int rows_in = min(Q, A.s - t0);
   stage(bs, ldn, A.bm + b * A.bsb + (long long)t0 * A.bss, A.bss, A.bsn,
-        rows_in, Q, A.n, A.np, A.vec_b);
+        rows_in, Q, A.n, A.np, A.vec_b, Q * ldn);
 
   if (blockIdx.x == A.nh * A.ptiles) {
     // -- (1) G_c = C_c B_c^T, blocks on or below the diagonal ------------
     __nv_bfloat16* cs = r2;                                     // [Q][ldn]
+    __nv_bfloat16* cl = F32 ? cs + Q * ldn : nullptr;
     stage(cs, ldn, A.cm + b * A.csb + (long long)t0 * A.css, A.css, A.csn,
-          rows_in, Q, A.n, A.np, A.vec_c);
+          rows_in, Q, A.n, A.np, A.vec_c, Q * ldn);
     cp_async_wait();
     __syncthreads();
     if (warp >= Q / 16) return;
@@ -484,16 +295,22 @@ __global__ void __launch_bounds__(CT) ssd_chunk_kernel(Ssd A) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
     for (int k0 = 0; k0 < A.np; k0 += 16) {
-      uint32_t af[4];
-      ldsm_x4(af, cs + (warp * 16 + (lane & 15)) * ldn + k0 + (lane >> 4) * 8);
+      const int aoff = (warp * 16 + (lane & 15)) * ldn + k0 + (lane >> 4) * 8;
+      uint32_t af[4], afl[4];
+      ldsm_x4(af, cs + aoff);
+      if constexpr (F32) ldsm_x4(afl, cl + aoff);
 #pragma unroll
       for (int jp = 0; jp < Q / 16; ++jp) {
         if (jp > warp) break;
-        uint32_t bf[4];
-        ldsm_x4(bf, bs + (jp * 16 + (lane & 7) + (lane >> 4) * 8) * ldn + k0 +
-                        ((lane >> 3) & 1) * 8);
-        mma_bf16(acc[2 * jp], af, bf[0], bf[1]);
-        mma_bf16(acc[2 * jp + 1], af, bf[2], bf[3]);
+        const int boff = (jp * 16 + (lane & 7) + (lane >> 4) * 8) * ldn + k0 +
+                         ((lane >> 3) & 1) * 8;
+        uint32_t bf[4], bfl[4];
+        ldsm_x4(bf, bs + boff);
+        if constexpr (F32) ldsm_x4(bfl, bl + boff);
+        mma_terms(acc[2 * jp], af, F32 ? afl : nullptr, bf[0], bf[1],
+                  F32 ? bfl : nullptr);
+        mma_terms(acc[2 * jp + 1], af, F32 ? afl : nullptr, bf[2], bf[3],
+                  F32 ? bfl + 2 : nullptr);
       }
     }
     float* g = A.g + ((long long)b * A.nc + c) * Q * Q;
@@ -512,16 +329,17 @@ __global__ void __launch_bounds__(CT) ssd_chunk_kernel(Ssd A) {
 
   // -- (2) D_c = sum_j (w_j x_j)^T B_j for 64 columns of P ----------------
   const int h = blockIdx.x / A.ptiles, p0 = (blockIdx.x % A.ptiles) * PT;
-  __nv_bfloat16* xh = r2;                 // [Q][PLD]: x, then hi of w_j x_j
+  __nv_bfloat16* xh = r2;                 // [Q][PLD]: hi of w_j x_j
   __nv_bfloat16* xl = xh + Q * PLD;       // lo
   float* dtv = reinterpret_cast<float*>(xl + Q * PLD);
   float* seg = dtv + Q;
   float* wr = seg + Q;                    // w_j
   const int cols_in = min(PT, A.p - p0);
-  stage(xh, PLD,
-        A.x + b * A.xsb + h * A.xsh + (long long)t0 * A.xss +
-            (long long)p0 * A.xsp,
-        A.xss, A.xsp, rows_in, Q, cols_in, PT, A.vec_x);
+  const long long xoff = b * A.xsb + h * A.xsh + (long long)t0 * A.xss +
+                         (long long)p0 * A.xsp;
+  if constexpr (!F32)   // x first, exact, into the hi plane
+    stage(xh, PLD, A.x + xoff, A.xss, A.xsp, rows_in, Q, cols_in, PT,
+          A.vec_x);
   chunk_seg<Q>(A, b, h, t0, dtv, seg);
   __syncthreads();
   const float last = seg[Q - 1];
@@ -531,19 +349,26 @@ __global__ void __launch_bounds__(CT) ssd_chunk_kernel(Ssd A) {
     A.dec[((long long)b * A.nh + h) * A.nc + c] = expf(last);
   cp_async_wait();
   __syncthreads();
-  // w_j x_j split in place: each thread reads, then writes, its own 8
-  for (int idx = threadIdx.x; idx < Q * (PT / 8); idx += CT) {
-    const int i = idx / (PT / 8), pp = (idx % (PT / 8)) * 8;
-    uint4 raw = *reinterpret_cast<const uint4*>(xh + i * PLD + pp);
-    const __nv_bfloat16* xv = reinterpret_cast<const __nv_bfloat16*>(&raw);
-    uint4 hi, lo;
-    __nv_bfloat16* hv = reinterpret_cast<__nv_bfloat16*>(&hi);
-    __nv_bfloat16* lv = reinterpret_cast<__nv_bfloat16*>(&lo);
-    const float w = wr[i];
+  if constexpr (F32) {
+    // w_j x_j from float32 x, split on its way in
+    stage(xh, PLD, A.x + xoff, A.xss, A.xsp, rows_in, Q, cols_in, PT,
+          A.vec_x, Q * PLD, wr);
+  } else {
+    // w_j x_j split in place: each thread reads, then writes, its own 8
+    for (int idx = threadIdx.x; idx < Q * (PT / 8); idx += CT) {
+      const int i = idx / (PT / 8), pp = (idx % (PT / 8)) * 8;
+      uint4 raw = *reinterpret_cast<const uint4*>(xh + i * PLD + pp);
+      const __nv_bfloat16* xv = reinterpret_cast<const __nv_bfloat16*>(&raw);
+      uint4 hi, lo;
+      __nv_bfloat16* hv = reinterpret_cast<__nv_bfloat16*>(&hi);
+      __nv_bfloat16* lv = reinterpret_cast<__nv_bfloat16*>(&lo);
+      const float w = wr[i];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) split(__bfloat162float(xv[e]) * w, hv[e], lv[e]);
-    *reinterpret_cast<uint4*>(xh + i * PLD + pp) = hi;
-    *reinterpret_cast<uint4*>(xl + i * PLD + pp) = lo;
+      for (int e = 0; e < 8; ++e)
+        split(__bfloat162float(xv[e]) * w, hv[e], lv[e]);
+      *reinterpret_cast<uint4*>(xh + i * PLD + pp) = hi;
+      *reinterpret_cast<uint4*>(xl + i * PLD + pp) = lo;
+    }
   }
   __syncthreads();
   const int wm = warp & 3, wn = warp >> 2;   // P rows 16 wm, N half wn
@@ -564,13 +389,15 @@ __global__ void __launch_bounds__(CT) ssd_chunk_kernel(Ssd A) {
     for (int jp = 0; jp < 4; ++jp) {
       const int n0 = (wn * 8 + 2 * jp) * 8;
       if (n0 >= A.np) break;
-      uint32_t bf[4];   // B stored [j][n]: read transposed
-      ldsm_x4_t(bf, bs + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldn + n0 +
-                        (lane >> 4) * 8);
-      mma_bf16(acc[2 * jp], ahi, bf[0], bf[1]);
-      mma_bf16(acc[2 * jp], alo, bf[0], bf[1]);
-      mma_bf16(acc[2 * jp + 1], ahi, bf[2], bf[3]);
-      mma_bf16(acc[2 * jp + 1], alo, bf[2], bf[3]);
+      // B stored [j][n]: read transposed
+      const int boff = (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldn + n0 +
+                       (lane >> 4) * 8;
+      uint32_t bf[4], bfl[4];
+      ldsm_x4_t(bf, bs + boff);
+      if constexpr (F32) ldsm_x4_t(bfl, bl + boff);
+      mma_terms(acc[2 * jp], ahi, alo, bf[0], bf[1], F32 ? bfl : nullptr);
+      mma_terms(acc[2 * jp + 1], ahi, alo, bf[2], bf[3],
+                F32 ? bfl + 2 : nullptr);
     }
   }
   // D through shared memory (over the staged tiles, once every warp is
@@ -607,8 +434,8 @@ __global__ void __launch_bounds__(CT) ssd_chunk_kernel(Ssd A) {
 
 // (3) the state pass: per (b, h) element of P x N, over the chunks in
 // order; V elements a thread (4 where P N allows 16-byte loads)
-template <int V>
-__global__ void __launch_bounds__(CT) ssd_state_kernel(Ssd A) {
+template <int V, typename T>
+__global__ void __launch_bounds__(CT) ssd_state_kernel(Ssd<T> A) {
   const int h = blockIdx.y, b = blockIdx.z;
   const int pn = A.p * A.n;
   const int e = (blockIdx.x * CT + threadIdx.x) * V;
@@ -666,13 +493,18 @@ __global__ void __launch_bounds__(CT) ssd_state_kernel(Ssd A) {
   for (int v = 0; v < V; ++v) A.fstate[bh * pn + e + v] = state[v];
 }
 
-// (4), one warp's 16 rows of the chunk: y into ys
-template <int Q>
+// (4), one warp's 16 rows of the chunk: y into ys (bfloat16), or straight
+// into yb's rows (float32)
+template <int Q, typename T>
 __device__ __forceinline__ void output_rows(
-    const Ssd& A, int warp, int lane, const __nv_bfloat16* cs,
+    const Ssd<T>& A, int warp, int lane, const __nv_bfloat16* cs,
     const __nv_bfloat16* sh, const __nv_bfloat16* sl,
-    const __nv_bfloat16* xs, __nv_bfloat16* ys, const float* dtv,
-    const float* seg, int ldn, int b, int c) {
+    const __nv_bfloat16* xs, __nv_bfloat16* ys, T* yb, int rows_in,
+    int cols_in, const float* dtv, const float* seg, int ldn, int b, int c) {
+  constexpr bool F32 = Planes<T>::value == 2;
+  // float32 inputs: C's and x's lo planes follow their hi planes
+  const __nv_bfloat16* cl = cs + Q * ldn;
+  const __nv_bfloat16* xl = xs + Q * PLD;
   const int gid = lane >> 2, tig = lane & 3;
   const int ra = warp * 16 + gid, rb = ra + 8;   // my rows of the chunk
   float acc[8][4];
@@ -693,8 +525,10 @@ __device__ __forceinline__ void output_rows(
   load_g(0, gv);
   // C_i . state^T: A = C [i][n]; B = the state [p][n], read as columns
   for (int k0 = 0; k0 < A.np; k0 += 16) {
-    uint32_t af[4];
-    ldsm_x4(af, cs + (warp * 16 + (lane & 15)) * ldn + k0 + (lane >> 4) * 8);
+    const int aoff = (warp * 16 + (lane & 15)) * ldn + k0 + (lane >> 4) * 8;
+    uint32_t af[4], afl[4];
+    ldsm_x4(af, cs + aoff);
+    if constexpr (F32) ldsm_x4(afl, cl + aoff);
 #pragma unroll
     for (int jp = 0; jp < 4; ++jp) {
       const int off = (jp * 16 + (lane & 7) + (lane >> 4) * 8) * ldn + k0 +
@@ -702,10 +536,9 @@ __device__ __forceinline__ void output_rows(
       uint32_t bh[4], bl[4];
       ldsm_x4(bh, sh + off);
       ldsm_x4(bl, sl + off);
-      mma_bf16(acc[2 * jp], af, bh[0], bh[1]);
-      mma_bf16(acc[2 * jp], af, bl[0], bl[1]);
-      mma_bf16(acc[2 * jp + 1], af, bh[2], bh[3]);
-      mma_bf16(acc[2 * jp + 1], af, bl[2], bl[3]);
+      mma_terms(acc[2 * jp], af, F32 ? afl : nullptr, bh[0], bh[1], bl);
+      mma_terms(acc[2 * jp + 1], af, F32 ? afl : nullptr, bh[2], bh[3],
+                bl + 2);
     }
   }
   const float ea = expf(seg[ra]), eb = expf(seg[rb]);
@@ -739,38 +572,65 @@ __device__ __forceinline__ void output_rows(
     }
 #pragma unroll
     for (int jp = 0; jp < 4; ++jp) {
-      uint32_t bf[4];   // x stored [j][p]: read transposed
-      ldsm_x4_t(bf, xs + (kb * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * PLD +
-                        jp * 16 + (lane >> 4) * 8);
-      mma_bf16(acc[2 * jp], ahi, bf[0], bf[1]);
-      mma_bf16(acc[2 * jp], alo, bf[0], bf[1]);
-      mma_bf16(acc[2 * jp + 1], ahi, bf[2], bf[3]);
-      mma_bf16(acc[2 * jp + 1], alo, bf[2], bf[3]);
+      // x stored [j][p]: read transposed
+      const int off = (kb * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * PLD +
+                      jp * 16 + (lane >> 4) * 8;
+      uint32_t bf[4], bfl[4];
+      ldsm_x4_t(bf, xs + off);
+      if constexpr (F32) ldsm_x4_t(bfl, xl + off);
+      mma_terms(acc[2 * jp], ahi, alo, bf[0], bf[1], F32 ? bfl : nullptr);
+      mma_terms(acc[2 * jp + 1], ahi, alo, bf[2], bf[3],
+                F32 ? bfl + 2 : nullptr);
     }
 #pragma unroll
     for (int f = 0; f < 4; ++f) gv[f] = gn[f];
   }
+  if constexpr (F32) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+    for (int r = 0; r < 2; ++r) {
+      const int i = r ? rb : ra;
+      if (i >= rows_in) continue;
+      T* yr = yb + i * A.yss;
 #pragma unroll
-    for (int r = 0; r < 2; ++r)
-      *reinterpret_cast<uint32_t*>(ys + (r ? rb : ra) * PLD + j * 8 +
-                                   2 * tig) =
-          pack2(__float2bfloat16_rn(acc[j][2 * r]),
-                __float2bfloat16_rn(acc[j][2 * r + 1]));
+      for (int j = 0; j < 8; ++j) {
+        const int pp = j * 8 + 2 * tig;
+        if (A.vec_y && pp < cols_in) {
+          *reinterpret_cast<float2*>(yr + pp) =
+              make_float2(acc[j][2 * r], acc[j][2 * r + 1]);
+        } else {
+          if (pp < cols_in) yr[pp * A.ysp] = acc[j][2 * r];
+          if (pp + 1 < cols_in) yr[(pp + 1) * A.ysp] = acc[j][2 * r + 1];
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<uint32_t*>(ys + (r ? rb : ra) * PLD + j * 8 +
+                                     2 * tig) =
+            pack2(__float2bfloat16_rn(acc[j][2 * r]),
+                  __float2bfloat16_rn(acc[j][2 * r + 1]));
+  }
 }
 
 // (4) y for one (b, c, h, 64 columns of P)
-template <int Q>
-__global__ void __launch_bounds__(CT) ssd_output_kernel(Ssd A) {
+template <int Q, typename T>
+__global__ void __launch_bounds__(CT) ssd_output_kernel(Ssd<T> A) {
+  constexpr bool F32 = Planes<T>::value == 2;
+  constexpr int NP = Planes<T>::value;
   extern __shared__ float4 smem4[];
   const int ldn = A.np + 8;
-  __nv_bfloat16* cs = reinterpret_cast<__nv_bfloat16*>(smem4);  // [Q][ldn]
-  __nv_bfloat16* sh = cs + Q * ldn;       // [PT][ldn] entry state, hi
-  __nv_bfloat16* sl = sh + PT * ldn;      // lo
-  __nv_bfloat16* xs = sl + PT * ldn;      // [Q][PLD]
-  __nv_bfloat16* ys = xs + Q * PLD;       // [Q][PLD]: y, for the stores
-  float* dtv = reinterpret_cast<float*>(ys + Q * PLD);
+  // C [Q][ldn], the entry state's hi and lo [PT][ldn], x [Q][PLD] (C and x
+  // each followed by its lo plane with float32 inputs), then y [Q][PLD]
+  // for the stores (bfloat16)
+  __nv_bfloat16* cs = reinterpret_cast<__nv_bfloat16*>(smem4);
+  __nv_bfloat16* sh = cs + NP * Q * ldn;
+  __nv_bfloat16* sl = sh + PT * ldn;
+  __nv_bfloat16* xs = sl + PT * ldn;
+  __nv_bfloat16* ys = xs + NP * Q * PLD;
+  float* dtv = reinterpret_cast<float*>(ys + (F32 ? 0 : Q * PLD));
   float* seg = dtv + Q;
   const int h = blockIdx.y, b = blockIdx.z;
   const int c = blockIdx.x / A.ptiles, p0 = (blockIdx.x % A.ptiles) * PT;
@@ -778,12 +638,13 @@ __global__ void __launch_bounds__(CT) ssd_output_kernel(Ssd A) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int rows_in = min(Q, A.s - t0), cols_in = min(PT, A.p - p0);
 
-  stage(cs, ldn, A.cm + b * A.csb + (long long)t0 * A.css, A.css, A.csn,
-        rows_in, Q, A.n, A.np, A.vec_c);
-  stage(xs, PLD,
-        A.x + b * A.xsb + h * A.xsh + (long long)t0 * A.xss +
-            (long long)p0 * A.xsp,
-        A.xss, A.xsp, rows_in, Q, cols_in, PT, A.vec_x);
+  const T* csrc = A.cm + b * A.csb + (long long)t0 * A.css;
+  const T* xsrc = A.x + b * A.xsb + h * A.xsh + (long long)t0 * A.xss +
+                  (long long)p0 * A.xsp;
+  stage(cs, ldn, csrc, A.css, A.csn, rows_in, Q, A.n, A.np, A.vec_c,
+        Q * ldn);
+  stage(xs, PLD, xsrc, A.xss, A.xsp, rows_in, Q, cols_in, PT, A.vec_x,
+        Q * PLD);
   const long long pn = (long long)A.p * A.n;
   const __nv_bfloat16* en =
       A.entry + (((long long)b * A.nc + c) * A.nh + h) * 2 * pn +
@@ -794,115 +655,103 @@ __global__ void __launch_bounds__(CT) ssd_output_kernel(Ssd A) {
   chunk_seg<Q>(A, b, h, t0, dtv, seg);
   cp_async_wait();
   __syncthreads();
-  if (warp < Q / 16) output_rows<Q>(A, warp, lane, cs, sh, sl, xs, ys, dtv,
-                                    seg, ldn, b, c);
-  __syncthreads();
-  // y rows of 64 columns, 16 bytes a store where the layout allows
-  __nv_bfloat16* yb = A.y + b * A.ysb + h * A.ysh + (long long)t0 * A.yss +
-                      (long long)p0 * A.ysp;
-  if (A.vec_y && cols_in % 8 == 0) {
-    for (int idx = threadIdx.x; idx < rows_in * (PT / 8); idx += CT) {
-      const int i = idx / (PT / 8), pp = (idx % (PT / 8)) * 8;
-      if (pp < cols_in)
-        *reinterpret_cast<uint4*>(yb + i * A.yss + pp) =
-            *reinterpret_cast<const uint4*>(ys + i * PLD + pp);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < rows_in * PT; idx += CT) {
-      const int i = idx / PT, pp = idx - i * PT;
-      if (pp < cols_in) yb[i * A.yss + pp * A.ysp] = ys[i * PLD + pp];
+  T* yb = A.y + b * A.ysb + h * A.ysh + (long long)t0 * A.yss +
+          (long long)p0 * A.ysp;
+  if (warp < Q / 16)
+    output_rows<Q>(A, warp, lane, cs, sh, sl, xs, ys, yb, rows_in, cols_in,
+                   dtv, seg, ldn, b, c);
+  if constexpr (!F32) {
+    __syncthreads();
+    // y rows of 64 columns, 16 bytes a store where the layout allows
+    if (A.vec_y && cols_in % 8 == 0) {
+      for (int idx = threadIdx.x; idx < rows_in * (PT / 8); idx += CT) {
+        const int i = idx / (PT / 8), pp = (idx % (PT / 8)) * 8;
+        if (pp < cols_in)
+          *reinterpret_cast<uint4*>(yb + i * A.yss + pp) =
+              *reinterpret_cast<const uint4*>(ys + i * PLD + pp);
+      }
+    } else {
+      for (int idx = threadIdx.x; idx < rows_in * PT; idx += CT) {
+        const int i = idx / PT, pp = idx - i * PT;
+        if (pp < cols_in) yb[i * A.yss + pp * A.ysp] = ys[i * PLD + pp];
+      }
     }
   }
 }
 
-size_t chunk_smem(int q, int np) {
+// shared memory of the chunk kernel: the G role stages B and C, the delta
+// role B, w x's hi and lo and three Q-vectors, then the delta tile; each
+// of B and C twice with float32 inputs (hi and lo)
+size_t chunk_smem(int q, int np, int planes) {
   const size_t ldn = np + 8;
-  const size_t g_role = 2 * q * ldn * 2;
-  const size_t d_role = q * ldn * 2 + 2 * q * PLD * 2 + 3 * q * 4;
+  const size_t g_role = 2 * planes * q * ldn * 2;
+  const size_t d_role = planes * q * ldn * 2 + 2 * q * PLD * 2 + 3 * q * 4;
   const size_t d_out = PT * (np + 4) * 4;   // the delta tile, staged last
   const size_t most = g_role > d_role ? g_role : d_role;
   return most > d_out ? most : d_out;
 }
 
-size_t output_smem(int q, int np) {
+size_t output_smem(int q, int np, int planes) {
   const size_t ldn = np + 8;
-  return (q * ldn + 2 * PT * ldn + 2 * q * PLD) * 2 + 2 * q * 4;
+  const size_t y_tile = planes == 1 ? q * PLD : 0;
+  return (planes * q * ldn + 2 * PT * ldn + planes * q * PLD + y_tile) * 2 +
+         2 * q * 4;
 }
 
-template <int Q>
-int launch_chunked(Ssd A, int batch, cudaStream_t stream) {
+template <int Q, typename T>
+int launch_chunked(Ssd<T> A, int batch, cudaStream_t stream) {
+  constexpr int NP = Planes<T>::value;
   if (A.nc > 0) {
-    const size_t sm2 = chunk_smem(Q, A.np), sm4 = output_smem(Q, A.np);
+    const size_t sm2 = chunk_smem(Q, A.np, NP), sm4 = output_smem(Q, A.np, NP);
     cudaError_t err = cudaFuncSetAttribute(
-        ssd_chunk_kernel<Q>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        ssd_chunk_kernel<Q, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)sm2);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(ssd_output_kernel<Q>,
+      err = cudaFuncSetAttribute(ssd_output_kernel<Q, T>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  (int)sm4);
     if (err != cudaSuccess) return (int)err;
-    ssd_chunk_kernel<Q><<<dim3(A.nh * A.ptiles + 1, A.nc, batch), CT, sm2,
-                          stream>>>(A);
+    ssd_chunk_kernel<Q, T><<<dim3(A.nh * A.ptiles + 1, A.nc, batch), CT, sm2,
+                             stream>>>(A);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   const int pn = A.p * A.n;
   if (pn % 4 == 0)
-    ssd_state_kernel<4><<<dim3((pn / 4 + CT - 1) / CT, A.nh, batch), CT, 0,
-                          stream>>>(A);
+    ssd_state_kernel<4, T><<<dim3((pn / 4 + CT - 1) / CT, A.nh, batch), CT,
+                             0, stream>>>(A);
   else
-    ssd_state_kernel<1><<<dim3((pn + CT - 1) / CT, A.nh, batch), CT, 0,
-                          stream>>>(A);
+    ssd_state_kernel<1, T><<<dim3((pn + CT - 1) / CT, A.nh, batch), CT, 0,
+                             stream>>>(A);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || A.nc == 0) return (int)err;
-  ssd_output_kernel<Q><<<dim3(A.nc * A.ptiles, A.nh, batch), CT,
-                         output_smem(Q, A.np), stream>>>(A);
+  ssd_output_kernel<Q, T><<<dim3(A.nc * A.ptiles, A.nh, batch), CT,
+                            output_smem(Q, A.np, NP), stream>>>(A);
   return (int)cudaGetLastError();
 }
 
-int launch_f32(const float* x, const float* dt, const float* a,
-               const float* bm, const float* cm, const float* init, float* y,
-               float* fstate, const long long* st, int batch, int nh, int s,
-               int p, int n, int chunk, void* stream) {
-  if (batch <= 0 || nh <= 0 || s < 0 || p <= 0 || n <= 0 || n > MAX_N ||
-      batch > 65535 || nh > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t str = static_cast<cudaStream_t>(stream);
-  switch (chunk) {
-    case 16:
-      return launch_q<1>(x, dt, a, bm, cm, init, y, fstate, st, batch,
-                                nh, s, p, n, str);
-    case 64:
-      return launch_q<4>(x, dt, a, bm, cm, init, y, fstate, st, batch,
-                                nh, s, p, n, str);
-    case 128:
-      return launch_q<8>(x, dt, a, bm, cm, init, y, fstate, st, batch,
-                                nh, s, p, n, str);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-int launch_bf16(const __nv_bfloat16* x, const float* dt, const float* a,
-                const __nv_bfloat16* bm, const __nv_bfloat16* cm,
-                const float* init, __nv_bfloat16* y, float* fstate,
-                float* scratch, const long long* sd, int batch, int nh,
-                int s, int p, int n, int chunk, void* stream) {
+template <typename T>
+int launch(const T* x, const float* dt, const float* a, const T* bm,
+           const T* cm, const float* init, T* y, float* fstate,
+           float* scratch, const long long* sd, int batch, int nh, int s,
+           int p, int n, int chunk, void* stream) {
   if (batch <= 0 || nh <= 0 || s < 0 || p <= 0 || n <= 0 || n > MAX_N ||
       batch > 65535 || nh > 65535 ||
       (chunk != 16 && chunk != 64 && chunk != 128))
     return (int)cudaErrorInvalidValue;
-  Ssd A{x, dt, a, bm, cm, init, y, fstate, nullptr, nullptr, nullptr,
-        nullptr, sd[0], sd[1], sd[2], sd[3], sd[4], sd[5], sd[6], sd[7], sd[8],
-        sd[9], sd[10], sd[11], sd[12], sd[13], sd[14], sd[15], sd[16],
-        nh, s, p, n, (s + chunk - 1) / chunk, (n + 15) / 16 * 16,
-        (p + PT - 1) / PT};
+  Ssd<T> A{x, dt, a, bm, cm, init, y, fstate, nullptr, nullptr, nullptr,
+           nullptr, sd[0], sd[1], sd[2], sd[3], sd[4], sd[5], sd[6], sd[7],
+           sd[8], sd[9], sd[10], sd[11], sd[12], sd[13], sd[14], sd[15],
+           sd[16], nh, s, p, n, (s + chunk - 1) / chunk,
+           (n + 15) / 16 * 16, (p + PT - 1) / PT};
   if (A.nc > 65535) return (int)cudaErrorInvalidValue;
+  // 16 bytes a copy: E elements of T
+  constexpr int E = 16 / sizeof(T);
   auto vec = [](const void* ptr, long long inner, long long s0, long long s1,
                 long long s2, int cols) {
     return reinterpret_cast<unsigned long long>(ptr) % 16 == 0 &&
-           inner == 1 && s0 % 8 == 0 && s1 % 8 == 0 && s2 % 8 == 0 &&
-           cols % 8 == 0;
+           inner == 1 && s0 % E == 0 && s1 % E == 0 && s2 % E == 0 &&
+           cols % E == 0;
   };
   A.vec_x = vec(x, A.xsp, A.xsb, A.xsh, A.xss, p);
   A.vec_b = vec(bm, A.bsn, A.bsb, A.bss, 0, n);
@@ -929,14 +778,16 @@ int launch_bf16(const __nv_bfloat16* x, const float* dt, const float* a,
 // strides: 17 values in elements: x (batch, head, seq, p); dt (batch,
 // head, seq); B (batch, seq, n); C (batch, seq, n); y (batch, head, seq,
 // p). init (may be null) and fstate are contiguous (B, H, P, N) float32.
-// ssd_scan_bf16's scratch holds ssd_scan_scratch(...) float32 values.
+// scratch holds ssd_scan_scratch(...) float32 values (kernel.py's
+// scratch_size), for either entry.
 extern "C" int ssd_scan_f32(const float* x, const float* dt, const float* a,
                             const float* bm, const float* cm,
                             const float* init, float* y, float* fstate,
-                            const long long* strides, int batch, int nh,
-                            int s, int p, int n, int chunk, void* stream) {
-  return launch_f32(x, dt, a, bm, cm, init, y, fstate, strides, batch, nh, s,
-                    p, n, chunk, stream);
+                            float* scratch, const long long* strides,
+                            int batch, int nh, int s, int p, int n,
+                            int chunk, void* stream) {
+  return launch<float>(x, dt, a, bm, cm, init, y, fstate, scratch, strides,
+                       batch, nh, s, p, n, chunk, stream);
 }
 
 extern "C" int ssd_scan_bf16(const __nv_bfloat16* x, const float* dt,
@@ -945,6 +796,6 @@ extern "C" int ssd_scan_bf16(const __nv_bfloat16* x, const float* dt,
                              __nv_bfloat16* y, float* fstate, float* scratch,
                              const long long* strides, int batch, int nh,
                              int s, int p, int n, int chunk, void* stream) {
-  return launch_bf16(x, dt, a, bm, cm, init, y, fstate, scratch, strides,
-                     batch, nh, s, p, n, chunk, stream);
+  return launch<__nv_bfloat16>(x, dt, a, bm, cm, init, y, fstate, scratch,
+                               strides, batch, nh, s, p, n, chunk, stream);
 }

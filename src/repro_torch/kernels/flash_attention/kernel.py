@@ -7,15 +7,18 @@ with ``nvcc`` and loaded through ``ctypes`` on the first call with a CUDA
 tensor; CPU tensors take the plain version in ``ref.py``, and nothing else
 does.
 
-It has two bodies, chosen from the inputs (:func:`takes_hopper_body`):
-bfloat16 with head dim 64, 128 or 256 on rows TMA can address runs the
-Hopper body (TMA loads, ``wgmma`` products; at head dims 64 and 128 kv
-tiles of ``KV_ROWS`` rows and blocks of :func:`block_rows` query rows, at
-gemma_2b's 256 kv tiles of ``KV_ROWS_D256`` rows and blocks of
-``BLOCK_ROWS_D256``); float32 at any head dim, and bfloat16 at other
-head dims or on rows TMA cannot address, run the CUDA-core body.
-``flash_attention.launches`` counts every launch,
-``flash_attention.hopper_launches`` and ``flash_attention.cuda_core_launches``
+It has three bodies, chosen from the inputs (:func:`takes_hopper_body`,
+:func:`takes_tf32_body`): bfloat16 with head dim 64, 128 or 256 on rows
+TMA can address runs the Hopper body (TMA loads, ``wgmma`` products; at
+head dims 64 and 128 kv tiles of ``KV_ROWS`` rows and blocks of
+:func:`block_rows` query rows, at gemma_2b's 256 kv tiles of
+``KV_ROWS_D256`` rows and blocks of ``BLOCK_ROWS_D256``); float32 with head
+dim 64, 128 or 256 on rows ``cp.async`` copies 16 bytes at a time runs the
+float32 tensor-core body (``mma.sync`` in split TF32: each operand as two
+TF32 terms, three products for one, float32 sums); float32 and bfloat16
+otherwise run the CUDA-core body. ``flash_attention.launches`` counts
+every launch, ``flash_attention.hopper_launches``,
+``flash_attention.tf32_launches`` and ``flash_attention.cuda_core_launches``
 each body's, ``flash_attention.lse_launches`` those that also wrote the
 rows' log-sum-exp (``return_lse=True``, the training path's forward),
 ``flash_attention.window_launches`` those with a sliding window
@@ -43,9 +46,10 @@ from .. import _build
 from . import ref
 
 #: head dims the kernel takes (multiples of 8 up to this), and those of
-#: the Hopper body
+#: the Hopper body and of the float32 tensor-core body
 MAX_HEAD_DIM = 256
 HOPPER_HEAD_DIMS = (64, 128, 256)
+TF32_HEAD_DIMS = (64, 128, 256)
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
 #: the query rows a block of the Hopper body is compiled for (64 per
@@ -59,6 +63,11 @@ KV_ROWS = 128
 #: slower at gemma_2b's heads at every S tried: PERF.md)
 KV_ROWS_D256 = 64
 BLOCK_ROWS_D256 = 64
+#: the float32 tensor-core body's plan (``flash_tf32_kernel``): query
+#: rows a block (16 a warp, 4 warps) and kv rows a tile by head dim (one
+#: 32-row stage at 256, for the shared memory; two 64-row stages below)
+TF32_BLOCK_ROWS = 64
+TF32_KV_ROWS = {64: 64, 128: 64, 256: 32}
 #: the card's SMs
 SMS = 132
 
@@ -88,6 +97,18 @@ def takes_hopper_body(q, k, v) -> bool:
             and q.shape[3] in HOPPER_HEAD_DIMS
             and all(t.data_ptr() % 16 == 0 and all(
                 st % 8 == 0 and st > 0 for st in _strides(t))
+                for t in (q, k, v)))
+
+
+def takes_tf32_body(q, k, v) -> bool:
+    """Whether these inputs (already validated by the wrapper) run the
+    float32 tensor-core body: float32, head dim 64, 128 or 256,
+    16-byte-aligned pointers and strides that are multiples of 4 elements
+    (what ``cp.async`` copies 16 bytes at a time)."""
+    return (q.dtype == torch.float32
+            and q.shape[3] in TF32_HEAD_DIMS
+            and all(t.data_ptr() % 16 == 0 and all(
+                st % 4 == 0 and st > 0 for st in _strides(t))
                 for t in (q, k, v)))
 
 
@@ -148,6 +169,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     strides = (ctypes.c_longlong * 12)(*(
         st for t in (q, k, v, out) for st in _strides(t)))
     hopper = takes_hopper_body(q, k, v)
+    tf32 = not hopper and takes_tf32_body(q, k, v)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -156,6 +178,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         if hopper:
             bq = BLOCK_ROWS_D256 if d == 256 else block_rows(b, s, hq)
             err = _entry("flash_attention_bf16_hopper")(*args, bq, stream)
+        elif tf32:
+            err = _entry("flash_attention_f32_tf32")(*args, stream)
         else:
             err = _entry(_ENTRY[q.dtype])(*args, stream)
     if err:
@@ -164,6 +188,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     flash_attention.launches += 1
     if hopper:
         flash_attention.hopper_launches += 1
+    elif tf32:
+        flash_attention.tf32_launches += 1
     else:
         flash_attention.cuda_core_launches += 1
     if window:
@@ -176,6 +202,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 flash_attention.launches = 0
 flash_attention.hopper_launches = 0
+flash_attention.tf32_launches = 0
 flash_attention.cuda_core_launches = 0
 flash_attention.lse_launches = 0
 flash_attention.window_launches = 0

@@ -5,9 +5,10 @@ The kernel (``csrc/ssd_scan.cu``, CUDA C++ for sm_90a) replaces
 ``nvcc`` and loaded through ``ctypes`` on the first call with a CUDA
 tensor; CPU tensors take the plain version in ``ref.py``, and nothing else
 does. ``ssd_scan.launches`` counts the wrapper's launches: one a call,
-whose bfloat16 body runs three CUDA kernels (the chunk scores and deltas,
-the state pass, the outputs) on scratch the wrapper allocates
-(:func:`scratch_size`), and whose float32 body runs one.
+which runs three CUDA kernels (the chunk scores and deltas, the state pass,
+the outputs) on scratch the wrapper allocates (:func:`scratch_size`), in
+bfloat16 and float32 alike (float32 x, B and C split into two bfloat16
+terms each on the tensor cores).
 
 On CPU tensors the plain version runs as one operator,
 ``torch.ops.repro_torch.ssd_scan_plain`` (``_plain_torch``), with a fake
@@ -35,7 +36,7 @@ _ENTRY = {torch.float32: "ssd_scan_f32", torch.bfloat16: "ssd_scan_bf16"}
 
 
 def scratch_size(b: int, h: int, s: int, p: int, n: int, chunk: int) -> int:
-    """float32 values of the bfloat16 body's scratch: the chunk scores
+    """float32 values of the kernel's scratch: the chunk scores
     C_c B_c^T (B, nc, Q, Q), the chunk deltas (B, nc, H, P, N), the entry
     states as hi and lo bfloat16 planes (the same bytes) and the chunk
     decays (B, H, nc)."""
@@ -111,10 +112,9 @@ def ssd_scan(x, dt, a, b_mat, c_mat, *, chunk: int = 128, init_state=None,
             c_mat.data_ptr(),
             None if init_state is None else init_state.data_ptr(),
             out.data_ptr(), state.data_ptr()]
-    if x.dtype == torch.bfloat16:
-        scratch = torch.empty((scratch_size(b, h, s, p, n, chunk),),
-                              dtype=torch.float32, device=x.device)
-        ptrs.append(scratch.data_ptr())
+    scratch = torch.empty((scratch_size(b, h, s, p, n, chunk),),
+                          dtype=torch.float32, device=x.device)
+    ptrs.append(scratch.data_ptr())
     with torch.cuda.device(x.device):
         err = _entry(_ENTRY[x.dtype])(
             *ptrs, strides, b, h, s, p, n, chunk,
@@ -164,8 +164,7 @@ def _plain_flops_np(x_shape, dt_shape, a_shape, b_shape, c_shape, chunk,
 @functools.lru_cache(maxsize=None)
 def _entry(name):
     fn = getattr(_build.load("ssd_scan"), name)
-    pointers = 9 if name == _ENTRY[torch.bfloat16] else 8
-    fn.argtypes = [ctypes.c_void_p] * pointers \
+    fn.argtypes = [ctypes.c_void_p] * 9 \
         + [ctypes.POINTER(ctypes.c_longlong)] \
         + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int

@@ -920,7 +920,8 @@ def test_mamba_serving_engine_on_card_matches_cpu(cuda):
 
 def _flash_counts():
     fa = flash_kernel.flash_attention
-    return fa.launches, fa.hopper_launches, fa.cuda_core_launches
+    return fa.launches, fa.hopper_launches, fa.tf32_launches, \
+        fa.cuda_core_launches
 
 
 @pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 1000])
@@ -941,7 +942,7 @@ def test_flash_hopper_body_edges(cuda, monkeypatch, s, d):
                 got = flash_kernel.flash_attention(q, k, v, causal=causal)
                 torch.cuda.synchronize()
                 assert _flash_counts() == (before[0] + 1, before[1] + 1,
-                                           before[2])
+                                           before[2], before[3])
                 want = flash_ref.flash_attention(q, k, v, causal=causal)
                 torch.testing.assert_close(got.float(), want.float(),
                                            rtol=2e-2, atol=2e-2)
@@ -963,22 +964,24 @@ def test_flash_hopper_body_model_layout(cuda):
 
 
 @pytest.mark.parametrize("case", ["float32", "unaligned", "head_dim_32",
-                                  "head_dim_64"])
+                                  "head_dim_64", "float32_unaligned"])
 def test_flash_body_is_chosen_by_input(cuda, case):
-    # float32, rows off 16 bytes and head dims other than 64 and 128 take
-    # the CUDA-core body; aligned bf16 at 64 or 128 the Hopper one
+    # aligned float32 at 64 takes the float32 tensor-core body, aligned
+    # bf16 at 64 the Hopper one; rows off 16 bytes (either dtype) and head
+    # dims other than 64, 128 and 256 take the CUDA-core body
     s, d = 200, 32 if case == "head_dim_32" else 64
-    dtype = torch.float32 if case == "float32" else torch.bfloat16
+    dtype = torch.float32 if case.startswith("float32") else torch.bfloat16
     buf = _randn((3, 1, s, 4, d + 8), dtype, cuda, 22)
-    lo = 1 if case == "unaligned" else 0
+    lo = 1 if case.endswith("unaligned") else 0
     q, k, v = (buf[i, :, :, :(4 if i == 0 else 2), lo:lo + d]
                for i in range(3))
     before = _flash_counts()
     got = flash_kernel.flash_attention(q, k, v)
     torch.cuda.synchronize()
-    hopper = case == "head_dim_64"
+    hopper, tf32 = case == "head_dim_64", case == "float32"
     assert _flash_counts() == (before[0] + 1, before[1] + hopper,
-                               before[2] + (not hopper))
+                               before[2] + tf32,
+                               before[3] + (not hopper and not tf32))
     want = flash_ref.flash_attention(q, k, v)
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
@@ -1334,8 +1337,9 @@ def test_lexmm_churn_vds_on_card_matches_plain(cuda, monkeypatch):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_head_dim_256_takes_the_cuda_core_body(cuda, dtype):
     # gemma_2b's 8 query heads on one kv head at head dim 256, causal,
-    # ragged S: float32 takes the CUDA-core body, bfloat16 the Hopper body
-    # (64-row kv stages)
+    # ragged S: float32 takes the float32 tensor-core body (32-row kv
+    # tiles), bfloat16 the Hopper body (64-row kv stages); the CUDA-core
+    # body neither
     q = _randn((1, 333, 8, 256), dtype, cuda, 31)
     k = _randn((1, 333, 1, 256), dtype, cuda, 32)
     v = _randn((1, 333, 1, 256), dtype, cuda, 33)
@@ -1344,7 +1348,7 @@ def test_flash_head_dim_256_takes_the_cuda_core_body(cuda, dtype):
     torch.cuda.synchronize()
     hopper = dtype == torch.bfloat16
     assert _flash_counts() == (before[0] + 1, before[1] + hopper,
-                               before[2] + (not hopper))
+                               before[2] + (not hopper), before[3])
     want = flash_ref.flash_attention(q.float(), k.float(), v.float())
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
@@ -1379,7 +1383,8 @@ def test_gemma_prefill_takes_the_cuda_core_body(cuda):
     logits, caches = tmodel.forward_prefill(cfg, params, [[3] * 70],
                                             device=cuda)
     torch.cuda.synchronize()
-    assert _flash_counts() == (before[0] + 1, before[1] + 1, before[2])
+    assert _flash_counts() == (before[0] + 1, before[1] + 1, before[2],
+                               before[3])
     assert caches[0]["k"].shape == (1, 70, 1, 256)
     assert bool(torch.isfinite(logits).all())
     tc = decode_kernel.decode_attention.tc_launches
@@ -1454,8 +1459,8 @@ def test_frontend_stub_prefill_on_card_matches_cpu(cuda, arch):
 
 def _lse_counts():
     fa = flash_kernel.flash_attention
-    return fa.launches, fa.hopper_launches, fa.cuda_core_launches, \
-        fa.lse_launches
+    return fa.launches, fa.hopper_launches, fa.tf32_launches, \
+        fa.cuda_core_launches, fa.lse_launches
 
 
 @pytest.mark.parametrize("s", [1, 65, 200, 1000])
@@ -1463,8 +1468,9 @@ def _lse_counts():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_lse_matches_plain(cuda, s, d, dtype, causal):
-    # each row's log-sum-exp from both bodies (bf16 at 64 and 128: the
-    # Hopper body), ragged S and GQA 2:1; lse is float32 in both runs:
+    # each row's log-sum-exp from both tensor-core bodies (bf16: the
+    # Hopper body; float32: the split-TF32 body), ragged S and GQA 2:1;
+    # lse is float32 in both runs:
     # 1e-5 in float32, 1e-3 in bfloat16 (the scores are products of the
     # same bf16 inputs summed in float32)
     q = _randn((2, s, 4, d), dtype, cuda, 31)
@@ -1475,8 +1481,11 @@ def test_flash_lse_matches_plain(cuda, s, d, dtype, causal):
                                             return_lse=True)
     torch.cuda.synchronize()
     hopper = dtype == torch.bfloat16 and d in flash_kernel.HOPPER_HEAD_DIMS
+    tf32 = dtype == torch.float32 and d in flash_kernel.TF32_HEAD_DIMS
     assert _lse_counts() == (before[0] + 1, before[1] + hopper,
-                             before[2] + (not hopper), before[3] + 1)
+                             before[2] + tf32,
+                             before[3] + (not hopper and not tf32),
+                             before[4] + 1)
     assert lse.shape == (2, 4, s) and lse.dtype == torch.float32
     want_out, want_lse = flash_ref.flash_attention(q, k, v, causal=causal,
                                                    return_lse=True)
@@ -1487,7 +1496,7 @@ def test_flash_lse_matches_plain(cuda, s, d, dtype, causal):
     # the serving call (no lse) writes the same output
     assert torch.equal(flash_kernel.flash_attention(q, k, v, causal=causal),
                        out)
-    assert _lse_counts()[3] == before[3] + 1
+    assert _lse_counts()[4] == before[4] + 1
 
 
 def _plain_ssd_train(x, dt, a, b_mat, c_mat, *, chunk):
@@ -1574,9 +1583,9 @@ def test_bf16_train_step_on_card_is_finite(cuda, arch):
     now = (*_lse_counts(), ssd_kernel.ssd_scan.launches)
     launched = [a - b for a, b in zip(now, counts)]
     if cfg.has_mixer("attn"):
-        assert launched == [8, 8, 0, 8, 0]
+        assert launched == [8, 8, 0, 0, 8, 0]
     else:
-        assert launched == [0, 0, 0, 0, 8]
+        assert launched == [0, 0, 0, 0, 0, 8]
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
     assert float(metrics["grad_norm"]) > 0
     assert abs(float(metrics["loss"]) - np.log(cfg.vocab_size)) < 2
@@ -1592,8 +1601,8 @@ def test_bf16_train_step_on_card_is_finite(cuda, arch):
 
 def _window_counts():
     fa = flash_kernel.flash_attention
-    return (fa.launches, fa.hopper_launches, fa.cuda_core_launches,
-            fa.window_launches)
+    return (fa.launches, fa.hopper_launches, fa.tf32_launches,
+            fa.cuda_core_launches, fa.window_launches)
 
 
 @pytest.mark.parametrize("s,window", [(1000, 1), (1000, 48), (1000, 128),
@@ -1604,11 +1613,10 @@ def _window_counts():
                                      (torch.bfloat16, 256),
                                      (torch.float32, 128)])
 def test_flash_window_matches_plain(cuda, monkeypatch, s, window, dtype, d):
-    # both block sizes of the Hopper body (bf16 at head dims 64 and 128),
-    # the CUDA-core body (float32, and bf16 at head dim 256), windows of
-    # one key, inside, on and across the kv tiles, past S; out and lse
-    # against the plain version; each call counted on its body and as
-    # windowed
+    # both block sizes of the Hopper body (bf16 at head dims 64, 128 and
+    # 256), the float32 tensor-core body (float32 at 128), windows of one
+    # key, inside, on and across the kv tiles, past S; out and lse against
+    # the plain version; each call counted on its body and as windowed
     hopper = dtype == torch.bfloat16 and d in flash_kernel.HOPPER_HEAD_DIMS
     q = _randn((1, s, 8, d), dtype, cuda, s + window)
     k = _randn((1, s, 4, d), dtype, cuda, s + window + 1)
@@ -1626,8 +1634,8 @@ def test_flash_window_matches_plain(cuda, monkeypatch, s, window, dtype, d):
                                                return_lse=lse)
             torch.cuda.synchronize()
             assert _window_counts() == (before[0] + 1, before[1] + hopper,
-                                        before[2] + (not hopper),
-                                        before[3] + 1)
+                                        before[2] + (not hopper), before[3],
+                                        before[4] + 1)
             out = got[0] if lse else got
             torch.testing.assert_close(out.float(), want, rtol=tol,
                                        atol=tol)
@@ -1648,7 +1656,7 @@ def test_flash_window_long_prompt(cuda, hq, hkv):
     got = flash_kernel.flash_attention(q, k, v, window=window)
     torch.cuda.synchronize()
     assert _window_counts() == (before[0] + 1, before[1] + 1, before[2],
-                                before[3] + 1)
+                                before[3], before[4] + 1)
     want = flash_ref.flash_attention(q.float(), k.float(), v.float(),
                                      window=window)
     torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
@@ -1795,15 +1803,18 @@ def test_decode_f32_q_over_bf16_cache_matches_plain(cuda, monkeypatch, hq,
 
 
 def test_split_dtype_serving_engine_on_card_matches_cpu(cuda):
-    # the smoke config with float32 params over bfloat16 activations: every
-    # decode launch takes the mixed entry, every prefill flash's float32
-    # body, and the tokens equal the plain versions' on the CPU
+    # the smoke config at head dim 64 with float32 params over bfloat16
+    # activations: every decode launch takes the mixed entry, every
+    # prefill flash the float32 tensor-core body, and the tokens equal the
+    # plain versions' on the CPU
     import dataclasses
     from repro_torch.configs import get_smoke_config
     from repro_torch.models.model import init_params
     from repro_torch.serve import ServingEngine
     cfg = dataclasses.replace(get_smoke_config("qwen3_1_7b"),
-                              param_dtype="float32", dtype="bfloat16")
+                              param_dtype="float32", dtype="bfloat16",
+                              d_model=256, num_heads=4, num_kv_heads=2,
+                              head_dim=64)
     params = init_params(cfg, 0, device="cpu")
     out = {}
     for dev in ("cpu", "cuda"):
@@ -1816,11 +1827,11 @@ def test_split_dtype_serving_engine_on_card_matches_cpu(cuda):
                        [int(t) for t in rng.integers(0, cfg.vocab_size, 7)],
                        max_new_tokens=5)
         fa, da = flash_kernel.flash_attention, decode_kernel.decode_attention
-        before = (fa.launches, fa.cuda_core_launches, da.launches,
+        before = (fa.launches, fa.tf32_launches, da.launches,
                   da.mixed_launches)
         done = eng.run(max_steps=40)
         launched = tuple(a - b for a, b in zip(
-            (fa.launches, fa.cuda_core_launches, da.launches,
+            (fa.launches, fa.tf32_launches, da.launches,
              da.mixed_launches), before))
         out[dev] = [(r.rid, r.out_tokens) for r in done]
         assert eng.caches[0]["k"].dtype == torch.bfloat16
@@ -1852,7 +1863,7 @@ def test_flash_d256_hopper_body_matches_plain(cuda, s, hq, hkv):
                                                return_lse=lse)
             torch.cuda.synchronize()
             assert _lse_counts() == (before[0] + 1, before[1] + 1,
-                                     before[2], before[3] + lse)
+                                     before[2], before[3], before[4] + lse)
             out = got[0] if lse else got
             torch.testing.assert_close(out.float(), want, rtol=2e-2,
                                        atol=2e-2)
@@ -1876,7 +1887,7 @@ def test_flash_d256_hopper_body_window_and_layout(cuda, window):
                                             return_lse=True)
     torch.cuda.synchronize()
     assert _window_counts() == (before[0] + 1, before[1] + 1, before[2],
-                                before[3] + 1)
+                                before[3], before[4] + 1)
     torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
     torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-3)
 
@@ -1956,3 +1967,135 @@ def test_decode_tc_body_is_chosen_by_input(cuda, case):
                                        lens)
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+
+
+# -- the float32 bodies on the tensor cores: flash in split TF32, ssd_scan's
+# float32 entry on the chunked body ------------------------------------------
+
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 129, 333, 1000])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_tf32_body_matches_plain(cuda, s, d):
+    # GQA 1:1, 2:1 and 4:1 at the blocks' and kv tiles' edges and ragged;
+    # causal or not, with and without the lse, at the float32 bounds
+    # (2e-5; lse 1e-5); each call on the float32 tensor-core body
+    for rep in (1, 2, 4):
+        q = _randn((2, s, 2 * rep, d), torch.float32, cuda, s + rep)
+        k = _randn((2, s, 2, d), torch.float32, cuda, s + 2 * rep)
+        v = _randn((2, s, 2, d), torch.float32, cuda, s + 3 * rep)
+        for causal in (True, False):
+            want, want_lse = flash_ref.flash_attention(
+                q, k, v, causal=causal, return_lse=True)
+            for lse in (False, True):
+                before = _lse_counts()
+                got = flash_kernel.flash_attention(q, k, v, causal=causal,
+                                                   return_lse=lse)
+                torch.cuda.synchronize()
+                assert _lse_counts() == (before[0] + 1, before[1],
+                                         before[2] + 1, before[3],
+                                         before[4] + lse)
+                out = got[0] if lse else got
+                torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
+                if lse:
+                    torch.testing.assert_close(got[1], want_lse, rtol=0,
+                                               atol=1e-5)
+
+
+@pytest.mark.parametrize("window", [1, 40, 64, 256, 700])
+def test_flash_tf32_body_window_and_layout(cuda, window):
+    # two sequences of 1,000 rows as views of one fused (B, S, Hq + 2 Hkv,
+    # D) float32 projection at qwen3_1_7b's heads, windows of one key,
+    # inside a tile, one tile, four and past S: the float32 tensor-core
+    # body reads the strides, each call counted as windowed
+    qkv = _randn((2, 1000, 16 + 2 * 8, 128), torch.float32, cuda, window)
+    q, k, v = qkv[:, :, :16], qkv[:, :, 16:24], qkv[:, :, 24:]
+    want, want_lse = flash_ref.flash_attention(
+        q.contiguous(), k.contiguous(), v.contiguous(), window=window,
+        return_lse=True)
+    before = _window_counts()
+    got, lse = flash_kernel.flash_attention(q, k, v, window=window,
+                                            return_lse=True)
+    torch.cuda.synchronize()
+    assert _window_counts() == (before[0] + 1, before[1], before[2] + 1,
+                                before[3], before[4] + 1)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=1e-5)
+
+
+def test_train_grads_through_the_tf32_body_match_plain(cuda, monkeypatch):
+    # a 2-layer float32 qwen3 at head dim 64: _FlashTrain's forward (with
+    # lse) on the float32 tensor-core body, the loss and every gradient
+    # against the plain flash's at 1e-4 x max|.|
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import attention as attention_mod
+    from repro_torch.models.model import init_params
+    cfg = dataclasses.replace(get_smoke_config("qwen3_1_7b"),
+                              attn_flash_block=64, d_model=256, num_heads=4,
+                              num_kv_heads=2, head_dim=64)
+    params = init_params(cfg, 3, device="cpu").to(cuda)
+    g = torch.Generator().manual_seed(8)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 128), generator=g)
+    batch = {"tokens": tokens, "labels": tokens.roll(-1, 1)}
+    fa = flash_kernel.flash_attention
+    before = (fa.tf32_launches, fa.lse_launches)
+    loss, grads = _train_grads(cfg, params, batch, cuda)
+    assert (fa.tf32_launches - before[0], fa.lse_launches - before[1]) == \
+        (4, 4)
+    monkeypatch.setattr(attention_mod, "flash_attention",
+                        flash_ref.flash_attention)
+    want_loss, want = _train_grads(cfg, params, batch, cuda)
+    assert abs(loss - want_loss) <= 1e-4 * abs(want_loss)
+    for name, w in want.items():
+        err = float((grads[name] - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()), (name, err)
+
+
+@pytest.mark.parametrize("b,h,s,p,n,chunk,init", [
+    (1, 3, 0, 64, 128, 128, True),        # no rows: the state passes through
+    (1, 2, 129, 130, 7, 128, True),       # P in three tiles, odd N
+    (2, 4, 1024, 64, 128, 128, True),     # B 2 at mamba2's widths
+    (1, 3, 17, 64, 128, 16, False),       # ragged at chunk 16
+    (2, 2, 16, 64, 24, 16, True),         # one full chunk of 16
+    (1, 5, 127, 40, 128, 128, False),     # S one short of a chunk
+    (1, 6, 300, 64, 16, 64, True)])       # jamba's state and chunk
+def test_ssd_f32_chunked_body_edges(cuda, b, h, s, p, n, chunk, init):
+    # float32 x, B and C on the chunked body (every operand split in two
+    # bfloat16 terms), at the float32 bound 1e-4 x max(1, max|plain|)
+    x, dt, a, bm, cm, st0 = _ssd_inputs(b, h, s, p, n, torch.float32, cuda,
+                                        s + n, init)
+    before = ssd_kernel.ssd_scan.launches
+    y, state = ssd_kernel.ssd_scan(x, dt, a, bm, cm, chunk=chunk,
+                                   init_state=st0)
+    torch.cuda.synchronize()
+    assert ssd_kernel.ssd_scan.launches == before + 1
+    assert y.shape == x.shape and y.dtype == torch.float32
+    if s == 0:
+        assert torch.equal(state, st0)
+        return
+    want_y, want_state = ssd_ref.ssd_scan(x, dt, a, bm, cm, chunk=chunk,
+                                          init_state=st0)
+    _ssd_close(y, want_y, SSD_TOL[torch.float32], "y")
+    _ssd_close(state, want_state, SSD_TOL[torch.float32], "final state")
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_ssd_f32_model_layout_at_prefill_width(cuda, offset):
+    # ops.ssd_chunked on float32 slices of one conv output at mamba2_1_3b's
+    # widths (64 heads x 64, N 128, chunk 128), S 512: 16-byte rows take
+    # the float4 staging; one element in, the element-wise staging
+    s, h, p, n = 512, 64, 64, 128
+    g = torch.Generator().manual_seed(24)
+    xbc = torch.randn(1, s, offset + h * p + 2 * n, generator=g)
+    xbc[..., offset + h * p:] /= 2
+    xbc = xbc.to(cuda)[..., offset:]
+    x = xbc[..., :h * p].reshape(1, s, h, p)
+    bm, cm = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+    dt = torch.nn.functional.softplus(
+        torch.randn(1, s, h, generator=g)).to(cuda) / 2
+    a = -torch.exp(torch.randn(h, generator=g) * 0.3).to(cuda)
+    y, state = ssd_ops.ssd_chunked(x, dt, a, bm, cm, chunk=128)
+    want_y, want_state = ssd_ref.ssd_scan(
+        x.transpose(1, 2), dt.transpose(1, 2), a, bm, cm, chunk=128)
+    _ssd_close(y.transpose(1, 2), want_y, SSD_TOL[torch.float32], "y")
+    _ssd_close(state, want_state, SSD_TOL[torch.float32], "final state")
